@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of the KGE serving path.
+
+A second package beside the JAX/Pallas reference ``repro``: the same
+subpackage layout and names, rewritten in PyTorch, with every Pallas kernel
+on the serving path replaced by a CUDA C++ kernel for Hopper (``csrc/``).
+The port imports ``torch`` and numpy only — never ``jax`` and nothing of
+``repro``.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+A CPU tensor takes each kernel's plain PyTorch version; a CUDA tensor
+launches the kernel or raises.
+"""
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

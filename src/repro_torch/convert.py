@@ -1,0 +1,58 @@
+"""Weights from the JAX package into the port.
+
+The JAX package's entity table and decoder parameter tree, handed over as
+numpy arrays (``np.asarray`` of each leaf), become the port's tensors, so
+both packages can start from the same weights.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.decoders import Decoder, get_decoder
+
+
+def _f32_array(name: str, x) -> np.ndarray:
+    a = np.asarray(x)
+    if a.dtype != np.float32:
+        raise TypeError(f"{name} must be float32, got {a.dtype}")
+    return a
+
+
+def from_jax(entity_emb, decoder_params: Mapping, *,
+             decoder: Optional[Union[str, Decoder]] = None,
+             device=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``(N, d)`` float32 entity table and the decoder's parameter tree
+    (name → float32 array) → ``(table tensor, {name: tensor})`` on
+    ``device`` (default ``cuda``), copied.
+
+    With ``decoder`` the parameter names and shapes are checked against the
+    decoder's own (``Decoder.param_shapes``) for the table's width; without
+    it every parameter must at least be a 2-D float32 array with the same
+    number of rows."""
+    dev = resolve_device(device)
+    emb = _f32_array("entity_emb", entity_emb)
+    if emb.ndim != 2:
+        raise ValueError(f"entity_emb must be (N, d), got {emb.shape}")
+    params = {str(k): _f32_array(f"decoder_params[{k!r}]", v)
+              for k, v in decoder_params.items()}
+    if not params:
+        raise ValueError("decoder_params is empty")
+    rows = {p.shape[0] if p.ndim else None for p in params.values()}
+    if len(rows) != 1 or None in rows or any(
+            p.ndim != 2 for p in params.values()):
+        raise ValueError(
+            "decoder parameters must be 2-D tables over one relation "
+            f"vocabulary, got shapes { {k: p.shape for k, p in params.items()} }")
+    if decoder is not None:
+        want = get_decoder(decoder).param_shapes(rows.pop(), emb.shape[1])
+        got = {k: p.shape for k, p in params.items()}
+        if got != want:
+            raise ValueError(
+                f"decoder {get_decoder(decoder).name!r} expects parameters "
+                f"{want} for d={emb.shape[1]}, got {got}")
+    return (torch.tensor(emb, device=dev),
+            {k: torch.tensor(p, device=dev) for k, p in params.items()})

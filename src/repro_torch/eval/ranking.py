@@ -1,0 +1,200 @@
+"""Known-triplet filter index (port of the filter part of
+``repro/eval/ranking.py``).
+
+Filtered link prediction masks every candidate that forms a KNOWN positive.
+The filter is a ``CSRFilterIndex``: known (s, r) pairs as a sorted int64 key
+array plus a CSR ``indptr`` into one flat ``tails`` array, built with one
+lexsort and applied with one searchsorted + one scatter per batch. Its
+COLUMN-RANGE ``bias`` builds one block of the bias straight from CSR, which
+is how the sharded serving path gets per-shard bias blocks without the
+dense ``(B, N)`` matrix. ``build_filter_index`` keeps the dict-of-sets
+reference form. All of it is host numpy.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterable, Optional, Tuple, Union
+
+import numpy as np
+
+from repro_torch.core.graph import KnowledgeGraph
+
+# Additive score mask for filtered-out candidates: large-negative rather
+# than -inf so a filtered candidate loses cleanly without inf-inf NaNs; pad
+# rows (never real candidates) use -inf.
+FILTER_BIAS = -1e9
+
+
+def build_filter_index(graphs: Iterable[KnowledgeGraph]) -> Dict:
+    """(s, r) -> set of known-true tails, over all splits — the
+    per-triplet reference form the CSR index is tested against."""
+    idx: Dict = {}
+    for g in graphs:
+        for s, r, t in g.triplets():
+            idx.setdefault((int(s), int(r)), set()).add(int(t))
+    return idx
+
+
+@dataclasses.dataclass(frozen=True)
+class CSRFilterIndex:
+    """Vectorized ``(s, r) → known tails`` filter index in CSR form.
+
+    ``keys`` holds every known (s, r) pair encoded as ``s * num_relations
+    + r`` (int64, sorted, unique); ``tails[indptr[k]:indptr[k+1]]`` are the
+    known-true tails of ``keys[k]`` (deduplicated).
+    """
+
+    keys: np.ndarray        # (K,) int64, sorted unique s * num_relations + r
+    indptr: np.ndarray      # (K + 1,) int64
+    tails: np.ndarray       # (nnz,) int32, grouped by key
+    num_relations: int      # key encoding stride (covers inverse relations)
+
+    @classmethod
+    def build(cls, graphs: Iterable[KnowledgeGraph],
+              num_relations: Optional[int] = None) -> "CSRFilterIndex":
+        """Build from all splits' triplets with one lexsort (duplicates —
+        across splits or within one — are dropped)."""
+        graphs = list(graphs)
+        if num_relations is None:
+            num_relations = max(
+                [int(g.num_relations) for g in graphs], default=1)
+        if graphs:
+            cat = np.concatenate([g.triplets() for g in graphs], axis=0)
+        else:
+            cat = np.zeros((0, 3), np.int32)
+        key = cat[:, 0].astype(np.int64) * num_relations + cat[:, 1]
+        tail = cat[:, 2].astype(np.int32)
+        order = np.lexsort((tail, key))
+        key, tail = key[order], tail[order]
+        if key.size:
+            keep = np.ones(key.size, bool)
+            keep[1:] = (key[1:] != key[:-1]) | (tail[1:] != tail[:-1])
+            key, tail = key[keep], tail[keep]
+        ukeys, starts = np.unique(key, return_index=True)
+        indptr = np.concatenate(
+            [starts, [key.size]]).astype(np.int64)
+        return cls(keys=ukeys, indptr=indptr, tails=tail,
+                   num_relations=int(num_relations))
+
+    @property
+    def num_pairs(self) -> int:
+        return int(self.keys.shape[0])
+
+    def _check_rel(self, r) -> None:
+        # s * num_relations + r is injective only for r < num_relations:
+        # an out-of-range relation would silently hit another pair's tails
+        r = np.asarray(r)
+        if np.any(r >= self.num_relations) or np.any(r < 0):
+            raise ValueError(
+                f"query relation id outside [0, {self.num_relations}) — "
+                f"build the index over the same (inverse-augmented) "
+                f"relation vocabulary it is queried with")
+
+    def _stride(self) -> int:
+        """Exclusive upper bound on stored tail ids (cached): a column
+        range reaching it covers every tail."""
+        cached = getattr(self, "_stride_cache", None)
+        if cached is None:
+            cached = int(self.tails.max()) + 1 if self.tails.size else 1
+            object.__setattr__(self, "_stride_cache", cached)
+        return cached
+
+    def _range_index(self) -> np.ndarray:
+        """``aug[i] = segment(i) * stride + tails[i]``: globally
+        non-decreasing, so each query's in-range tail span is two
+        ``searchsorted``s. Built on the first sub-range query and
+        cached."""
+        cached = getattr(self, "_range_cache", None)
+        if cached is not None:
+            return cached
+        seg = np.repeat(np.arange(self.num_pairs, dtype=np.int64),
+                        np.diff(self.indptr))
+        aug = seg * self._stride() + self.tails
+        object.__setattr__(self, "_range_cache", aug)
+        return aug
+
+    def resolve_queries(
+            self, triplets: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-row key positions for a batch: ``(pos, found)`` with
+        ``keys[pos[i]]`` the row's (s, r) key where ``found[i]``. Shared by
+        every column-range ``bias`` block of the batch."""
+        trip = np.asarray(triplets)
+        b = trip.shape[0]
+        if b == 0 or self.num_pairs == 0:
+            return (np.zeros(b, np.int64), np.zeros(b, bool))
+        self._check_rel(trip[:, 1])
+        q = trip[:, 0].astype(np.int64) * self.num_relations + trip[:, 1]
+        pos = np.searchsorted(self.keys, q)
+        pos_c = np.minimum(pos, self.num_pairs - 1)
+        found = (pos < self.num_pairs) & (self.keys[pos_c] == q)
+        return pos_c, found
+
+    def tails_of(self, s: int, r: int) -> np.ndarray:
+        """Known tails of one (s, r) pair (empty if absent)."""
+        self._check_rel(r)
+        q = np.int64(s) * self.num_relations + r
+        k = int(np.searchsorted(self.keys, q))
+        if k >= self.num_pairs or self.keys[k] != q:
+            return np.zeros(0, np.int32)
+        return self.tails[self.indptr[k]: self.indptr[k + 1]]
+
+    def bias(self, triplets: np.ndarray, num_cols: int,
+             col_start: int = 0,
+             resolved: Optional[Tuple[np.ndarray, np.ndarray]] = None
+             ) -> np.ndarray:
+        """(B, num_cols) float32 filter bias covering global candidate
+        columns ``[col_start, col_start + num_cols)``: ``FILTER_BIAS`` on
+        every known tail of each row's (s, r), 0 elsewhere — and 0 on the
+        row's own true tail (serving passes the sentinel ``t = -1``, so
+        every known tail is filtered). Columns at or beyond the vocabulary
+        stay 0; a caller with padded rows there masks them itself.
+        ``resolved`` is a cached ``resolve_queries`` result."""
+        trip = np.asarray(triplets)
+        b = trip.shape[0]
+        out = np.zeros((b, num_cols), np.float32)
+        if b == 0 or num_cols == 0 or self.num_pairs == 0:
+            return out
+        pos_c, found = (self.resolve_queries(trip) if resolved is None
+                        else resolved)
+        if col_start <= 0 and col_start + num_cols >= self._stride():
+            # full range: spans come straight off indptr
+            starts = np.where(found, self.indptr[pos_c], 0)
+            counts = np.where(found, self.indptr[pos_c + 1] - starts, 0)
+        else:
+            # each query's IN-RANGE tail span via the augmented range index
+            stride, aug = self._stride(), self._range_index()
+            lo_q = min(max(col_start, 0), stride)
+            hi_q = min(max(col_start + num_cols, 0), stride)
+            starts = np.searchsorted(aug, pos_c * stride + lo_q)
+            ends = np.searchsorted(aug, pos_c * stride + hi_q)
+            counts = np.where(found, ends - starts, 0)
+            starts = np.where(found, starts, 0)
+        total = int(counts.sum())
+        if total:
+            rows = np.repeat(np.arange(b), counts)
+            csum = np.concatenate([[0], np.cumsum(counts)[:-1]])
+            flat = np.repeat(starts - csum, counts) + np.arange(total)
+            out[rows, self.tails[flat] - col_start] = FILTER_BIAS
+        t = trip[:, 2]
+        in_range = (t >= col_start) & (t < col_start + num_cols)
+        out[np.nonzero(in_range)[0], t[in_range] - col_start] = 0.0
+        return out
+
+
+FilterIndex = Union[Dict, CSRFilterIndex]
+
+
+def _filter_bias(filter_index: FilterIndex, batch: np.ndarray,
+                 num_cols: int, col_start: int = 0,
+                 resolved=None) -> np.ndarray:
+    """(B, num_cols) bias covering global candidate columns
+    ``[col_start, col_start + num_cols)`` from either index form."""
+    if isinstance(filter_index, CSRFilterIndex):
+        return filter_index.bias(batch, num_cols, col_start, resolved)
+    bias = np.zeros((batch.shape[0], num_cols), np.float32)
+    for i, (s, r, t) in enumerate(batch):
+        known = filter_index.get((int(s), int(r)), ())
+        for k in known:
+            if k != int(t) and col_start <= k < col_start + num_cols:
+                bias[i, k - col_start] = FILTER_BIAS
+    return bias

@@ -1,0 +1,90 @@
+"""Public wrappers around the kernels, the serving subset of
+``repro/kernels/ops.py``: optional arguments, k checks, the shard merge and
+the flat-index gather plan.
+
+The TPU wrappers padded B and C to the kernels' 128-row tiles; the CUDA
+kernels take ragged shapes, so nothing is padded here and the results are
+the TPU wrappers' sliced results.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.kge_score import kge_score
+from repro_torch.kernels.sharded_gather import fused_gather
+from repro_torch.kernels.topk import topk_scores
+
+
+def kge_score_padded(q: torch.Tensor, candidates: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None,
+                     q_bias: Optional[torch.Tensor] = None,
+                     c_bias: Optional[torch.Tensor] = None, *,
+                     epilogue: str = "bilinear") -> torch.Tensor:
+    """``epilogue(q @ candidates.T + q_bias + c_bias) + bias`` over a
+    ``(B, C)`` block; missing biases are zeros."""
+    b, c = q.shape[0], candidates.shape[0]
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=q.device)
+
+    return kge_score(
+        q.contiguous(), candidates.contiguous(),
+        zeros(b, c) if bias is None else bias.contiguous(),
+        zeros(b) if q_bias is None else q_bias.contiguous(),
+        zeros(c) if c_bias is None else c_bias.contiguous(),
+        epilogue=epilogue)
+
+
+def topk_padded(scores: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(values (B, k), indices (B, k))``, values descending, ties broken
+    toward the LOWEST index. ``k`` must already be clamped to ``[1, C]``
+    (the serving layer owns the vocabulary clamp)."""
+    c = scores.shape[1]
+    if not 1 <= k <= c:
+        raise ValueError(f"k={k} outside [1, C={c}] — clamp before topk")
+    return topk_scores(scores.float().contiguous(), k)
+
+
+def merge_topk(vals: torch.Tensor, ids: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global k-way merge of per-shard winners: top-k over the concatenated
+    ``(B, S·k')`` value rows, returning the winners' GLOBAL ids.
+
+    Exact: each shard's list is (value desc, local index asc) and shard row
+    blocks cover contiguous ascending global-id ranges, so among equal
+    values a lower concat position is always a lower global id."""
+    c = vals.shape[1]
+    if not 1 <= k <= c:
+        raise ValueError(f"k={k} outside [1, C={c}] — clamp before merging")
+    return topk_scores(vals.float().contiguous(), k, ids.long().contiguous())
+
+
+def flat_gather_plan(local_ids: torch.Tensor, owned: torch.Tensor,
+                     rows_per_shard: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Collapse an ``(S, V)`` per-shard gather plan into flat rows:
+    ``flat[v] = Σ_s owned[s, v] ? s·rows + local[s, v] : 0`` — the slot's
+    row in the stacked ``(S·rows, d)`` table — and ``any_owned[v]``, false
+    for slots no shard owns (dedup padding), which gather exact zeros."""
+    s = local_ids.shape[0]
+    offsets = (torch.arange(s, dtype=torch.int64, device=local_ids.device)
+               * rows_per_shard).reshape((s,) + (1,) * (local_ids.dim() - 1))
+    flat = torch.where(owned, local_ids.long() + offsets, 0).sum(dim=0)
+    return flat, owned.any(dim=0)
+
+
+def fused_sharded_gather(table: torch.Tensor, local_ids: torch.Tensor,
+                         owned: torch.Tensor) -> torch.Tensor:
+    """``(V, d)`` rows of an ``(S, rows, d)`` row-sharded stack from an
+    ``(S, V)`` per-shard plan: the take → mask → sum exchange as one masked
+    row gather, bitwise equal to the chain. The plan is resolved where it
+    lies (the host, for the server's numpy plans) and moved to the table's
+    device with the two ``(V,)`` arrays. Forward only: serving needs no
+    gradient."""
+    s, rows, d = table.shape
+    flat, any_owned = flat_gather_plan(local_ids, owned, rows)
+    return fused_gather(table.reshape(s * rows, d),
+                        flat.to(table.device), any_owned.to(table.device))

@@ -1,0 +1,42 @@
+"""Plain PyTorch references for the kernels, under the JAX package's
+``repro/kernels/ref.py`` names.
+
+Each kernel's plain version sits beside it in its own module; this module
+gives them the reference signatures (optional biases) and keeps the
+original take → mask → sum exchange chain that the fused gather replaces.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.kge_score import apply_epilogue
+from repro_torch.kernels.topk import topk_plain as topk_ref
+
+__all__ = ["kge_score_ref", "topk_ref", "sharded_gather_ref"]
+
+
+def kge_score_ref(q: torch.Tensor, candidates: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None,
+                  q_bias: Optional[torch.Tensor] = None,
+                  c_bias: Optional[torch.Tensor] = None,
+                  epilogue: str = "bilinear") -> torch.Tensor:
+    """``epilogue(q @ candidates.T + q_bias + c_bias) + bias``; a missing
+    bias is not added."""
+    x = q @ candidates.T
+    if q_bias is not None:
+        x = x + q_bias[:, None]
+    if c_bias is not None:
+        x = x + c_bias[None, :]
+    out = apply_epilogue(x, epilogue)
+    return out if bias is None else out + bias
+
+
+def sharded_gather_ref(table: torch.Tensor, local_ids: torch.Tensor,
+                       owned: torch.Tensor) -> torch.Tensor:
+    """The shard-local take → mask → sum chain over an ``(S, rows, d)``
+    stack with ``(S, V)`` local ids and ownership masks."""
+    g = torch.stack([table[s][local_ids[s]] for s in range(table.shape[0])])
+    zero = torch.zeros((), dtype=table.dtype, device=table.device)
+    return torch.where(owned[:, :, None], g, zero).sum(dim=0)

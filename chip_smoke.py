@@ -5,20 +5,36 @@
 
 Phases, each of which fails the run on error:
 
-1. Build: compile the three CUDA kernels from ``src/repro_torch/csrc`` with
-   ``nvcc`` for ``sm_90a`` (one process per source, all at once).
-2. Kernel vs plain: each kernel against its plain PyTorch version on the
-   card at the serving shapes, with its time, its plain version's time,
-   one PyTorch library call's time and the least time the card could take.
-3. FB15k-237 width (N=14,541, R=474, d=75): serve 200 Zipf(1.3) requests
+1. Build: compile the four CUDA sources from ``src/repro_torch/csrc`` with
+   ``nvcc -Xptxas -v`` for ``sm_90a`` (one process per source, all at once).
+2. Kernel vs plain: each of the five kernels against its plain PyTorch
+   version on the card, with its time, its plain version's time, one
+   PyTorch library call's time and the least time the card could take:
+   kge_score, topk and fused_gather at the serving shapes; basis_message
+   and segment_sum at the full-graph FB15k-237 training shape (one padded
+   partition of 4: E = 377,984 edges, V = 13,760 vertices, d = 75, B = 2)
+   and at edge cases (ragged E, an all-masked tile, empty segments,
+   unsorted segments, d_in != d_out, bases over 48 KB and over the card's
+   shared memory).
+3. Serving, FB15k-237 width (N=14,541, R=474, d=75): 200 Zipf(1.3) requests
    through ``repro_torch.launch.serve`` with distmult and transe at 1 and 4
    table shards, filtered, cache 256, 8 slots, k=10; sharded == dense.
-4. ogbl-citation2 width (N=2,927,963, R=2, d=32): distmult, 1 shard,
-   unfiltered, 64 requests; sharded == dense.
-5. Launch counts: every kernel launched during phases 3-4.
-6. Profile: steady serving steps of each configuration under
-   ``torch.profiler``: host time per step, the card's busy time, the idle
-   share and the device operations that took the most time.
+4. Serving, ogbl-citation2 width (N=2,927,963, R=2, d=32): distmult, 1
+   shard, unfiltered, 64 requests; sharded == dense.
+5. Launch counts of the serving path (phases 3-4): kge_score, topk and
+   fused_gather each launched.
+6. Training, full-graph FB15k-237 at full width through
+   ``repro_torch.launch.train`` (--arch rgcn-fb15k237 --use-kernel
+   --trainers 4 --epochs 3 --scale 1.0: d=75, dropout 0.2), then the
+   filtered test evaluation; launch counts of that path (basis_message,
+   segment_sum and kge_score each launched). The same run without
+   --use-kernel (the plain encoder on the card) must give the same
+   per-epoch losses within rtol=1e-3, atol=1e-4, and the kernel and plain
+   encoders the same embeddings of the trained model.
+7. Profile under ``torch.profiler``: steady serving steps of each serving
+   configuration, one steady training step (kernel and plain encoder) and
+   one evaluation encode: host time per step, the card's busy time, the
+   idle share and the device operations that took the most time.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -48,16 +64,28 @@ FB15K = dict(entities=14541, relations=474, dim=75)      # configs RGCN_FB15K237
 CITATION2 = dict(entities=2927963, relations=2, dim=32)  # configs RGCN_CITATION2
 SLOTS, K = 8, 10
 
+TRAIN_ARGV = ["--arch", "rgcn-fb15k237", "--trainers", "4", "--epochs", "3",
+              "--scale", "1.0", "--device", "cuda"]
+LOSS_TOL = dict(rtol=1e-3, atol=1e-4)   # kernel vs plain per-epoch losses
+EMB_TOL = dict(rtol=1e-4, atol=1e-5)    # kernel vs plain encoder outputs
+
+# each kernel's pallas_call in the JAX package
 REPLACES = {
     "kge_score": "src/repro/kernels/kge_score.py:95",
     "topk": "src/repro/kernels/topk.py:98",
     "fused_gather": "src/repro/kernels/sharded_gather.py:87",
+    "basis_message": "src/repro/kernels/rgcn_message.py:79",
+    "segment_sum": "src/repro/kernels/rgcn_message.py:152",
 }
 SOURCES = {
     "kge_score": "src/repro_torch/csrc/kge_score.cu",
     "topk": "src/repro_torch/csrc/topk.cu",
     "fused_gather": "src/repro_torch/csrc/sharded_gather.cu",
+    "basis_message": "src/repro_torch/csrc/rgcn_message.cu",
+    "segment_sum": "src/repro_torch/csrc/rgcn_message.cu",
 }
+SERVING_KERNELS = ("kge_score", "topk", "fused_gather")
+TRAINING_KERNELS = ("basis_message", "segment_sum", "kge_score")
 
 
 def log(msg: str) -> None:
@@ -91,9 +119,9 @@ def short_name(name: str) -> str:
 
 
 def device_activity(prof):
-    """``(busy_us, {name: us})`` of a profile's device-side activity
-    (kernels and copies): the union of their intervals, and each short
-    name's summed duration."""
+    """``(busy_us, {name: us}, count)`` of a profile's device-side activity
+    (kernels and copies): the union of their intervals, each short name's
+    summed duration, and the number of device events."""
     from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
@@ -104,27 +132,67 @@ def device_activity(prof):
         if hi > end:
             busy += hi - max(lo, end)
             end = hi
-    return busy, by_name
+    return busy, by_name, len(spans)
+
+
+def profiled(fn, reps: int, windows: int = 5, host: bool = True):
+    """One complete ``torch.profiler`` window of ``reps`` calls of ``fn``:
+    ``{"busy_us", "by_name", "count", "wall_us"}``, the wall time on the
+    host clock ending in a synchronise. ``host=False`` records device
+    activity only, which costs the host less.
+
+    The profiler on the card can deliver a window that misses device
+    events or holds a few extra ones (windows of one 0.3 ms kernel once
+    held 1 % of its events; windows of one serving stream held 148, 150,
+    148, 148 events). Every window of the same calls launches the same
+    device work, so windows are taken until two of them deliver the same
+    number of device events, and the first of those is returned; after
+    ``windows`` windows without such a pair it raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    seen = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA] + (
+                [ProfilerActivity.CPU] if host else [])) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy, by_name, count = device_activity(prof)
+        for w in seen:
+            if count > 0 and w["count"] == count:
+                return w
+        seen.append(dict(busy_us=busy, by_name=by_name, count=count,
+                         wall_us=wall_us))
+    raise RuntimeError(f"torch.profiler gave no two windows with the same "
+                       f"device activity in {windows} (device events per "
+                       f"window: {[w['count'] for w in seen]}), so no "
+                       f"device time can be given")
 
 
 def device_ms(fn, reps: int = 10) -> float:
     """Device time per call of ``fn``: the busy time of everything it runs
-    on the card, from ``torch.profiler`` over ``reps`` calls. Raises when
-    the profiler records no device activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    on the card, from a complete ``torch.profiler`` window of ``reps``
+    calls (:func:`profiled`)."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy, _ = device_activity(prof)
-    if busy <= 0:
-        raise RuntimeError("torch.profiler recorded no device activity, so "
-                           "no device time can be given")
-    return busy / reps / 1e3
+    return profiled(fn, reps)["busy_us"] / reps / 1e3
+
+
+def step_profile(fn, steps: int = 1, top: int = 8):
+    """Host time per call of ``fn`` (``steps`` calls ending in a
+    synchronise), the card's busy time per call, the idle share and the
+    device operations that took the most time, from a complete profiler
+    window of device activity."""
+    w = profiled(fn, steps, host=False)
+    names = sorted(w["by_name"].items(), key=lambda kv: -kv[1])[:top]
+    return dict(step_ms=w["wall_us"] / steps / 1e3,
+                device_ms_per_step=w["busy_us"] / steps / 1e3,
+                idle_share=1.0 - w["busy_us"] / w["wall_us"],
+                device_events=w["count"],
+                top_device_ms_per_step={n: t / steps / 1e3
+                                        for n, t in names})
 
 
 def timed(fn, reps: int = 20, warmup: int = 3):
@@ -335,6 +403,199 @@ def check_fused_gather(dev, rng, widths):
     return max_err, stats
 
 
+def training_partition():
+    """The host arrays of one padded partition of the full-graph training
+    run: FB15k-237 width at scale 1.0, vertex-cut into 4 trainers, 2 hops
+    (the partition the kernels see in phase 6)."""
+    from repro_torch.data import synthetic_fb15k
+    from repro_torch.training.preprocessing import preprocess_graph
+    kg = synthetic_fb15k(scale=1.0, seed=0)["train"].with_inverse_relations()
+    pad = preprocess_graph(kg, num_trainers=4, num_hops=2, seed=0).padded
+    return dict(src=pad.src[0], rel=pad.rel[0], dst=pad.dst[0],
+                mask=pad.edge_mask[0], V=pad.padded_vertices,
+                E=pad.padded_edges, R=kg.num_relations)
+
+
+def gamma(n):
+    """gamma_n = n u / (1 - n u), the fp32 bound on a sum of n terms."""
+    return n * U32 / (1 - n * U32)
+
+
+def check_basis_message(dev, rng, part):
+    """The training shape (one partition's gathers at d=75, B=2) and the
+    edge cases; returns (max |err|, per-shape times, edge-case configs).
+
+    Both sides compute sum_b c_b sum_i h_i W_bio in fp32 in different
+    orders (the kernel: fixed fmaf chains; the plain einsums: cuBLAS's
+    blocking), so each is within gamma_{d_in+B} * S of the exact value with
+    S = sum_b |c_b| sum_i |h_i W_bio|; the bound is twice that. Masked
+    edges must be exactly 0 on both."""
+    import torch
+    from repro_torch.kernels.rgcn_message import (
+        basis_message, basis_message_config, basis_message_plain,
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    v, e, r = part["V"], part["E"], part["R"]
+    cases = [("train", e, 75, 75, 2, part["dst"], part["rel"], part["mask"]),
+             ("ragged", 1000, 75, 75, 2, None, None, None),
+             ("d_in!=d_out", 777, 128, 75, 3, None, None, None),
+             ("bases>48KB", 2000, 128, 128, 2, None, None, None),
+             ("bases>smem", 513, 256, 256, 2, None, None, None)]
+    max_err, stats, configs = 0.0, {}, {}
+    for label, ne, d_in, d_out, nb, dst, rel, mask in cases:
+        if dst is None:
+            dst = rng.integers(0, v, ne)
+            rel = rng.integers(0, r, ne)
+            mask = rng.random(ne) < .9
+            mask[:128] = False                 # an all-masked tile
+        h = torch.from_numpy(rng.normal(0, 1, (v, d_in)).astype(np.float32)
+                             ).to(dev)
+        coeffs = torch.from_numpy(rng.normal(0, .1, (r, nb)).astype(
+            np.float32)).to(dev)
+        w = torch.from_numpy(rng.normal(0, (2 / (d_in + d_out)) ** .5, (
+            nb, d_in, d_out)).astype(np.float32)).to(dev)
+        h_t = h[torch.from_numpy(np.asarray(dst, np.int64)).to(dev)]
+        coef = coeffs[torch.from_numpy(np.asarray(rel, np.int64)).to(dev)]
+        m = torch.from_numpy(np.asarray(mask, bool)).to(dev)
+        got = basis_message(h_t, coef, w, m)
+        want = basis_message_plain(h_t, coef, w, m)
+        torch.cuda.synchronize()
+        if not (bool((got[~m] == 0).all()) and bool((want[~m] == 0).all())):
+            raise AssertionError(f"basis_message {label}: a masked edge is "
+                                 f"not exactly 0")
+        s = torch.einsum("eb,ebo->eo", coef.double().abs(), torch.einsum(
+            "ed,bdo->ebo", h_t.double().abs(), w.double().abs()))
+        tol = 2 * gamma(d_in + nb) * s
+        err = (got.double() - want.double()).abs()
+        if bool((err > tol).any()):
+            raise AssertionError(
+                f"basis_message {label}: {int((err > tol).sum())} outputs "
+                f"outside the bound, worst err {float(err.max())}")
+        max_err = max(max_err, float(err.max()))
+        tile, in_smem = basis_message_config(d_in, d_out, nb)
+        configs[label] = dict(E=ne, d_in=d_in, d_out=d_out, B=nb,
+                              edges_per_block=tile, bases_in_smem=in_smem)
+        log(f"[phase 2] basis_message {label} (E={ne}, d_in={d_in}, "
+            f"d_out={d_out}, B={nb}; {tile} edges per block, bases in "
+            f"{'shared' if in_smem else 'global'} memory): max err "
+            f"{float(err.max()):.3g}")
+        if label == "train":
+            n_on = int(m.sum())
+            nbytes = 4 * (ne * d_in + ne * nb + nb * d_in * d_out
+                          + ne * d_out) + ne
+            ops = 2 * n_on * nb * d_out * (d_in + 1)
+            stats[label] = dict(E=ne, d=d_in, B=nb, **timings(
+                lambda: basis_message(h_t, coef, w, m),
+                lambda: basis_message_plain(h_t, coef, w, m),
+                lambda: torch.einsum("ebo,eb->eo", torch.einsum(
+                    "ed,bdo->ebo", h_t, w), coef),
+                *bound_ms(nbytes, ops)))
+            report("basis_message", f"train (E={ne}, d={d_in}, B={nb})",
+                   stats[label], "einsum pair")
+    return max_err, stats, configs
+
+
+def check_segment_sum(dev, rng, part):
+    """The training shape (one partition's heads and mask, d=75) and the
+    edge cases; deg must be ==, agg within 2 gamma_n sum|msg| of the plain
+    version (n = the segment's length: both add the same terms in other
+    orders), and two runs bitwise equal. Returns (max |err|, times)."""
+    import torch
+    from repro_torch.kernels.rgcn_message import (
+        segment_key, segment_plan, segment_sum, segment_sum_plain,
+        segment_sum_planned,
+    )
+    v, e = part["V"], part["E"]
+    cases = [("train", e, v, 75, part["src"], part["mask"]),
+             ("ragged unsorted", 1000, 300, 75, None, None),
+             ("sorted", 4000, 500, 32, "sorted", None),
+             ("hub + empty", 70000, 2000, 75, "hub", None)]
+    max_err, stats = 0.0, {}
+    for label, ne, nv, d, seg, mask in cases:
+        if seg is None or isinstance(seg, str):
+            kind = seg
+            seg = rng.integers(0, nv // 2, ne)    # upper half stays empty
+            if kind == "sorted":
+                seg = np.sort(seg)
+            if kind == "hub":
+                seg[rng.random(ne) < .6] = 7      # one 42,000-edge segment
+            mask = rng.random(ne) < .9
+            mask[:128] = False
+        msg = torch.from_numpy(rng.normal(0, 1, (ne, d)).astype(np.float32)
+                               ).to(dev)
+        seg_t = torch.from_numpy(np.asarray(seg, np.int32)).to(dev)
+        m = torch.from_numpy(np.asarray(mask, bool)).to(dev)
+        agg, deg = segment_sum(msg, seg_t, m, nv)
+        agg2, deg2 = segment_sum(msg, seg_t, m, nv)
+        pagg, pdeg = segment_sum_plain(msg, seg_t, m, nv)
+        torch.cuda.synchronize()
+        if not (torch.equal(agg.view(torch.int32), agg2.view(torch.int32))
+                and torch.equal(deg, deg2)):
+            raise AssertionError(f"segment_sum {label}: two runs differ")
+        if not torch.equal(deg, pdeg):
+            raise AssertionError(f"segment_sum {label}: deg != plain")
+        key = segment_key(seg_t, m, nv)
+        s = torch.zeros((nv + 1, d), dtype=torch.float64,
+                        device=dev).index_add_(0, key, msg.double().abs())
+        tol = 2 * gamma(deg.double())[:, None] * s[:nv]
+        err = (agg.double() - pagg.double()).abs()
+        if bool((err > tol).any()):
+            raise AssertionError(
+                f"segment_sum {label}: {int((err > tol).sum())} sums outside "
+                f"the bound, worst err {float(err.max())}")
+        max_err = max(max_err, float(err.max()))
+        log(f"[phase 2] segment_sum {label} (E={ne}, V={nv}, d={d}, longest "
+            f"segment {int(deg.max())}): max err {float(err.max()):.3g}, "
+            f"deg ==, two runs bitwise equal")
+        if label == "train":
+            plan = segment_plan(seg_t, m, nv)
+            n_on = int(m.sum())
+            nbytes = 4 * n_on * d + 5 * ne + 4 * nv * d + 4 * nv
+            st = dict(E=ne, V=nv, d=d, longest_segment=int(deg.max()),
+                      **timings(
+                          lambda: segment_sum(msg, seg_t, m, nv),
+                          lambda: segment_sum_plain(msg, seg_t, m, nv),
+                          lambda: torch.zeros((nv + 1, d), device=dev)
+                          .index_add_(0, key, msg),
+                          *bound_ms(nbytes, n_on * d)))
+            st["kernel_ms"], _ = timed(
+                lambda: segment_sum_planned(msg, *plan, nv))
+            st["plan_ms"], _ = timed(lambda: segment_plan(seg_t, m, nv))
+            stats[label] = st
+            report("segment_sum", f"train (E={ne}, V={nv}, d={d})", st,
+                   "index_add_")
+            log(f"[phase 2] segment_sum train: kernels alone "
+                f"{st['kernel_ms']:.4f} ms, the sort plan (argsort, "
+                f"index_add_ counts, cumsum) {st['plan_ms']:.4f} ms")
+    return max_err, stats
+
+
+# ---------------------------------------------------------------------- #
+# phase 6: the training path through its entry point
+# ---------------------------------------------------------------------- #
+def train_once(use_kernel: bool):
+    """``repro_torch.launch.train`` at full width: 3 epochs, 4 trainers,
+    then the test evaluation. Returns its result and the kernel launches
+    the run made."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train
+    for w in KERNELS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = train.main(TRAIN_ARGV + (["--use-kernel"] if use_kernel else []))
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = {n: w.launches for n, w in KERNELS.items()}
+    return out
+
+
+def plain_twin(trainer):
+    """The trainer's encoder config with the plain message passing."""
+    import dataclasses
+    cfg = trainer.kge_cfg
+    return dataclasses.replace(cfg, rgcn=dataclasses.replace(
+        cfg.rgcn, use_kernel=False))
+
+
 # ---------------------------------------------------------------------- #
 # phases 3-4: the serving path through its entry points
 # ---------------------------------------------------------------------- #
@@ -368,13 +629,10 @@ def serve_once(width, decoder, shards, requests, *, filtered, cache_size):
 
 def profile_serving(width, decoder, shards, *, filtered, cache_size,
                     steps: int = 10):
-    """Where a serving step's time goes (phase 6): host-clock time per
-    engine step over ``steps`` steady steps, the card's busy time per step
-    from ``torch.profiler`` (device activity only), the idle share, and the
-    device operations that took the most time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where a serving step's time goes (phase 7): :func:`step_profile` of
+    ``steps`` steady engine steps. The profiled stream is played once
+    before the windows, so every window meets the same cache state and
+    launches the same work."""
     from repro_torch.launch import serve
     from repro_torch.serving import KGEServeEngine
     args = serve.parse_args(
@@ -382,30 +640,23 @@ def profile_serving(width, decoder, shards, *, filtered, cache_size,
     server, _, _ = serve.build_server(args)
     engine = KGEServeEngine(server, slots=SLOTS, max_k=K, filtered=filtered)
     rng = np.random.default_rng(3)
-    heads = np.minimum(rng.zipf(1.3, SLOTS * (steps + 3)) - 1,
+    heads = np.minimum(rng.zipf(1.3, SLOTS * steps) - 1,
                        width["entities"] - 1)
     rels = rng.integers(0, width["relations"], heads.size)
 
-    def step(i):
-        for j in range(i * SLOTS, (i + 1) * SLOTS):
-            engine.submit(int(heads[j]), int(rels[j]), k=K)
-        engine.run()
+    def stream():
+        for i in range(steps):
+            for j in range(i * SLOTS, (i + 1) * SLOTS):
+                engine.submit(int(heads[j]), int(rels[j]), k=K)
+            engine.run()
 
-    for i in range(3):
-        step(i)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(3, 3 + steps):
-            step(i)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy, by_name = device_activity(prof)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return dict(step_ms=wall_us / steps / 1e3,
-                device_ms_per_step=busy / steps / 1e3,
-                idle_share=1.0 - busy / wall_us,
-                top_device_ms_per_step={n: t / steps / 1e3 for n, t in top})
+    stream()
+    p = step_profile(stream, top=6)
+    for key in ("step_ms", "device_ms_per_step"):
+        p[key] /= steps
+    p["top_device_ms_per_step"] = {
+        n: t / steps for n, t in p["top_device_ms_per_step"].items()}
+    return p
 
 
 def nvidia_smi() -> str:
@@ -426,7 +677,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from repro_torch.kernels import KERNELS, _build
+    from repro_torch.training.evaluation import encode_all_entities
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
@@ -439,10 +692,10 @@ def main() -> int:
     log(f"[phase 1] built {sorted(logs)} with nvcc in {build_s:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[phase 1] {name}: {line.strip()}")
 
-    # phase 2: kernel vs plain at the serving shapes
+    # phase 2: kernel vs plain at the serving and training shapes
     rng = np.random.default_rng(0)
     n, d = FB15K["entities"], FB15K["dim"]
     widths = [("fb15k237_S1", n, d), ("fb15k237_S4", -(-n // 4), d),
@@ -452,8 +705,18 @@ def main() -> int:
     phase2 = {"kge_score": check_kge_score(dev, rng, widths),
               "topk": check_topk(dev, rng, widths),
               "fused_gather": check_fused_gather(dev, rng, gather_widths)}
-    log("[phase 2] kge_score allclose within its stated bound; topk and "
-        "fused_gather bitwise equal to their plain versions")
+    t0 = time.perf_counter()
+    part = training_partition()
+    log(f"[phase 2] training partition: V={part['V']}, E={part['E']} "
+        f"({int(part['mask'].sum())} real edges), R={part['R']}; "
+        f"preprocessing {time.perf_counter() - t0:.1f} s")
+    bm_err, bm_stats, bm_configs = check_basis_message(dev, rng, part)
+    phase2["basis_message"] = (bm_err, bm_stats)
+    phase2["segment_sum"] = check_segment_sum(dev, rng, part)
+    log("[phase 2] kge_score and basis_message within their stated bounds; "
+        "topk and fused_gather bitwise equal to their plain versions; "
+        "segment_sum deg == plain, agg within its bound, runs bitwise "
+        "equal")
 
     # phases 3-4: the serving path; counts read around exactly these runs
     for w in KERNELS.values():
@@ -468,19 +731,60 @@ def main() -> int:
     runs["citation2_distmult_S1"] = serve_once(
         CITATION2, "distmult", 1, 64, filtered=False, cache_size=0)
     log("[phase 4] ogbl-citation2 width: sharded == dense")
-    launches = {name: w.launches for name, w in KERNELS.items()}
+    serve_launches = {name: w.launches for name, w in KERNELS.items()}
 
-    # phase 5: every kernel of the path launched during phases 3-4
-    missing = [name for name, c in launches.items() if c == 0]
+    # phase 5: every kernel of the serving path launched during phases 3-4
+    missing = [k for k in SERVING_KERNELS if serve_launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the path: {missing}")
-    log(f"[phase 5] launches during phases 3-4: {launches}")
+        raise AssertionError(f"kernels never launched on the serving path: "
+                             f"{missing}")
+    log(f"[phase 5] launches during phases 3-4: {serve_launches}")
     for label, r in runs.items():
         log(f"[serve] {label}: p50 {r['p50_ms']:.3f} ms, p99 "
             f"{r['p99_ms']:.3f} ms, {r['qps']:.1f} QPS, launches per step "
             f"{r['launches_per_step']}")
 
-    # phase 6: where a steady serving step's time goes
+    # phase 6: the training path (counts reset and read inside train_once)
+    train = {}
+    for label, use_kernel in (("kernel", True), ("plain", False)):
+        res = train_once(use_kernel)
+        train[label] = res
+        log(f"[phase 6] {label} run: losses "
+            f"{[h['loss'] for h in res['history']]}, epoch times "
+            f"{[round(h['t_epoch'], 4) for h in res['history']]} s, "
+            f"{res['wall_s']:.1f} s in all; {res['metrics']}")
+    train_launches = train["kernel"]["launches"]
+    missing = [k for k in TRAINING_KERNELS if train_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the training path: "
+                             f"{missing}")
+    epochs = len(train["kernel"]["history"])
+    log(f"[phase 6] launches during the kernel run ({epochs} steps + one "
+        f"evaluation): {train_launches}; the plain run launched "
+        f"{train['plain']['launches']}")
+    losses = {k: np.array([h["loss"] for h in r["history"]])
+              for k, r in train.items()}
+    if not np.isfinite(losses["kernel"]).all():
+        raise AssertionError(f"training losses not finite: {losses}")
+    np.testing.assert_allclose(losses["kernel"], losses["plain"], **LOSS_TOL)
+    trainer = train["kernel"]["trainer"]
+    emb_k = trainer.encode_all_entities()
+    emb_p = encode_all_entities(trainer.params, plain_twin(trainer),
+                                trainer.train_kg, trainer.cfg.num_hops,
+                                partitions=trainer.partitions,
+                                padded=trainer.padded)
+    if emb_k.shape != (FB15K["entities"], FB15K["dim"]) or \
+            not bool(torch.isfinite(emb_k).all()):
+        raise AssertionError(f"bad embeddings {tuple(emb_k.shape)}")
+    emb_err = max_abs_diff(emb_k, emb_p)
+    torch.testing.assert_close(emb_k, emb_p, **EMB_TOL)
+    for k in ("test_mrr", "test_hits@1", "test_hits@3", "test_hits@10"):
+        if not 0.0 <= train["kernel"]["metrics"][k] <= 1.0:
+            raise AssertionError(f"metric {k} out of range")
+    log(f"[phase 6] kernel == plain losses within {LOSS_TOL}; encoders "
+        f"agree within {EMB_TOL} (max |diff| {emb_err:.3g})")
+
+    # phase 7: where a steady step's time goes
     profiles = {}
     configs = [(f"fb15k237_{dec}_S{sh}", FB15K, dec, sh, True, 256)
                for dec in ("distmult", "transe") for sh in (1, 4)]
@@ -489,25 +793,51 @@ def main() -> int:
     for label, width, dec, sh, filt, cache in configs:
         p = profile_serving(width, dec, sh, filtered=filt, cache_size=cache)
         profiles[label] = p
-        log(f"[phase 6] {label}: {p['step_ms']:.3f} ms per step, device "
-            f"busy {p['device_ms_per_step']:.3f} ms, idle share "
+        log(f"[phase 7] serve {label}: {p['step_ms']:.3f} ms per step, "
+            f"device busy {p['device_ms_per_step']:.3f} ms, idle share "
             f"{p['idle_share']:.3f}; top {p['top_device_ms_per_step']}")
+    for label in ("kernel", "plain"):
+        tr = train[label]["trainer"]
+        p = step_profile(tr.train_epoch)
+        profiles[f"train_step_{label}"] = p
+        log(f"[phase 7] train step ({label} encoder): {p['step_ms']:.3f} ms, "
+            f"device busy {p['device_ms_per_step']:.3f} ms, idle share "
+            f"{p['idle_share']:.3f}; top {p['top_device_ms_per_step']}")
+    p = step_profile(trainer.encode_all_entities)
+    profiles["eval_encode_kernel"] = p
+    log(f"[phase 7] eval encode (kernel encoder): {p['step_ms']:.3f} ms, "
+        f"device busy {p['device_ms_per_step']:.3f} ms, idle share "
+        f"{p['idle_share']:.3f}; top {p['top_device_ms_per_step']}")
 
     kernels = []
-    for name in ("kge_score", "topk", "fused_gather"):
+    for name in ("kge_score", "topk", "fused_gather", "basis_message",
+                 "segment_sum"):
         max_err, stats = phase2[name]
-        head = stats["citation2_S1" if name != "fused_gather" else "citation2"]
+        head = stats["citation2_S1" if name in ("kge_score", "topk") else
+                     "citation2" if name == "fused_gather" else "train"]
+        by_path = {"serve": serve_launches[name],
+                   "train": train_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=max_err, ms=head["ms"], plain_ms=head["plain_ms"],
-            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=head["library_ms"], widths=stats))
+            replaces=REPLACES[name], launches=sum(by_path.values()),
+            launches_by_path=by_path, max_abs_err=max_err, ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=head["library_ms"],
+            widths=stats))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": card, "build_s": build_s,
-                       "kernels": kernels, "serve": runs,
-                       "profile": profiles}, f, indent=1)
+                       "kernels": kernels, "basis_message_configs": bm_configs,
+                       "serve": runs,
+                       "train": {k: {"history": r["history"],
+                                     "metrics": r["metrics"],
+                                     "launches": r["launches"],
+                                     "wall_s": r["wall_s"]}
+                                 for k, r in train.items()},
+                       "embedding_max_abs_diff": emb_err,
+                       "profile": profiles,
+                       "total_s": time.perf_counter() - t_start}, f, indent=1)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

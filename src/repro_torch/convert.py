@@ -1,8 +1,11 @@
-"""Weights from the JAX package into the port.
+"""Weights between the JAX package and the port.
 
 The JAX package's entity table and decoder parameter tree, handed over as
-numpy arrays (``np.asarray`` of each leaf), become the port's tensors, so
-both packages can start from the same weights.
+numpy arrays (``np.asarray`` of each leaf), become the port's tensors
+(:func:`from_jax`, serving), and its whole KGE parameter tree becomes the
+port's ``KGEModel`` and back (:func:`kge_model_from_jax`,
+:func:`kge_model_to_jax`), so both packages can start from the same
+weights.
 """
 from __future__ import annotations
 
@@ -56,3 +59,59 @@ def from_jax(entity_emb, decoder_params: Mapping, *,
                 f"{want} for d={emb.shape[1]}, got {got}")
     return (torch.tensor(emb, device=dev),
             {k: torch.tensor(p, device=dev) for k, p in params.items()})
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The reference's parameter tree (dicts and lists of arrays) as dotted
+    names → numpy arrays: ``layers.0.bases``, ``decoder.rel_diag``, … —
+    the port's ``named_parameters`` names."""
+    out: Dict[str, np.ndarray] = {}
+    items = (tree.items() if isinstance(tree, Mapping)
+             else enumerate(tree))
+    for key, value in items:
+        name = f"{prefix}{key}"
+        if isinstance(value, (Mapping, list, tuple)):
+            out.update(flatten_tree(value, name + "."))
+        else:
+            out[name] = np.asarray(value)
+    return out
+
+
+def kge_model_from_jax(tree: Mapping, cfg, *, device=None):
+    """The reference's ``init_kge_params`` tree (numpy leaves: ``np.asarray``
+    of each) → a :class:`repro_torch.models.kge.KGEModel` for ``cfg`` (a
+    port ``KGEConfig``) on ``device`` (default ``cuda``). Every name and
+    shape must match the model's; values are copied bit for bit."""
+    from repro_torch.models.kge import KGEModel
+    dev = resolve_device(device)
+    flat = flatten_tree(tree)
+    model = KGEModel(cfg, dev)
+    want = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    got = {n: tuple(a.shape) for n, a in flat.items()}
+    if got != want:
+        raise ValueError(f"parameter tree does not match the model: "
+                         f"expected {want}, got {got}")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(torch.tensor(_f32_array(name, flat[name])))
+    return model
+
+
+def kge_model_to_jax(model) -> Dict:
+    """A :class:`KGEModel` → the reference's tree layout with numpy leaves
+    (``{"entity_embedding", "layers": [{...}, ...], "decoder": {...}}``)."""
+    tree: Dict = {}
+    for name, p in model.named_parameters():
+        value = p.detach().cpu().numpy().copy()
+        parts = name.split(".")
+        if parts[0] == "layers":
+            layers = tree.setdefault("layers", [])
+            i = int(parts[1])
+            while len(layers) <= i:
+                layers.append({})
+            layers[i][parts[2]] = value
+        elif parts[0] == "decoder":
+            tree.setdefault("decoder", {})[parts[1]] = value
+        else:
+            tree[name] = value
+    return tree

@@ -1,5 +1,5 @@
-"""Known-triplet filter index (port of the filter part of
-``repro/eval/ranking.py``).
+"""Filtered link-prediction evaluation (port of ``repro/eval/ranking.py``,
+the dense all-entities protocol; paper §4.2, Eq. 5-6).
 
 Filtered link prediction masks every candidate that forms a KNOWN positive.
 The filter is a ``CSRFilterIndex``: known (s, r) pairs as a sorted int64 key
@@ -8,16 +8,26 @@ lexsort and applied with one searchsorted + one scatter per batch. Its
 COLUMN-RANGE ``bias`` builds one block of the bias straight from CSR, which
 is how the sharded serving path gets per-shard bias blocks without the
 dense ``(B, N)`` matrix. ``build_filter_index`` keeps the dict-of-sets
-reference form. All of it is host numpy.
+reference form. The index is host numpy.
+
+Ranking scores each batch of queries against every entity through the
+``kge_score`` kernel (``Decoder.rank_scores``) with the batch's filter bias
+and counts, per query, the candidates scoring above and equal to the true
+tail: ``rank = 1 + #greater + 0.5 · #equal`` (ties excluding the true
+tail itself), the reference's tie-aware mean rank.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Optional, Tuple, Union
+from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core.graph import KnowledgeGraph
+from repro_torch.device import resolve_device
+from repro_torch.models.decoders import Decoder, get_decoder
+from repro_torch.roadmap import not_ported
 
 # Additive score mask for filtered-out candidates: large-negative rather
 # than -inf so a filtered candidate loses cleanly without inf-inf NaNs; pad
@@ -198,3 +208,96 @@ def _filter_bias(filter_index: FilterIndex, batch: np.ndarray,
             if k != int(t) and col_start <= k < col_start + num_cols:
                 bias[i, k - col_start] = FILTER_BIAS
     return bias
+
+
+# ====================================================================== #
+# Filtered ranking (paper §4.2, Eq. 5-6)
+# ====================================================================== #
+def mean_rank(greater, equal_incl_true) -> np.ndarray:
+    """Tie-aware rank from candidate counts: ``1 + #greater + 0.5 · (#equal
+    − 1)``, where ``equal_incl_true`` counts the true candidate's own
+    tie."""
+    return 1.0 + np.asarray(greater, np.float64) \
+        + 0.5 * (np.asarray(equal_incl_true, np.float64) - 1.0)
+
+
+def metrics_from_ranks(ranks: np.ndarray,
+                       hits_ks: Sequence[int]) -> Dict[str, float]:
+    ranks = np.asarray(ranks, np.float64)
+    out = {"mrr": float(np.mean(1.0 / ranks))}
+    for k in hits_ks:
+        out[f"hits@{k}"] = float(np.mean(ranks <= k))
+    return out
+
+
+def _as_device_tensor(x, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32).to(device)
+
+
+def ranking_metrics(entity_emb, decoder_params: Dict,
+                    test_triplets: np.ndarray, filter_index: FilterIndex,
+                    hits_ks: Sequence[int] = (1, 3, 10),
+                    candidates: Optional[np.ndarray] = None,
+                    batch_size: int = 256,
+                    decoder: Union[str, Decoder] = "distmult",
+                    num_shards: int = 1, table_dtype: str = "fp32",
+                    device=None) -> Dict[str, float]:
+    """Filtered MRR / Hits@k, tail-corruption direction, all-entities
+    protocol. Every batch of ``batch_size`` queries is one ``kge_score``
+    launch over all N candidates in the decoder's query form, with the
+    batch's filter bias built on the host. ``device`` defaults to the
+    table's own when it is a tensor, else to ``cuda``. The ogbl
+    candidate-list protocol, sharded ranking and int8 tables are not
+    ported yet and raise."""
+    if candidates is not None:
+        raise not_ported("the candidate-list (ogbl) ranking protocol",
+                         "minibatch")
+    if num_shards > 1:
+        raise not_ported(f"num_shards={num_shards} ranking", "sharded_table")
+    if table_dtype != "fp32":
+        raise not_ported(f"table_dtype={table_dtype!r} ranking", "int8")
+    if device is None and isinstance(entity_emb, torch.Tensor):
+        device = entity_emb.device
+    dev = resolve_device(device)
+    dec = get_decoder(decoder)
+    emb = _as_device_tensor(entity_emb, dev)
+    n = emb.shape[0]
+    dparams = {k: _as_device_tensor(v, dev)
+               for k, v in decoder_params.items()}
+    prepared = dec.prepare_candidates(dparams, emb)
+    ranks = []
+    for lo in range(0, test_triplets.shape[0], batch_size):
+        batch = np.asarray(test_triplets[lo: lo + batch_size])
+        idx = torch.from_numpy(batch.astype(np.int64)).to(dev)
+        bias = torch.from_numpy(_filter_bias(filter_index, batch, n)).to(dev)
+        scores = dec.rank_scores(dparams, emb[idx[:, 0]], idx[:, 1], emb,
+                                 bias, prepared=prepared)
+        true = scores[torch.arange(batch.shape[0], device=dev), idx[:, 2]]
+        greater = (scores > true[:, None]).sum(1)
+        # the true candidate's own column always ties (bias 0 there)
+        equal = (scores == true[:, None]).sum(1)
+        ranks.append(mean_rank(greater.cpu().numpy(), equal.cpu().numpy()))
+    return metrics_from_ranks(np.concatenate(ranks), hits_ks)
+
+
+def evaluate_both_directions(
+    entity_emb, decoder_params: Dict, test_kg: KnowledgeGraph,
+    filter_graphs: Sequence[KnowledgeGraph], num_relations_base: int,
+    hits_ks: Sequence[int] = (1, 3, 10),
+    decoder: Union[str, Decoder] = "distmult", num_shards: int = 1,
+    table_dtype: str = "fp32", device=None) -> Dict[str, float]:
+    """Mean of tail corruption on (s, r, t) and on the inverse triplets
+    (t, r + R, s), i.e. head corruption. The decoder's relation tables
+    cover the doubled vocabulary; one CSR filter index over all splits
+    (inverse relations included) serves both directions."""
+    fidx = CSRFilterIndex.build(
+        [g.with_inverse_relations() for g in filter_graphs])
+    kw = dict(decoder=decoder, num_shards=num_shards,
+              table_dtype=table_dtype, device=device)
+    m_fwd = ranking_metrics(entity_emb, decoder_params, test_kg.triplets(),
+                            fidx, hits_ks, **kw)
+    inv = np.stack([test_kg.dst, test_kg.rel + num_relations_base,
+                    test_kg.src], axis=1)
+    m_inv = ranking_metrics(entity_emb, decoder_params, inv, fidx, hits_ks,
+                            **kw)
+    return {k: 0.5 * (m_fwd[k] + m_inv[k]) for k in m_fwd}

@@ -1,12 +1,17 @@
-"""Hand-written CUDA kernels of the serving path, each beside its plain
-PyTorch version:
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version:
 
 * ``kge_score`` — candidate scoring in the decoders' query form
   (replaces ``repro/kernels/kge_score.py::kge_score``).
 * ``topk`` — per-row top-k, ties to the lowest index
   (replaces ``repro/kernels/topk.py::topk_scores``).
-* ``sharded_gather`` — the sharded table's fused masked row gather
+* ``fused_gather`` — the sharded table's fused masked row gather
   (replaces ``repro/kernels/sharded_gather.py::fused_gather``).
+* ``basis_message`` — the RGCN per-edge basis projection and coefficient
+  mix (replaces ``repro/kernels/rgcn_message.py::basis_message``).
+* ``segment_sum`` — the RGCN masked segment sum with degree counts,
+  deterministic without float atomics (replaces
+  ``repro/kernels/rgcn_message.py::segment_sum_onehot``).
 
 ``ops`` holds the public wrappers, ``ref`` the references under the JAX
 package's names, ``_build`` the ``nvcc`` build and ``ctypes`` loader. A
@@ -18,18 +23,24 @@ from repro_torch.kernels.kge_score import (
 )
 from repro_torch.kernels.ops import (
     flat_gather_plan, fused_sharded_gather, kge_score_padded, merge_topk,
-    topk_padded,
+    rgcn_message_basis, topk_padded,
+)
+from repro_torch.kernels.rgcn_message import (
+    basis_message, basis_message_plain, segment_sum, segment_sum_plain,
 )
 from repro_torch.kernels.sharded_gather import fused_gather, fused_gather_plain
 from repro_torch.kernels.topk import topk_plain, topk_scores
 
-# every kernel wrapper of this slice; each counts its launches in
+# every kernel wrapper of the port; each counts its launches in
 # ``wrapper.launches``
 KERNELS = {"kge_score": kge_score, "topk": topk_scores,
-           "fused_gather": fused_gather}
+           "fused_gather": fused_gather, "basis_message": basis_message,
+           "segment_sum": segment_sum}
 
 __all__ = ["ops", "ref", "EPILOGUES", "NORM_EPS", "KERNELS",
            "apply_epilogue", "kge_score", "kge_score_plain",
            "kge_score_padded", "topk_scores", "topk_plain", "topk_padded",
            "merge_topk", "fused_gather", "fused_gather_plain",
-           "flat_gather_plan", "fused_sharded_gather"]
+           "flat_gather_plan", "fused_sharded_gather", "basis_message",
+           "basis_message_plain", "segment_sum", "segment_sum_plain",
+           "rgcn_message_basis"]

@@ -1,10 +1,10 @@
-"""Public wrappers around the kernels, the serving subset of
-``repro/kernels/ops.py``: optional arguments, k checks, the shard merge and
-the flat-index gather plan.
+"""Public wrappers around the kernels (port of ``repro/kernels/ops.py``):
+the fused RGCN message layer, optional arguments, k checks, the shard merge
+and the flat-index gather plan.
 
-The TPU wrappers padded B and C to the kernels' 128-row tiles; the CUDA
-kernels take ragged shapes, so nothing is padded here and the results are
-the TPU wrappers' sliced results.
+The TPU wrappers padded E, V, B and C to the kernels' 128-row tiles; the
+CUDA kernels take ragged shapes, so nothing is padded here and the results
+are the TPU wrappers' sliced results.
 """
 from __future__ import annotations
 
@@ -12,9 +12,50 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.kge_score import kge_score
+from repro_torch.kernels.rgcn_message import basis_message, segment_sum
 from repro_torch.kernels.sharded_gather import fused_gather
 from repro_torch.kernels.topk import topk_scores
+
+
+class _RGCNMessageBasis(torch.autograd.Function):
+    """Forward through the two kernels; backward through the plain formula
+    ``ref.rgcn_message_ref``, recomputed and differentiated (the reference's
+    ``_rgcn_bwd``: there is no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, h, src, rel, dst, edge_mask, bases, coeffs):
+        ctx.save_for_backward(h, src, rel, dst, edge_mask, bases, coeffs)
+        # the gathers stay outside the kernels, as XLA held them in JAX
+        msg = basis_message(torch.index_select(h, 0, dst),
+                            torch.index_select(coeffs, 0, rel),
+                            bases.contiguous(), edge_mask)
+        agg, deg = segment_sum(msg, src, edge_mask, h.shape[0])
+        return agg / torch.clamp_min(deg, 1.0)[:, None]
+
+    @staticmethod
+    def backward(ctx, g):
+        h, src, rel, dst, edge_mask, bases, coeffs = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_()
+                      for x in (h, bases, coeffs)]
+            out = ref.rgcn_message_ref(inputs[0], src, rel, dst, edge_mask,
+                                       inputs[1], inputs[2])
+            dh, dbases, dcoeffs = torch.autograd.grad(out, inputs, g)
+        return dh, None, None, None, None, dbases, dcoeffs
+
+
+def rgcn_message_basis(h: torch.Tensor, src: torch.Tensor, rel: torch.Tensor,
+                       dst: torch.Tensor, edge_mask: torch.Tensor,
+                       bases: torch.Tensor, coeffs: torch.Tensor
+                       ) -> torch.Tensor:
+    """Fused RGCN message layer: gather → ``basis_message`` →
+    ``segment_sum`` → mean, for ``(V, d_in)`` states ``h``, ``(E,)`` heads
+    ``src`` (segments), relations ``rel``, tails ``dst`` and bool
+    ``edge_mask``, ``(B, d_in, d_out)`` bases and ``(R, B)`` coefficients →
+    ``(V, d_out)``. Differentiable in ``h``, ``bases`` and ``coeffs``."""
+    return _RGCNMessageBasis.apply(h, src, rel, dst, edge_mask, bases, coeffs)
 
 
 def kge_score_padded(q: torch.Tensor, candidates: torch.Tensor,

@@ -7,14 +7,38 @@ original take → mask → sum exchange chain that the fused gather replaces.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.kge_score import apply_epilogue
+from repro_torch.kernels.rgcn_message import (
+    basis_message_plain as basis_message_ref,
+)
+from repro_torch.kernels.rgcn_message import segment_sum_plain
 from repro_torch.kernels.topk import topk_plain as topk_ref
 
-__all__ = ["kge_score_ref", "topk_ref", "sharded_gather_ref"]
+__all__ = ["basis_message_ref", "segment_mean_ref", "rgcn_message_ref",
+           "kge_score_ref", "topk_ref", "sharded_gather_ref"]
+
+
+def segment_mean_ref(msg: torch.Tensor, seg: torch.Tensor,
+                     edge_mask: torch.Tensor, num_segments: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked segment sum + counts → ``(agg (V, d), deg (V,))``."""
+    return segment_sum_plain(msg, seg, edge_mask, num_segments)
+
+
+def rgcn_message_ref(h: torch.Tensor, src: torch.Tensor, rel: torch.Tensor,
+                     dst: torch.Tensor, edge_mask: torch.Tensor,
+                     bases: torch.Tensor, coeffs: torch.Tensor
+                     ) -> torch.Tensor:
+    """The fused op's formula: gather → basis message → segment MEAN."""
+    msg = basis_message_ref(torch.index_select(h, 0, dst),
+                            torch.index_select(coeffs, 0, rel), bases,
+                            edge_mask)
+    agg, deg = segment_mean_ref(msg, src, edge_mask, h.shape[0])
+    return agg / torch.clamp_min(deg, 1.0)[:, None]
 
 
 def kge_score_ref(q: torch.Tensor, candidates: torch.Tensor,

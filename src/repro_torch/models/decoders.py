@@ -20,6 +20,12 @@ Candidate norms are summed over ``d`` in the fixed order ``0 .. d-1``, one
 elementwise add per term (:func:`row_sum`), so a row's norm never depends
 on how many rows it is computed with: a shard's prepared candidates are
 bitwise the matching rows of the dense preparation on every device.
+
+Rows of a relation table (and, in training, of the vertex states) are
+gathered with ``torch.index_select``: the same values as ``table[ids]``,
+and a backward that is one ``index_add_``, where advanced indexing's
+backward serialises over duplicate ids on CUDA — a training batch repeats
+each relation thousands of times.
 """
 from __future__ import annotations
 
@@ -200,7 +206,7 @@ class DistMult(Decoder):
                               device)
 
     def prepare_query(self, params, h_s, rel):
-        q = h_s * params["rel_diag"][rel]
+        q = h_s * torch.index_select(params["rel_diag"], 0, rel)
         return q, _zeros_bias(q)
 
     def prepare_candidates(self, params, candidates):
@@ -223,7 +229,8 @@ class TransE(Decoder):
                               device)
 
     def prepare_query(self, params, h_s, rel):
-        return _neg_l2_query(h_s + params["rel_vec"][rel])
+        return _neg_l2_query(
+            h_s + torch.index_select(params["rel_vec"], 0, rel))
 
     def prepare_candidates(self, params, candidates):
         return candidates, row_sum(candidates * candidates)
@@ -249,7 +256,8 @@ class ComplEx(Decoder):
 
     def prepare_query(self, params, h_s, rel):
         sr, si = _split_complex(h_s)
-        rr, ri = _split_complex(params["rel_complex"][rel])
+        rr, ri = _split_complex(
+            torch.index_select(params["rel_complex"], 0, rel))
         q = torch.cat([sr * rr - si * ri, sr * ri + si * rr], dim=-1)
         return q, _zeros_bias(q)
 
@@ -278,7 +286,7 @@ class RotatE(Decoder):
 
     def prepare_query(self, params, h_s, rel):
         hr, hi = _split_complex(h_s)
-        theta = params["rel_phase"][rel]
+        theta = torch.index_select(params["rel_phase"], 0, rel)
         cos, sin = torch.cos(theta), torch.sin(theta)
         u = torch.cat([hr * cos - hi * sin, hr * sin + hi * cos], dim=-1)
         return _neg_l2_query(u)
@@ -312,3 +320,30 @@ def score_against_candidates(
     ``Decoder.rank_scores``."""
     return get_decoder(decoder).score_candidates(params, h_s, rel,
                                                  candidates, bias)
+
+
+def score_triplets(params: Params, decoder: Union[str, Decoder],
+                   h: torch.Tensor, triplets: torch.Tensor) -> torch.Tensor:
+    """Score ``(T, 3)`` batch-local triplets against vertex states
+    ``h (V, d)`` → ``(T,)``: the query form of :meth:`Decoder.score`, with
+    the dot product as one ``torch.sum`` — training needs no fixed
+    summation order, and ``row_sum``'s backward writes a full ``(T, d)``
+    gradient per column."""
+    dec = get_decoder(decoder)
+    trip = triplets.contiguous()
+    q, q_bias = dec.prepare_query(
+        params, torch.index_select(h, 0, trip[:, 0]), trip[:, 1])
+    c, c_bias = dec.prepare_candidates(
+        params, torch.index_select(h, 0, trip[:, 2]))
+    return apply_epilogue((q * c).sum(dim=-1) + q_bias + c_bias,
+                          dec.epilogue)
+
+
+def bce_loss(scores: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    """Paper Eq. 3: mean binary cross-entropy over positives and
+    negatives, in the numerically stable logits form, padding masked
+    out."""
+    per = torch.clamp_min(scores, 0) - scores * labels + \
+        torch.log1p(torch.exp(-torch.abs(scores)))
+    return torch.sum(per * mask) / torch.clamp_min(mask.sum(), 1.0)

@@ -1,0 +1,31 @@
+"""What the port does not do yet, and where ROADMAP.md (Queue 1) lists it.
+
+Every option of the reference that the port has not reached raises
+``NotImplementedError`` through :func:`not_ported`, naming its ROADMAP
+item, instead of silently doing something else.
+"""
+from __future__ import annotations
+
+ITEMS = {
+    "minibatch": "ROADMAP Queue 1 item 1: edge mini-batch and sharded-table "
+                 "training (core/minibatch.py, the serial and async "
+                 "pipelines, rgcn-citation2, scatter_add_onehot)",
+    "sharded_table": "ROADMAP Queue 1 item 1: edge mini-batch and "
+                     "sharded-table training (row-sharded entity table, "
+                     "gather plans and exchanges, scatter_add_onehot, "
+                     "sharded ranking)",
+    "checkpoint": "ROADMAP Queue 1 item 2: checkpoints in the reference's "
+                  ".npz + JSON manifest format",
+    "spmd": "ROADMAP Queue 1 item 3: the multi-process step over "
+            "torch.distributed",
+    "int8": "ROADMAP Queue 1 item 4: int8 tables, serving first, with the "
+            "fused_dequant_gather kernel",
+    "lm": "ROADMAP Queue 1 item 7: the LM substrate",
+}
+
+
+def not_ported(feature: str, key: str) -> NotImplementedError:
+    """The error an entry point raises for ``feature``, which belongs to
+    the ROADMAP item ``ITEMS[key]``."""
+    return NotImplementedError(
+        f"{feature} is not ported to repro_torch yet ({ITEMS[key]})")

@@ -45,6 +45,7 @@ from repro_torch.eval.ranking import CSRFilterIndex
 from repro_torch.eval.sharded import shard_filter_bias_block, shard_scores
 from repro_torch.kernels.ops import merge_topk, topk_padded
 from repro_torch.models.decoders import Decoder, get_decoder
+from repro_torch.roadmap import not_ported
 from repro_torch.sharding.embedding import (
     TABLE_DTYPES, ShardedTableLayout, plan_local_gather, plan_unique_gather,
     shard_table, sharded_gather,
@@ -71,10 +72,7 @@ class ShardedKGEServer:
             raise ValueError(
                 f"table_dtype={table_dtype!r} not in {TABLE_DTYPES}")
         if table_dtype != "fp32":
-            raise NotImplementedError(
-                "int8 tables are not ported yet (ROADMAP Queue 1 item 6: "
-                "int8 tables, serving first, with the fused_dequant_gather "
-                "kernel)")
+            raise not_ported("table_dtype='int8'", "int8")
         self.device = resolve_device(device)
         self.decoder = get_decoder(decoder)
         self.table_dtype = table_dtype

@@ -7,7 +7,7 @@ Phases, each of which fails the run on error:
 
 1. Build: compile the four CUDA sources from ``src/repro_torch/csrc`` with
    ``nvcc -Xptxas -v`` for ``sm_90a`` (one process per source, all at once).
-2. Kernel vs plain: each of the five kernels against its plain PyTorch
+2. Kernel vs plain: each of the six kernels against its plain PyTorch
    version on the card, with its time, its plain version's time, one
    PyTorch library call's time and the least time the card could take:
    kge_score, topk and fused_gather at the serving shapes; basis_message
@@ -15,7 +15,14 @@ Phases, each of which fails the run on error:
    partition of 4: E = 377,984 edges, V = 13,760 vertices, d = 75, B = 2)
    and at edge cases (ragged E, an all-masked tile, empty segments,
    unsorted segments, d_in != d_out, bases over 48 KB and over the card's
-   shared memory).
+   shared memory); scatter_add_onehot at the shapes of one mini-batch of
+   the mini-batch path (the 4-shard table gradient V = 17,200 into
+   R = 14,544, the vertex-state gather backward E = 472,448 into 17,200,
+   the relation-coefficient backward into 474 rows) and at edge cases (all
+   slots unowned, one row hit by every slot, R not a multiple of 128,
+   V = 0): within 2 gamma_n sum|g| of the plain version, rows no owned
+   slot hits exactly 0, two runs bitwise equal, the 4-shard table gradient
+   bitwise the dense one.
 3. Serving, FB15k-237 width (N=14,541, R=474, d=75): 200 Zipf(1.3) requests
    through ``repro_torch.launch.serve`` with distmult and transe at 1 and 4
    table shards, filtered, cache 256, 8 slots, k=10; sharded == dense.
@@ -27,14 +34,29 @@ Phases, each of which fails the run on error:
    ``repro_torch.launch.train`` (--arch rgcn-fb15k237 --use-kernel
    --trainers 4 --epochs 3 --scale 1.0: d=75, dropout 0.2), then the
    filtered test evaluation; launch counts of that path (basis_message,
-   segment_sum and kge_score each launched). The same run without
-   --use-kernel (the plain encoder on the card) must give the same
-   per-epoch losses within rtol=1e-3, atol=1e-4, and the kernel and plain
-   encoders the same embeddings of the trained model.
+   segment_sum, scatter_add_onehot and kge_score each launched). The same
+   run without --use-kernel (the plain encoder on the card) must give the
+   same per-epoch losses within rtol=1e-3, atol=1e-4, and the kernel and
+   plain encoders the same embeddings of the trained model. Two runs of
+   one full-graph step from the same state give bitwise-equal losses and
+   parameters.
+6b. Training, edge mini-batches at full width: --batch-size 4096
+   --table-shards 4 --pipeline async --use-kernel, one epoch (24 steps of
+   4 trainers), then the filtered test evaluation with 4-shard ranking;
+   launch counts of that path (fused_gather, scatter_add_onehot,
+   basis_message, segment_sum and kge_score each launched). Against it,
+   one epoch each with --table-shards 1, --pipeline serial and
+   --gather-dedup must give bitwise-equal per-step losses and final
+   parameters, and one without --use-kernel per-step losses within
+   rtol=1e-3, atol=1e-4; the 4-shard ranking metrics == the dense ranking
+   from the same embeddings; two runs of one mini-batch step from the same
+   state give bitwise-equal losses and parameters.
 7. Profile under ``torch.profiler``: steady serving steps of each serving
-   configuration, one steady training step (kernel and plain encoder) and
-   one evaluation encode: host time per step, the card's busy time, the
-   idle share and the device operations that took the most time.
+   configuration, one steady full-graph step (kernel and plain encoder),
+   one evaluation encode and one steady mini-batch step: host time per
+   step, the card's busy time, the idle share and the device operations
+   that took the most time; and the async pipeline's exposed wait and
+   overlap fraction over the mini-batch epoch.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -66,6 +88,16 @@ SLOTS, K = 8, 10
 
 TRAIN_ARGV = ["--arch", "rgcn-fb15k237", "--trainers", "4", "--epochs", "3",
               "--scale", "1.0", "--device", "cuda"]
+MB_ARGV = ["--arch", "rgcn-fb15k237", "--trainers", "4", "--epochs", "1",
+           "--scale", "1.0", "--batch-size", "4096", "--device", "cuda"]
+MB_MAIN = ["--table-shards", "4", "--pipeline", "async", "--use-kernel"]
+MB_GATES = {   # runs held against the main one: bitwise, or within LOSS_TOL
+    "S1": ["--table-shards", "1", "--pipeline", "async", "--use-kernel"],
+    "serial": ["--table-shards", "4", "--pipeline", "serial",
+               "--use-kernel"],
+    "dedup": MB_MAIN + ["--gather-dedup"],
+    "plain": ["--table-shards", "4", "--pipeline", "async"],
+}
 LOSS_TOL = dict(rtol=1e-3, atol=1e-4)   # kernel vs plain per-epoch losses
 EMB_TOL = dict(rtol=1e-4, atol=1e-5)    # kernel vs plain encoder outputs
 
@@ -76,6 +108,7 @@ REPLACES = {
     "fused_gather": "src/repro/kernels/sharded_gather.py:87",
     "basis_message": "src/repro/kernels/rgcn_message.py:79",
     "segment_sum": "src/repro/kernels/rgcn_message.py:152",
+    "scatter_add_onehot": "src/repro/kernels/sharded_gather.py:195",
 }
 SOURCES = {
     "kge_score": "src/repro_torch/csrc/kge_score.cu",
@@ -83,9 +116,13 @@ SOURCES = {
     "fused_gather": "src/repro_torch/csrc/sharded_gather.cu",
     "basis_message": "src/repro_torch/csrc/rgcn_message.cu",
     "segment_sum": "src/repro_torch/csrc/rgcn_message.cu",
+    "scatter_add_onehot": "src/repro_torch/csrc/sharded_gather.cu",
 }
 SERVING_KERNELS = ("kge_score", "topk", "fused_gather")
-TRAINING_KERNELS = ("basis_message", "segment_sum", "kge_score")
+TRAINING_KERNELS = ("basis_message", "segment_sum", "scatter_add_onehot",
+                    "kge_score")
+MINIBATCH_KERNELS = ("fused_gather", "scatter_add_onehot", "basis_message",
+                     "segment_sum", "kge_score")
 
 
 def log(msg: str) -> None:
@@ -135,7 +172,7 @@ def device_activity(prof):
     return busy, by_name, len(spans)
 
 
-def profiled(fn, reps: int, windows: int = 5, host: bool = True):
+def profiled(fn, reps: int, windows: int = 10, host: bool = True):
     """One complete ``torch.profiler`` window of ``reps`` calls of ``fn``:
     ``{"busy_us", "by_name", "count", "wall_us"}``, the wall time on the
     host clock ending in a synchronise. ``host=False`` records device
@@ -266,18 +303,20 @@ def report(name, shape, st, library):
 
 def check_kge_score(dev, rng, widths):
     """Both epilogues, a bias of 0 / -1e9 / -inf, at each width's
-    (B, C, d); returns (max |err| over finite scores, per-width times)."""
+    (C, d[, B]) (B: the serving slots unless given); returns (max |err|
+    over finite scores, per-width times)."""
     import torch
     from repro_torch.kernels.kge_score import kge_score, kge_score_plain
     torch.backends.cuda.matmul.allow_tf32 = False
     max_err, stats = 0.0, {}
-    for label, c, d in widths:
-        u = torch.from_numpy(rng.normal(0, .1, (SLOTS, d)).astype(np.float32)
+    for label, c, d, *batch in widths:
+        b = batch[0] if batch else SLOTS
+        u = torch.from_numpy(rng.normal(0, .1, (b, d)).astype(np.float32)
                              ).to(dev)
         cand = torch.from_numpy(rng.normal(0, .1, (c, d)).astype(np.float32)
                                 ).to(dev)
-        cand[:SLOTS] = u        # zero-distance pairs: the sqrt's worst case
-        choice = rng.choice(3, size=(SLOTS, c), p=[.8, .1, .1])
+        cand[:b] = u            # zero-distance pairs: the sqrt's worst case
+        choice = rng.choice(3, size=(b, c), p=[.8, .1, .1])
         bias = torch.from_numpy(np.choose(choice, [
             np.float32(0), np.float32(-1e9), np.float32(-np.inf)]).astype(
                 np.float32)).to(dev)
@@ -286,7 +325,7 @@ def check_kge_score(dev, rng, widths):
                 q, qb = -2.0 * u, (u * u).sum(1)
                 cb = (cand * cand).sum(1)
             else:
-                q, qb, cb = u, torch.zeros(SLOTS, device=dev), \
+                q, qb, cb = u, torch.zeros(b, device=dev), \
                     torch.zeros(c, device=dev)
             got = kge_score(q, cand, bias, qb, cb, epilogue=epilogue)
             want = kge_score_plain(q, cand, bias, qb, cb, epilogue=epilogue)
@@ -307,15 +346,15 @@ def check_kge_score(dev, rng, widths):
                     f"outside the bound, e.g. column {i}: err "
                     f"{float(err[bad].max())} > tol {float(tol[bad].min())}")
             max_err = max(max_err, float(err[fin].max()))
-        # times: the neg_l2 epilogue (TransE), the serving inputs
-        nbytes = 4 * (SLOTS * d + c * d + SLOTS + c + 2 * SLOTS * c)
-        stats[label] = dict(C=c, d=d, **timings(
+        # times: the neg_l2 epilogue (TransE), these inputs
+        nbytes = 4 * (b * d + c * d + b + c + 2 * b * c)
+        stats[label] = dict(B=b, C=c, d=d, **timings(
             lambda: kge_score(q, cand, bias, qb, cb, epilogue="neg_l2"),
             lambda: kge_score_plain(q, cand, bias, qb, cb,
                                     epilogue="neg_l2"),
             lambda: torch.matmul(q, cand.T),
-            *bound_ms(nbytes, 2 * SLOTS * c * d)))
-        report("kge_score", f"{label} (B={SLOTS}, C={c}, d={d})",
+            *bound_ms(nbytes, 2 * b * c * d)))
+        report("kge_score", f"{label} (B={b}, C={c}, d={d})",
                stats[label], "matmul")
     return max_err, stats
 
@@ -354,11 +393,12 @@ def check_topk(dev, rng, widths):
     return max_err, stats
 
 
-def check_fused_gather(dev, rng, widths):
+def check_fused_gather(dev, rng, widths, mbs):
     """Duplicate ids and unowned slots at the serving batch (8) and the
-    dedup bucket (64); the output must be bitwise the plain version's, and
-    a flat id outside the table must raise as in the plain version. Returns
-    (max |kernel - plain|, per-width times)."""
+    dedup bucket (64), and the mini-batch path's table gather (``mbs``);
+    the output must be bitwise the plain version's, and a flat id outside
+    the table must raise as in the plain version. Returns (max |kernel -
+    plain|, per-width times)."""
     import torch
     from repro_torch.kernels.sharded_gather import (
         fused_gather, fused_gather_plain,
@@ -400,6 +440,28 @@ def check_fused_gather(dev, rng, widths):
             *bound_ms(4 * n_own * d + 9 * SLOTS + 4 * SLOTS * d, 0)))
         report("fused_gather", f"{label} (V={SLOTS}, d={d})", stats[label],
                "index_select")
+    # the mini-batch path: one trainer's 4-shard table gather, unchecked
+    from repro_torch.kernels.ops import flat_gather_plan
+    lay = mbs["layout"]
+    table = torch.from_numpy(rng.normal(0, .1, (lay.padded_rows, 75)).astype(
+        np.float32)).to(dev)
+    flat, owned = flat_gather_plan(torch.from_numpy(mbs["local"]),
+                                   torch.from_numpy(mbs["owned"]),
+                                   lay.rows_per_shard)
+    flat_t, owned_t = flat.to(dev), owned.to(dev)
+    got = fused_gather(table, flat_t, owned_t, check=False)
+    want = fused_gather_plain(table, flat_t, owned_t)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("fused_gather minibatch_S4: kernel != plain")
+    v, n_own = flat.shape[0], int(owned.sum())
+    stats["minibatch_S4"] = dict(V=v, d=75, **timings(
+        lambda: fused_gather(table, flat_t, owned_t, check=False),
+        lambda: fused_gather_plain(table, flat_t, owned_t),
+        lambda: torch.index_select(table, 0, flat_t),
+        *bound_ms(4 * n_own * 75 + 9 * v + 4 * v * 75, 0)))
+    report("fused_gather", f"minibatch_S4 (V={v}, R={lay.padded_rows}, "
+           f"d=75)", stats["minibatch_S4"], "index_select")
     return max_err, stats
 
 
@@ -421,9 +483,10 @@ def gamma(n):
     return n * U32 / (1 - n * U32)
 
 
-def check_basis_message(dev, rng, part):
-    """The training shape (one partition's gathers at d=75, B=2) and the
-    edge cases; returns (max |err|, per-shape times, edge-case configs).
+def check_basis_message(dev, rng, part, mbs):
+    """The training shapes (one partition's gathers at d=75, B=2, and one
+    mini-batch's) and the edge cases; returns (max |err|, per-shape times,
+    edge-case configs).
 
     Both sides compute sum_b c_b sum_i h_i W_bio in fp32 in different
     orders (the kernel: fixed fmaf chains; the plain einsums: cuBLAS's
@@ -436,13 +499,16 @@ def check_basis_message(dev, rng, part):
     )
     torch.backends.cuda.matmul.allow_tf32 = False
     v, e, r = part["V"], part["E"], part["R"]
-    cases = [("train", e, 75, 75, 2, part["dst"], part["rel"], part["mask"]),
-             ("ragged", 1000, 75, 75, 2, None, None, None),
-             ("d_in!=d_out", 777, 128, 75, 3, None, None, None),
-             ("bases>48KB", 2000, 128, 128, 2, None, None, None),
-             ("bases>smem", 513, 256, 256, 2, None, None, None)]
+    cases = [("train", v, e, 75, 75, 2, part["dst"], part["rel"],
+              part["mask"]),
+             ("minibatch", mbs["V"], mbs["E"], 75, 75, 2, mbs["dst"],
+              mbs["rel"], mbs["mask"]),
+             ("ragged", v, 1000, 75, 75, 2, None, None, None),
+             ("d_in!=d_out", v, 777, 128, 75, 3, None, None, None),
+             ("bases>48KB", v, 2000, 128, 128, 2, None, None, None),
+             ("bases>smem", v, 513, 256, 256, 2, None, None, None)]
     max_err, stats, configs = 0.0, {}, {}
-    for label, ne, d_in, d_out, nb, dst, rel, mask in cases:
+    for label, v, ne, d_in, d_out, nb, dst, rel, mask in cases:
         if dst is None:
             dst = rng.integers(0, v, ne)
             rel = rng.integers(0, r, ne)
@@ -479,7 +545,7 @@ def check_basis_message(dev, rng, part):
             f"d_out={d_out}, B={nb}; {tile} edges per block, bases in "
             f"{'shared' if in_smem else 'global'} memory): max err "
             f"{float(err.max()):.3g}")
-        if label == "train":
+        if label in ("train", "minibatch"):
             n_on = int(m.sum())
             nbytes = 4 * (ne * d_in + ne * nb + nb * d_in * d_out
                           + ne * d_out) + ne
@@ -490,14 +556,14 @@ def check_basis_message(dev, rng, part):
                 lambda: torch.einsum("ebo,eb->eo", torch.einsum(
                     "ed,bdo->ebo", h_t, w), coef),
                 *bound_ms(nbytes, ops)))
-            report("basis_message", f"train (E={ne}, d={d_in}, B={nb})",
+            report("basis_message", f"{label} (E={ne}, d={d_in}, B={nb})",
                    stats[label], "einsum pair")
     return max_err, stats, configs
 
 
-def check_segment_sum(dev, rng, part):
-    """The training shape (one partition's heads and mask, d=75) and the
-    edge cases; deg must be ==, agg within 2 gamma_n sum|msg| of the plain
+def check_segment_sum(dev, rng, part, mbs):
+    """The training shapes (one partition's heads and mask, and one
+    mini-batch's, d=75) and the edge cases; deg must be ==, agg within 2 gamma_n sum|msg| of the plain
     version (n = the segment's length: both add the same terms in other
     orders), and two runs bitwise equal. Returns (max |err|, times)."""
     import torch
@@ -507,6 +573,7 @@ def check_segment_sum(dev, rng, part):
     )
     v, e = part["V"], part["E"]
     cases = [("train", e, v, 75, part["src"], part["mask"]),
+             ("minibatch", mbs["E"], mbs["V"], 75, mbs["src"], mbs["mask"]),
              ("ragged unsorted", 1000, 300, 75, None, None),
              ("sorted", 4000, 500, 32, "sorted", None),
              ("hub + empty", 70000, 2000, 75, "hub", None)]
@@ -547,7 +614,7 @@ def check_segment_sum(dev, rng, part):
         log(f"[phase 2] segment_sum {label} (E={ne}, V={nv}, d={d}, longest "
             f"segment {int(deg.max())}): max err {float(err.max()):.3g}, "
             f"deg ==, two runs bitwise equal")
-        if label == "train":
+        if label in ("train", "minibatch"):
             plan = segment_plan(seg_t, m, nv)
             n_on = int(m.sum())
             nbytes = 4 * n_on * d + 5 * ne + 4 * nv * d + 4 * nv
@@ -562,30 +629,214 @@ def check_segment_sum(dev, rng, part):
                 lambda: segment_sum_planned(msg, *plan, nv))
             st["plan_ms"], _ = timed(lambda: segment_plan(seg_t, m, nv))
             stats[label] = st
-            report("segment_sum", f"train (E={ne}, V={nv}, d={d})", st,
+            report("segment_sum", f"{label} (E={ne}, V={nv}, d={d})", st,
                    "index_add_")
-            log(f"[phase 2] segment_sum train: kernels alone "
+            log(f"[phase 2] segment_sum {label}: kernels alone "
                 f"{st['kernel_ms']:.4f} ms, the sort plan (argsort, "
                 f"index_add_ counts, cumsum) {st['plan_ms']:.4f} ms")
+    return max_err, stats
+
+
+def minibatch_arrays():
+    """The host arrays of one mini-batch of the mini-batch path (phase
+    6b): FB15k-237 width at scale 1.0, 4 trainers, batch 4096, the 4-shard
+    table's gather plan; trainer 0's slice of the first batch."""
+    from repro_torch.data import synthetic_fb15k
+    from repro_torch.data.pipeline import SerialMinibatchPipeline, host_batch
+    from repro_torch.training.preprocessing import preprocess_graph
+    kg = synthetic_fb15k(scale=1.0, seed=0)["train"].with_inverse_relations()
+    pre = preprocess_graph(kg, num_trainers=4, num_hops=2, seed=0,
+                           batch_size=4096, num_table_shards=4)
+    pipe = SerialMinibatchPipeline(
+        pre.partitions, batch_size=4096, num_negatives=1, num_hops=2,
+        budget=pre.budget, seed=0, csrs=pre.csrs,
+        table_layout=pre.table_layout)
+    mb = next(iter(pipe.epoch_batches(1)))
+    hb = host_batch(mb, pre.table_layout)
+    return dict(gather_global=mb.gather_global[0],
+                local=hb["shard_local_ids"][0], owned=hb["shard_owned"][0],
+                src=mb.comp_src[0], dst=mb.comp_dst[0], rel=mb.comp_rel[0],
+                mask=mb.comp_mask[0],
+                trip_rel=mb.triplets[0][:, 1], N=kg.num_entities,
+                R=kg.num_relations, layout=pre.table_layout,
+                V=pre.budget.max_vertices, E=pre.budget.max_edges,
+                T=pre.budget.max_triplets,
+                comp_vertices=int(mb.vertex_mask[0].sum()))
+
+
+def check_scatter_add(dev, rng, mbs):
+    """scatter_add_onehot at the mini-batch path's shapes and the edge
+    cases. Both sides add each row's owned hits in fp32, in other orders
+    (the kernel: chunks of 32 in slot order, then the chunk sums; the
+    plain index_add_: atomics), so each is within gamma_n sum|g| of the
+    exact sum (n = the row's hits) and the bound is twice that. Rows no
+    owned slot hits must be exactly 0, two runs bitwise equal, and the
+    4-shard table gradient bitwise the dense one. Returns (max |err|,
+    per-shape times)."""
+    import torch
+    from repro_torch.kernels.ops import flat_gather_plan
+    from repro_torch.kernels.rgcn_message import segment_key, segment_plan
+    from repro_torch.kernels.sharded_gather import (
+        scatter_add_onehot, scatter_add_onehot_plain, scatter_add_planned,
+    )
+    lay = mbs["layout"]
+    flat_s, own_s = flat_gather_plan(torch.from_numpy(mbs["local"]),
+                                     torch.from_numpy(mbs["owned"]),
+                                     lay.rows_per_shard)
+    ragged_owned = rng.random(5000) < .7
+    cases = [
+        ("table_grad", flat_s.numpy(), own_s.numpy(), lay.padded_rows, 75),
+        ("h_dst", mbs["dst"], None, mbs["V"], 75),
+        ("coeffs_rel", mbs["rel"], None, mbs["R"], 2),
+        ("rel_diag", mbs["trip_rel"], None, mbs["R"], 75),
+        ("all unowned", rng.integers(0, 1000, 1000), np.zeros(1000, bool),
+         1000, 75),
+        ("one row", np.full(40000, 5), None, 300, 75),
+        ("ragged R", rng.integers(0, 1001, 5000), ragged_owned, 1001, 33),
+        ("V=0", np.zeros(0, np.int64), np.zeros(0, bool), 1000, 75),
+    ]
+    max_err, stats = 0.0, {}
+    for label, flat, owned, r, d in cases:
+        v = flat.shape[0]
+        g = torch.from_numpy(rng.normal(0, 1, (v, d)).astype(np.float32)
+                             ).to(dev)
+        flat_t = torch.from_numpy(np.asarray(flat, np.int64)).to(dev)
+        own_t = None if owned is None else torch.from_numpy(
+            np.asarray(owned, bool)).to(dev)
+        got = scatter_add_onehot(g, flat_t, own_t, r)
+        got2 = scatter_add_onehot(g, flat_t, own_t, r)
+        want = scatter_add_onehot_plain(g, flat_t, own_t, r)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), got2.view(torch.int32)):
+            raise AssertionError(f"scatter_add_onehot {label}: two runs "
+                                 f"differ")
+        key = segment_key(flat_t, own_t, r)
+        hits = torch.zeros(r + 1, dtype=torch.float64, device=dev
+                           ).index_add_(0, key, torch.ones(
+                               v, dtype=torch.float64, device=dev))[:r]
+        if not (bool((got[hits == 0] == 0).all()) and
+                bool((want[hits == 0] == 0).all())):
+            raise AssertionError(f"scatter_add_onehot {label}: a row no "
+                                 f"owned slot hits is not exactly 0")
+        absum = torch.zeros((r + 1, d), dtype=torch.float64, device=dev
+                            ).index_add_(0, key, g.double().abs())[:r]
+        tol = 2 * gamma(hits)[:, None] * absum
+        err = (got.double() - want.double()).abs()
+        if bool((err > tol).any()):
+            raise AssertionError(
+                f"scatter_add_onehot {label}: {int((err > tol).sum())} sums "
+                f"outside the bound, worst err {float(err.max())}")
+        e_max = float(err.max()) if err.numel() else 0.0
+        max_err = max(max_err, e_max)
+        longest = int(hits.max()) if hits.numel() else 0
+        log(f"[phase 2] scatter_add_onehot {label} (V={v}, R={r}, d={d}, "
+            f"longest row {longest}): max err {e_max:.3g}, non-hit rows 0, "
+            f"two runs bitwise equal")
+        if label == "table_grad":
+            dense = scatter_add_onehot(
+                g, torch.from_numpy(mbs["gather_global"].astype(np.int64)
+                                    ).to(dev), None, mbs["N"])
+            if not torch.equal(dense.view(torch.int32),
+                               got[:mbs["N"]].view(torch.int32)):
+                raise AssertionError("scatter_add_onehot: the 4-shard table "
+                                     "gradient != the dense one")
+            log("[phase 2] scatter_add_onehot: 4-shard table gradient "
+                "bitwise the dense gather's")
+        if label in ("table_grad", "h_dst", "coeffs_rel"):
+            n_own = int(hits.sum())
+            nbytes = 4 * n_own * d + 8 * v + (v if owned is not None else 0) \
+                + 4 * r * d
+            plan = segment_plan(flat_t, own_t, r)
+            st = dict(V=v, R=r, d=d, longest_row=longest, **timings(
+                lambda: scatter_add_onehot(g, flat_t, own_t, r),
+                lambda: scatter_add_onehot_plain(g, flat_t, own_t, r),
+                lambda: torch.zeros((r + 1, d), device=dev)
+                .index_add_(0, key, g),
+                *bound_ms(nbytes, n_own * d)))
+            st["kernel_ms"], _ = timed(
+                lambda: scatter_add_planned(g, *plan, r))
+            st["plan_ms"], _ = timed(lambda: segment_plan(flat_t, own_t, r))
+            stats[label] = st
+            report("scatter_add_onehot", f"{label} (V={v}, R={r}, d={d})",
+                   st, "index_add_")
+            log(f"[phase 2] scatter_add_onehot {label}: kernels alone "
+                f"{st['kernel_ms']:.4f} ms, the sort plan "
+                f"{st['plan_ms']:.4f} ms")
     return max_err, stats
 
 
 # ---------------------------------------------------------------------- #
 # phase 6: the training path through its entry point
 # ---------------------------------------------------------------------- #
-def train_once(use_kernel: bool):
-    """``repro_torch.launch.train`` at full width: 3 epochs, 4 trainers,
-    then the test evaluation. Returns its result and the kernel launches
-    the run made."""
+def train_once(argv):
+    """``repro_torch.launch.train`` with ``argv``: train, then the test
+    evaluation. Returns its result and the kernel launches the run
+    made."""
     from repro_torch.kernels import KERNELS
     from repro_torch.launch import train
     for w in KERNELS.values():
         w.launches = 0
     t0 = time.perf_counter()
-    out = train.main(TRAIN_ARGV + (["--use-kernel"] if use_kernel else []))
+    out = train.main(argv)
     out["wall_s"] = time.perf_counter() - t0
     out["launches"] = {n: w.launches for n, w in KERNELS.items()}
     return out
+
+
+def param_bits(trainer):
+    """Every parameter's bits, the entity table dense (a sharded table
+    unsharded to its real rows)."""
+    import torch
+    from repro_torch.sharding import unshard_table
+    out = {}
+    for name, p in trainer.params.named_parameters():
+        t = p.detach()
+        if name == "entity_embedding" and t.dim() == 3:
+            t = unshard_table(t, trainer.train_kg.num_entities)
+        out[name] = t.contiguous().view(torch.int32)
+    return out
+
+
+def bitwise_mismatch(a, b):
+    """Names of the parameters whose bits differ between two trainers."""
+    import torch
+    pa, pb = param_bits(a), param_bits(b)
+    return [n for n in pa if not torch.equal(pa[n], pb[n])]
+
+
+def two_runs_bitwise(trainer, batch, generators_fn):
+    """Two runs of one step of ``trainer`` on ``batch`` from the same
+    parameters and optimizer state: the losses and the parameters after
+    the step must be bitwise equal. Returns the loss."""
+    import torch
+    params = [p for _, p in trainer.params.named_parameters()]
+    saved = [p.detach().clone() for p in params]
+    state = trainer.opt_state
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for p, s in zip(params, saved):
+                p.copy_(s)
+        trainer.opt_state = state
+        loss = trainer.step(batch, generators_fn())
+        runs.append((loss, param_bits(trainer)))
+    (l1, p1), (l2, p2) = runs
+    bad = [n for n in p1 if not torch.equal(p1[n], p2[n])]
+    if l1 != l2 or bad:
+        raise AssertionError(f"two runs of one step differ: losses {l1!r} "
+                             f"{l2!r}, parameters {bad}")
+    return l1
+
+
+def first_batch(trainer, epoch):
+    """The first device batch the trainer's pipeline gives for ``epoch``
+    (the pipeline is closed after it)."""
+    it = trainer.pipeline.device_batches(epoch)
+    batch = next(iter(it))
+    close = getattr(it, "close", None)
+    if close is not None:
+        close()
+    return batch
 
 
 def plain_twin(trainer):
@@ -697,26 +948,37 @@ def main() -> int:
 
     # phase 2: kernel vs plain at the serving and training shapes
     rng = np.random.default_rng(0)
-    n, d = FB15K["entities"], FB15K["dim"]
-    widths = [("fb15k237_S1", n, d), ("fb15k237_S4", -(-n // 4), d),
-              ("citation2_S1", CITATION2["entities"], CITATION2["dim"])]
-    gather_widths = [("fb15k237", n, d),
-                     ("citation2", CITATION2["entities"], CITATION2["dim"])]
-    phase2 = {"kge_score": check_kge_score(dev, rng, widths),
-              "topk": check_topk(dev, rng, widths),
-              "fused_gather": check_fused_gather(dev, rng, gather_widths)}
     t0 = time.perf_counter()
     part = training_partition()
     log(f"[phase 2] training partition: V={part['V']}, E={part['E']} "
         f"({int(part['mask'].sum())} real edges), R={part['R']}; "
         f"preprocessing {time.perf_counter() - t0:.1f} s")
-    bm_err, bm_stats, bm_configs = check_basis_message(dev, rng, part)
+    t0 = time.perf_counter()
+    mbs = minibatch_arrays()
+    log(f"[phase 2] mini-batch: budgets V={mbs['V']}, E={mbs['E']}, "
+        f"T={mbs['T']}; the first batch's comp graph holds "
+        f"{mbs['comp_vertices']} vertices and {int(mbs['mask'].sum())} "
+        f"edges; preprocessing {time.perf_counter() - t0:.1f} s")
+    n, d = FB15K["entities"], FB15K["dim"]
+    rank_rows = mbs["layout"].rows_per_shard
+    widths = [("fb15k237_S1", n, d), ("fb15k237_S4", -(-n // 4), d),
+              ("citation2_S1", CITATION2["entities"], CITATION2["dim"]),
+              ("rank_S4", rank_rows, d, 256)]
+    gather_widths = [("fb15k237", n, d),
+                     ("citation2", CITATION2["entities"], CITATION2["dim"])]
+    phase2 = {"kge_score": check_kge_score(dev, rng, widths),
+              "topk": check_topk(dev, rng, widths[:3]),
+              "fused_gather": check_fused_gather(dev, rng, gather_widths,
+                                                 mbs)}
+    bm_err, bm_stats, bm_configs = check_basis_message(dev, rng, part, mbs)
     phase2["basis_message"] = (bm_err, bm_stats)
-    phase2["segment_sum"] = check_segment_sum(dev, rng, part)
+    phase2["segment_sum"] = check_segment_sum(dev, rng, part, mbs)
+    phase2["scatter_add_onehot"] = check_scatter_add(dev, rng, mbs)
     log("[phase 2] kge_score and basis_message within their stated bounds; "
         "topk and fused_gather bitwise equal to their plain versions; "
         "segment_sum deg == plain, agg within its bound, runs bitwise "
-        "equal")
+        "equal; scatter_add_onehot within its bound, non-hit rows 0, runs "
+        "bitwise equal")
 
     # phases 3-4: the serving path; counts read around exactly these runs
     for w in KERNELS.values():
@@ -746,8 +1008,8 @@ def main() -> int:
 
     # phase 6: the training path (counts reset and read inside train_once)
     train = {}
-    for label, use_kernel in (("kernel", True), ("plain", False)):
-        res = train_once(use_kernel)
+    for label, extra in (("kernel", ["--use-kernel"]), ("plain", [])):
+        res = train_once(TRAIN_ARGV + extra)
         train[label] = res
         log(f"[phase 6] {label} run: losses "
             f"{[h['loss'] for h in res['history']]}, epoch times "
@@ -783,6 +1045,67 @@ def main() -> int:
             raise AssertionError(f"metric {k} out of range")
     log(f"[phase 6] kernel == plain losses within {LOSS_TOL}; encoders "
         f"agree within {EMB_TOL} (max |diff| {emb_err:.3g})")
+    fg_loss = two_runs_bitwise(trainer, first_batch(trainer, epochs + 1),
+                               lambda: trainer.step_generators(epochs + 1,
+                                                               0))
+    log(f"[phase 6] two runs of one full-graph step (kernel encoder): "
+        f"loss {fg_loss!r} and every parameter bitwise equal")
+
+    # phase 6b: the mini-batch path; counts reset and read inside train_once
+    mb = {"main": train_once(MB_ARGV + MB_MAIN)}
+    mb_launches = mb["main"]["launches"]
+    for label, extra in MB_GATES.items():
+        mb[label] = train_once(MB_ARGV + extra)
+    for label, r in mb.items():
+        h = r["history"][0]
+        log(f"[phase 6b] {label} run: {h['num_batches']} steps, mean loss "
+            f"{h['loss']!r}, device step {h['t_device_step']:.3f} s, host "
+            f"exposed {h['t_get_compute_graph']:.3f} s of "
+            f"{h['t_host_build']:.3f} s built (overlap "
+            f"{h['overlap_fraction']:.3f}), {r['wall_s']:.1f} s in all; "
+            f"{r['metrics']}")
+    missing = [k for k in MINIBATCH_KERNELS if mb_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the mini-batch "
+                             f"path: {missing}")
+    log(f"[phase 6b] launches during the main run: {mb_launches}")
+    main_tr = mb["main"]["trainer"]
+    main_losses = mb["main"]["history"][0]["losses"]
+    if not (len(main_losses) > 1 and np.isfinite(main_losses).all()):
+        raise AssertionError(f"mini-batch losses: {main_losses}")
+    for label in ("S1", "serial", "dedup"):
+        got = mb[label]["history"][0]["losses"]
+        bad = bitwise_mismatch(main_tr, mb[label]["trainer"])
+        if got != main_losses or bad:
+            raise AssertionError(f"mini-batch {label} != main: losses "
+                                 f"{got} vs {main_losses}, params {bad}")
+    np.testing.assert_allclose(mb["plain"]["history"][0]["losses"],
+                               main_losses, **LOSS_TOL)
+    log("[phase 6b] per-step losses and final parameters bitwise equal for "
+        "--table-shards 1 and 4, --pipeline serial and async, with and "
+        f"without --gather-dedup; kernel vs plain encoder within {LOSS_TOL}")
+    from repro_torch.eval.ranking import evaluate_both_directions
+    emb_mb = main_tr.encode_all_entities()
+    if emb_mb.shape != (FB15K["entities"], FB15K["dim"]) or \
+            not bool(torch.isfinite(emb_mb).all()):
+        raise AssertionError(f"bad embeddings {tuple(emb_mb.shape)}")
+    splits = main_tr.splits
+    rank_args = (emb_mb, {k: v.detach() for k, v in
+                          main_tr.params["decoder"].items()}, splits["test"],
+                 [splits[k] for k in ("train", "valid", "test")],
+                 splits["train"].num_relations)
+    sharded_m = evaluate_both_directions(*rank_args, num_shards=4)
+    dense_m = evaluate_both_directions(*rank_args, num_shards=1)
+    if sharded_m != dense_m or {f"test_{k}": v for k, v in
+                                sharded_m.items()} != mb["main"]["metrics"]:
+        raise AssertionError(f"4-shard ranking {sharded_m} != dense "
+                             f"{dense_m} (run: {mb['main']['metrics']})")
+    log(f"[phase 6b] 4-shard ranking == dense ranking: {dense_m}")
+    mb_batch = first_batch(main_tr, 2)
+    mb_loss = two_runs_bitwise(main_tr, mb_batch,
+                               lambda: main_tr.step_generators(2, 0))
+    log(f"[phase 6b] two runs of one mini-batch step: loss {mb_loss!r} and "
+        f"every parameter bitwise equal")
 
     # phase 7: where a steady step's time goes
     profiles = {}
@@ -808,15 +1131,35 @@ def main() -> int:
     log(f"[phase 7] eval encode (kernel encoder): {p['step_ms']:.3f} ms, "
         f"device busy {p['device_ms_per_step']:.3f} ms, idle share "
         f"{p['idle_share']:.3f}; top {p['top_device_ms_per_step']}")
+    gens = main_tr.step_generators(2, 0)
+    p = step_profile(lambda: main_tr.step(mb_batch, gens))
+    profiles["minibatch_step_kernel"] = p
+    log(f"[phase 7] mini-batch step (4-shard table, kernel encoder): "
+        f"{p['step_ms']:.3f} ms, device busy {p['device_ms_per_step']:.3f} "
+        f"ms, idle share {p['idle_share']:.3f}; top "
+        f"{p['top_device_ms_per_step']}")
+    h = mb["main"]["history"][0]
+    profiles["minibatch_pipeline"] = {
+        k: h[k] for k in ("num_batches", "t_get_compute_graph",
+                          "t_host_build", "t_warmup", "overlap_fraction",
+                          "t_device_step", "t_epoch")}
+    log(f"[phase 7] async pipeline over the main epoch: exposed wait "
+        f"{h['t_get_compute_graph']:.4f} s of {h['t_host_build']:.4f} s "
+        f"built, overlap {h['overlap_fraction']:.4f}, warm-up "
+        f"{h['t_warmup']:.4f} s; {h['num_batches']} steps, "
+        f"{1e3 * h['t_device_step'] / h['num_batches']:.2f} ms per step")
 
     kernels = []
-    for name in ("kge_score", "topk", "fused_gather", "basis_message",
-                 "segment_sum"):
+    # each kernel's head shape: the mini-batch path's where it runs there
+    heads = {"kge_score": "rank_S4", "topk": "citation2_S1",
+             "fused_gather": "minibatch_S4", "basis_message": "minibatch",
+             "segment_sum": "minibatch", "scatter_add_onehot": "table_grad"}
+    for name, head_shape in heads.items():
         max_err, stats = phase2[name]
-        head = stats["citation2_S1" if name in ("kge_score", "topk") else
-                     "citation2" if name == "fused_gather" else "train"]
+        head = stats[head_shape]
         by_path = {"serve": serve_launches[name],
-                   "train": train_launches[name]}
+                   "train": train_launches[name],
+                   "minibatch": mb_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),
@@ -834,6 +1177,13 @@ def main() -> int:
                                      "launches": r["launches"],
                                      "wall_s": r["wall_s"]}
                                  for k, r in train.items()},
+                       "minibatch": {k: {"history": r["history"],
+                                         "metrics": r["metrics"],
+                                         "launches": r["launches"],
+                                         "wall_s": r["wall_s"]}
+                                     for k, r in mb.items()},
+                       "fullgraph_two_run_loss": fg_loss,
+                       "minibatch_two_run_loss": mb_loss,
                        "embedding_max_abs_diff": emb_err,
                        "profile": profiles,
                        "total_s": time.perf_counter() - t_start}, f, indent=1)

@@ -81,7 +81,9 @@ def kge_model_from_jax(tree: Mapping, cfg, *, device=None):
     """The reference's ``init_kge_params`` tree (numpy leaves: ``np.asarray``
     of each) → a :class:`repro_torch.models.kge.KGEModel` for ``cfg`` (a
     port ``KGEConfig``) on ``device`` (default ``cuda``). Every name and
-    shape must match the model's; values are copied bit for bit."""
+    shape must match the model's — a row-sharded ``(S, rows, d)`` entity
+    table needs ``cfg.rgcn.num_table_shards == S``; values are copied bit
+    for bit."""
     from repro_torch.models.kge import KGEModel
     dev = resolve_device(device)
     flat = flatten_tree(tree)
@@ -99,7 +101,9 @@ def kge_model_from_jax(tree: Mapping, cfg, *, device=None):
 
 def kge_model_to_jax(model) -> Dict:
     """A :class:`KGEModel` → the reference's tree layout with numpy leaves
-    (``{"entity_embedding", "layers": [{...}, ...], "decoder": {...}}``)."""
+    (``{"entity_embedding", "layers": [{...}, ...], "decoder": {...}}``);
+    a row-sharded entity table stays ``(S, rows, d)``, as the reference
+    stores it."""
     tree: Dict = {}
     for name, p in model.named_parameters():
         value = p.detach().cpu().numpy().copy()

@@ -31,29 +31,23 @@
 //    What bounds it on an H100: bytes. It must read msg (4*E*d) and write agg
 //    (4*V*d): 0.036 ms at the training shape.
 //
-//    Design: no float atomics, so the sum is the same bits on every run. The
-//    caller sorts the edges stably by segment (masked edges last) and passes
-//    the permutation, the segment offsets, and a chunk list that cuts every
-//    segment into chunks of CHUNK sorted edges. Pass 1 gives each chunk one
-//    warp: the lanes own columns, and each lane adds the chunk's rows in
-//    ascending edge order. A segment of one chunk is then complete and is
-//    written to agg; a longer one writes one partial row per chunk. Pass 2
-//    gives each segment one block, writes deg, and adds a long segment's
-//    partial rows: 16 warps each add a contiguous run of them in chunk
-//    order, then the 16 run sums are added in order. Chunks and runs keep a
-//    hub vertex (the FB15k-237 training partition has a 53,149-edge
-//    segment) from serialising on one warp.
+//    Design: no float atomics, so the sum is the same bits on every run: the
+//    two passes of segment_sum.cuh (which scatter_add_onehot in
+//    sharded_gather.cu shares) over the edges sorted stably by segment
+//    (masked edges last), in chunks of 32 edges, then each segment's chunk
+//    sums over 16 warps. Chunks and runs keep a hub vertex (the FB15k-237
+//    training partition has a 53,149-edge segment) from serialising on one
+//    warp.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "segment_sum.cuh"
 
 namespace {
 
 constexpr int BM_THREADS = 256;  // threads per basis_message block
 constexpr int EPT = 4;           // edges per thread in basis_message
 constexpr int MAX_TILE_E = 128;  // edges per basis_message block
-constexpr int CHUNK = 32;        // sorted edges per segment_sum chunk (= warp)
-constexpr int SEG_WARPS = 8;     // warps per segment_sum pass-1 block
-constexpr int COMBINE_WARPS = 16;  // warps per segment in pass 2
 
 __global__ void __launch_bounds__(BM_THREADS)
 basis_message_kernel(const float* __restrict__ h_t,
@@ -123,85 +117,6 @@ basis_message_kernel(const float* __restrict__ h_t,
         const int64_t e = e0 + r0 + k;
         out[e * d_out + o] = mask[e] ? acc[k] : 0.0f;
       }
-    }
-  }
-}
-
-// pass 1: one warp per chunk
-__global__ void __launch_bounds__(SEG_WARPS * 32)
-segment_chunk_kernel(const float* __restrict__ msg,
-                     const int64_t* __restrict__ perm,
-                     const int64_t* __restrict__ offsets,
-                     const int64_t* __restrict__ chunk_ptr,
-                     float* __restrict__ agg, float* __restrict__ partial,
-                     int V, int d) {
-  const int lane = threadIdx.x & 31;
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * SEG_WARPS +
-                    (threadIdx.x >> 5);
-  if (c >= chunk_ptr[V]) return;
-  // the segment holding chunk c: the last v with chunk_ptr[v] <= c
-  int lo = 0, hi = V - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (chunk_ptr[mid] <= c) lo = mid; else hi = mid - 1;
-  }
-  const int v = lo;
-  const int64_t start = offsets[v] + (c - chunk_ptr[v]) * CHUNK;
-  const int64_t stop = offsets[v + 1];
-  const int n = static_cast<int>(stop - start < CHUNK ? stop - start : CHUNK);
-  const int64_t mine = lane < n ? perm[start + lane] : 0;
-  float* row = (chunk_ptr[v + 1] - chunk_ptr[v] == 1)
-                   ? agg + static_cast<int64_t>(v) * d
-                   : partial + c * d;
-  for (int col = lane; col - lane < d; col += 32) {
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int j = 0; j < n; ++j) {
-      const int64_t e = __shfl_sync(0xffffffffu, mine, j);
-      if (col < d) acc += msg[e * d + col];
-    }
-    if (col < d) row[col] = acc;
-  }
-}
-
-// pass 2: one block per segment. A segment of several chunks is cut into
-// COMBINE_WARPS contiguous runs of chunk rows; each warp adds its run in
-// chunk order, then warp 0 adds the runs' sums in run order. The split
-// depends only on the segment's chunk count, so the sum order is fixed.
-__global__ void __launch_bounds__(COMBINE_WARPS * 32)
-segment_combine_kernel(const float* __restrict__ partial,
-                       const int64_t* __restrict__ offsets,
-                       const int64_t* __restrict__ chunk_ptr,
-                       float* __restrict__ agg, float* __restrict__ deg,
-                       int d) {
-  extern __shared__ float runs[];  // (COMBINE_WARPS, d)
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int v = blockIdx.x;
-  if (threadIdx.x == 0)
-    deg[v] = static_cast<float>(offsets[v + 1] - offsets[v]);
-  const int64_t c0 = chunk_ptr[v], c1 = chunk_ptr[v + 1];
-  if (c1 - c0 == 1) return;  // pass 1 wrote the whole segment
-  float* row = agg + static_cast<int64_t>(v) * d;
-  if (c1 == c0) {            // empty segment
-    for (int col = threadIdx.x; col < d; col += blockDim.x) row[col] = 0.0f;
-    return;
-  }
-  const int64_t per = (c1 - c0 + COMBINE_WARPS - 1) / COMBINE_WARPS;
-  const int64_t lo = c0 + warp * per;
-  const int64_t hi = lo + per < c1 ? lo + per : c1;
-  for (int col = lane; col < d; col += 32) {
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int64_t c = lo; c < hi; ++c) acc += partial[c * d + col];
-    runs[warp * d + col] = acc;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    for (int col = lane; col < d; col += 32) {
-      float acc = runs[col];
-      for (int w = 1; w < COMBINE_WARPS; ++w) acc += runs[w * d + col];
-      row[col] = acc;
     }
   }
 }
@@ -276,31 +191,10 @@ extern "C" int segment_sum_f32(const void* msg, const void* perm,
                                const void* offsets, const void* chunk_ptr,
                                void* agg, void* deg, void* partial, int V,
                                int d, int64_t max_chunks, void* stream) {
-  if (V <= 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = SEG_WARPS * 32;
-  if (max_chunks > 0) {
-    const unsigned blocks1 =
-        static_cast<unsigned>((max_chunks + SEG_WARPS - 1) / SEG_WARPS);
-    segment_chunk_kernel<<<blocks1, threads, 0, s>>>(
-        static_cast<const float*>(msg), static_cast<const int64_t*>(perm),
-        static_cast<const int64_t*>(offsets),
-        static_cast<const int64_t*>(chunk_ptr), static_cast<float*>(agg),
-        static_cast<float*>(partial), V, d);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const size_t smem = sizeof(float) * COMBINE_WARPS * static_cast<size_t>(d);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        segment_combine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  segment_combine_kernel<<<static_cast<unsigned>(V), COMBINE_WARPS * 32,
-                           smem, s>>>(
-      static_cast<const float*>(partial), static_cast<const int64_t*>(offsets),
+  return static_cast<int>(segsum::launch(
+      static_cast<const float*>(msg), static_cast<const int64_t*>(perm),
+      static_cast<const int64_t*>(offsets),
       static_cast<const int64_t*>(chunk_ptr), static_cast<float*>(agg),
-      static_cast<float*>(deg), d);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<float*>(deg), static_cast<float*>(partial), V, d,
+      max_chunks, static_cast<cudaStream_t>(stream)));
 }

@@ -1,5 +1,6 @@
-// fused_gather: the sharded table's row exchange collapsed into one masked
-// row gather,
+// The sharded entity table's row exchange, forward and backward.
+//
+// 1. fused_gather: the row exchange collapsed into one masked row gather,
 //
 //     out[v] = owned[v] ? table[flat[v]] : 0
 //
@@ -19,9 +20,34 @@
 // plan (the host plan never produces one; the plain version raises an
 // index error on it): the kernel writes zeros for it instead of reading out
 // of bounds, and stores the slot (plus one) in a flag in pinned host
-// memory, which the wrapper reads after the gather and raises on.
+// memory. The serving wrapper reads it after every gather and raises; the
+// training path reads it once per step, after the loss.
+//
+// 2. scatter_add_onehot: the transpose of a row gather,
+//
+//     out[r] = sum over slots v with flat[v] == r and owned[v] of g[v]
+//
+// the gradient of the sharded table and of every row gather on the training
+// path. Replaces the Pallas TPU kernel repro/kernels/sharded_gather.py::
+// scatter_add_onehot (pallas_call at sharded_gather.py:195), whose one-hot
+// matmuls stood in for the TPU's missing atomics at O(R*V*d) work.
+//
+// What bounds it on an H100: bytes. It must read the owned slots' g rows
+// (4*V*d) and write out (4*R*d).
+//
+// Design: no float atomics, so the sum order is fixed by the data alone and
+// two runs give the same bits. The caller sorts the slots stably by flat row
+// (unowned slots go to a sentinel row past the table, so they cannot shift a
+// real row's chunks) and the two passes of segment_sum.cuh add each row's
+// slots in slot order, in chunks of 32, then the chunk sums in chunk order.
+// A row's sum depends only on which slots hit it and in what order: a dense
+// gather and a row-sharded one (whose flat row is the global id under the
+// row-block layout) get the same bits, and so do a deduplicated plan and a
+// plain one. Rows no owned slot hits, layout padding included, are 0.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "segment_sum.cuh"
 
 namespace {
 
@@ -61,4 +87,18 @@ extern "C" int fused_gather_f32(const void* table, const void* flat,
       static_cast<const uint8_t*>(owned), static_cast<float*>(out), rows, d,
       static_cast<int64_t*>(bad_slot));
   return static_cast<int>(cudaGetLastError());
+}
+
+// `max_chunks` bounds the chunk count (the caller passes V / CHUNK + R); the
+// partial buffer holds max_chunks rows of d.
+extern "C" int scatter_add_f32(const void* g, const void* perm,
+                               const void* offsets, const void* chunk_ptr,
+                               void* out, void* partial, int R, int d,
+                               int64_t max_chunks, void* stream) {
+  return static_cast<int>(segsum::launch(
+      static_cast<const float*>(g), static_cast<const int64_t*>(perm),
+      static_cast<const int64_t*>(offsets),
+      static_cast<const int64_t*>(chunk_ptr), static_cast<float*>(out),
+      nullptr, static_cast<float*>(partial), R, d, max_chunks,
+      static_cast<cudaStream_t>(stream)));
 }

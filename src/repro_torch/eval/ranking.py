@@ -1,5 +1,5 @@
 """Filtered link-prediction evaluation (port of ``repro/eval/ranking.py``,
-the dense all-entities protocol; paper §4.2, Eq. 5-6).
+the all-entities protocol, dense or sharded; paper §4.2, Eq. 5-6).
 
 Filtered link prediction masks every candidate that forms a KNOWN positive.
 The filter is a ``CSRFilterIndex``: known (s, r) pairs as a sorted int64 key
@@ -246,16 +246,22 @@ def ranking_metrics(entity_emb, decoder_params: Dict,
     protocol. Every batch of ``batch_size`` queries is one ``kge_score``
     launch over all N candidates in the decoder's query form, with the
     batch's filter bias built on the host. ``device`` defaults to the
-    table's own when it is a tensor, else to ``cuda``. The ogbl
-    candidate-list protocol, sharded ranking and int8 tables are not
-    ported yet and raise."""
+    table's own when it is a tensor, else to ``cuda``. ``num_shards > 1``
+    ranks candidate-axis-sharded over the row-sharded table
+    (``repro_torch.eval.sharded``), with exactly the dense metrics. The
+    ogbl candidate-list protocol and int8 tables are not ported yet and
+    raise."""
     if candidates is not None:
         raise not_ported("the candidate-list (ogbl) ranking protocol",
-                         "minibatch")
-    if num_shards > 1:
-        raise not_ported(f"num_shards={num_shards} ranking", "sharded_table")
+                         "citation2")
     if table_dtype != "fp32":
         raise not_ported(f"table_dtype={table_dtype!r} ranking", "int8")
+    if num_shards > 1:
+        from repro_torch.eval.sharded import sharded_ranking_metrics
+        return sharded_ranking_metrics(
+            entity_emb, decoder_params, test_triplets, filter_index,
+            num_shards, hits_ks=hits_ks, batch_size=batch_size,
+            decoder=decoder, device=device)
     if device is None and isinstance(entity_emb, torch.Tensor):
         device = entity_emb.device
     dev = resolve_device(device)

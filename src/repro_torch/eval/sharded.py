@@ -1,21 +1,30 @@
-"""Candidate-axis-sharded scoring over the row-sharded entity table (port of
-the serving subset of ``repro/eval/sharded.py``).
+"""Candidate-axis-sharded scoring and ranking over the row-sharded entity
+table (port of the single-device part of ``repro/eval/sharded.py``).
 
 Shard ``s`` owns table rows ``[s·rows, (s+1)·rows)``. Its ``(B, rows)``
 score block is the ``kge_score`` kernel over its own prepared rows, and its
 filter-bias block comes straight from the CSR index's column-range form,
 ``-inf`` on layout-padded tail rows — the dense ``(B, N)`` score or bias
-matrix never exists.
+matrix never exists. Ranking sums each shard's counts of candidates
+scoring above and equal to the true tail, whose score is read from the
+owning shard's block, so the metrics are exactly the dense ones.
 """
 from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.eval.ranking import _filter_bias
+from repro_torch.device import resolve_device
+from repro_torch.eval.ranking import (
+    CSRFilterIndex, _filter_bias, mean_rank, metrics_from_ranks,
+)
 from repro_torch.kernels.ops import kge_score_padded
-from repro_torch.models.decoders import Decoder
-from repro_torch.sharding.embedding import ShardedTableLayout
+from repro_torch.models.decoders import Decoder, get_decoder
+from repro_torch.sharding.embedding import (
+    ShardedTableLayout, plan_local_gather, shard_table, sharded_gather,
+)
 
 
 def shard_filter_bias_block(filter_index, batch: np.ndarray,
@@ -50,3 +59,77 @@ def shard_scores(decoder: Decoder, dec_params, table_block: torch.Tensor,
                     decoder.prepare_candidates(dec_params, table_block))
     return kge_score_padded(q, cand, bias_block, q_bias, c_bias,
                             epilogue=decoder.epilogue)
+
+
+def sharded_rank_counts(decoder: Decoder, dec_params, table: torch.Tensor,
+                        q: torch.Tensor, q_bias: torch.Tensor,
+                        bias_blocks: Sequence[torch.Tensor],
+                        true_local: torch.Tensor, true_owned: torch.Tensor,
+                        prepared: Optional[Sequence] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-query global rank counts from per-shard kernel scores over the
+    ``(S, rows, d)`` table: ``(greater, equal, true_score)``. ``equal``
+    includes the true candidate's own tie (``mean_rank`` discounts it).
+    The true score is read from the owning shard's block, not recomputed,
+    so it is bitwise the dense ``scores[b, t]`` and the comparisons agree
+    with the dense path at exact ties. ``bias_blocks[s]`` must be ``-inf``
+    on layout-padded rows."""
+    rows_idx = torch.arange(q.shape[0], device=q.device)
+    scores = [shard_scores(decoder, dec_params, table[s], q, q_bias,
+                           bias_blocks[s],
+                           prepared=None if prepared is None
+                           else prepared[s])
+              for s in range(table.shape[0])]
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    true_score = sum(
+        torch.where(true_owned[s], sc[rows_idx, true_local[s]], zero)
+        for s, sc in enumerate(scores))
+    greater = sum((sc > true_score[:, None]).sum(1) for sc in scores)
+    equal = sum((sc == true_score[:, None]).sum(1) for sc in scores)
+    return greater, equal, true_score
+
+
+def sharded_ranking_metrics(entity_emb, decoder_params: Dict,
+                            test_triplets: np.ndarray, filter_index,
+                            num_shards: int,
+                            hits_ks: Sequence[int] = (1, 3, 10),
+                            batch_size: int = 256,
+                            decoder: Union[str, Decoder] = "distmult",
+                            device=None) -> Dict[str, float]:
+    """Filtered MRR / Hits@k with candidate-axis-sharded ranking, the
+    ``num_shards > 1`` twin of ``ranking.ranking_metrics`` (all-entities
+    protocol): the table is row-sharded once; per test batch, each shard's
+    filter-bias block is built from the CSR index, the heads are fetched
+    through the sharded gather (bitwise the dense rows), and each shard
+    scores its own rows with one ``kge_score`` launch. Returns exactly the
+    dense metrics."""
+    if device is None and isinstance(entity_emb, torch.Tensor):
+        device = entity_emb.device
+    dev = resolve_device(device)
+    dec = get_decoder(decoder)
+    emb = torch.as_tensor(entity_emb, dtype=torch.float32).to(dev)
+    layout = ShardedTableLayout(emb.shape[0], num_shards)
+    table = shard_table(emb, layout)
+    dparams = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
+               for k, v in decoder_params.items()}
+    prepared = [dec.prepare_candidates(dparams, table[s])
+                for s in range(num_shards)]
+    ranks = []
+    for lo in range(0, test_triplets.shape[0], batch_size):
+        batch = np.asarray(test_triplets[lo: lo + batch_size])
+        h_li, h_ow = plan_local_gather(layout, batch[:, 0])
+        h_s = sharded_gather(table, h_li, h_ow)
+        rel = torch.from_numpy(batch[:, 1].astype(np.int64)).to(dev)
+        q, q_bias = dec.prepare_query(dparams, h_s, rel)
+        t_li, t_ow = plan_local_gather(layout, batch[:, 2])
+        resolved = (filter_index.resolve_queries(batch)
+                    if isinstance(filter_index, CSRFilterIndex) else None)
+        bias_blocks = [torch.from_numpy(shard_filter_bias_block(
+            filter_index, batch, layout, s, resolved)).to(dev)
+            for s in range(num_shards)]
+        greater, equal, _ = sharded_rank_counts(
+            dec, dparams, table, q, q_bias, bias_blocks,
+            torch.from_numpy(t_li.astype(np.int64)).to(dev),
+            torch.from_numpy(t_ow).to(dev), prepared)
+        ranks.append(mean_rank(greater.cpu().numpy(), equal.cpu().numpy()))
+    return metrics_from_ranks(np.concatenate(ranks), hits_ks)

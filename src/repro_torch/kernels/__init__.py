@@ -7,6 +7,10 @@ version:
   (replaces ``repro/kernels/topk.py::topk_scores``).
 * ``fused_gather`` — the sharded table's fused masked row gather
   (replaces ``repro/kernels/sharded_gather.py::fused_gather``).
+* ``scatter_add_onehot`` — its transpose, the masked scatter-add of row
+  cotangents, deterministic without float atomics: the backward of the
+  sharded table and of every training-path row gather (replaces
+  ``repro/kernels/sharded_gather.py::scatter_add_onehot``).
 * ``basis_message`` — the RGCN per-edge basis projection and coefficient
   mix (replaces ``repro/kernels/rgcn_message.py::basis_message``).
 * ``segment_sum`` — the RGCN masked segment sum with degree counts,
@@ -22,25 +26,31 @@ from repro_torch.kernels.kge_score import (
     EPILOGUES, NORM_EPS, apply_epilogue, kge_score, kge_score_plain,
 )
 from repro_torch.kernels.ops import (
-    flat_gather_plan, fused_sharded_gather, kge_score_padded, merge_topk,
-    rgcn_message_basis, topk_padded,
+    flat_gather_plan, fused_sharded_gather, gather_rows, kge_score_padded,
+    masked_take, merge_topk, rgcn_message_basis, topk_padded,
 )
 from repro_torch.kernels.rgcn_message import (
     basis_message, basis_message_plain, segment_sum, segment_sum_plain,
 )
-from repro_torch.kernels.sharded_gather import fused_gather, fused_gather_plain
+from repro_torch.kernels.sharded_gather import (
+    fused_gather, fused_gather_plain, scatter_add_onehot,
+    scatter_add_onehot_plain,
+)
 from repro_torch.kernels.topk import topk_plain, topk_scores
 
 # every kernel wrapper of the port; each counts its launches in
 # ``wrapper.launches``
 KERNELS = {"kge_score": kge_score, "topk": topk_scores,
            "fused_gather": fused_gather, "basis_message": basis_message,
-           "segment_sum": segment_sum}
+           "segment_sum": segment_sum,
+           "scatter_add_onehot": scatter_add_onehot}
 
 __all__ = ["ops", "ref", "EPILOGUES", "NORM_EPS", "KERNELS",
            "apply_epilogue", "kge_score", "kge_score_plain",
            "kge_score_padded", "topk_scores", "topk_plain", "topk_padded",
            "merge_topk", "fused_gather", "fused_gather_plain",
-           "flat_gather_plan", "fused_sharded_gather", "basis_message",
+           "flat_gather_plan", "fused_sharded_gather", "gather_rows",
+           "masked_take", "scatter_add_onehot", "scatter_add_onehot_plain",
+           "basis_message",
            "basis_message_plain", "segment_sum", "segment_sum_plain",
            "rgcn_message_basis"]

@@ -3,10 +3,11 @@ plain C interface → ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on its own into
 ``build/repro_torch/<name>-<hash>.so`` at the repository root, where the
-hash covers the source and the flags, so an edited source never loads a
-stale library. Nothing is built when a module is imported: the first
-launch of a kernel builds its library, and :func:`build` compiles several
-sources at once, one ``nvcc`` process each, all started together.
+hash covers the source, the shared headers and the flags, so an edited
+source never loads a stale library. Nothing is built when a module is
+imported: the first launch of a kernel builds its library, and
+:func:`build` compiles several sources at once, one ``nvcc`` process
+each, all started together.
 """
 from __future__ import annotations
 
@@ -39,11 +40,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to for the current source and
-    flags."""
-    src = CSRC / f"{name}.cu"
+    """Where ``csrc/<name>.cu`` builds to for the current source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,6 +1,7 @@
 """Public wrappers around the kernels (port of ``repro/kernels/ops.py``):
-the fused RGCN message layer, optional arguments, k checks, the shard merge
-and the flat-index gather plan.
+the fused RGCN message layer, the row gather with a deterministic
+backward, optional arguments, k checks, the shard merge and the flat-index
+gather plan.
 
 The TPU wrappers padded E, V, B and C to the kernels' 128-row tiles; the
 CUDA kernels take ragged shapes, so nothing is padded here and the results
@@ -12,17 +13,55 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ref
 from repro_torch.kernels.kge_score import kge_score
 from repro_torch.kernels.rgcn_message import basis_message, segment_sum
-from repro_torch.kernels.sharded_gather import fused_gather
+from repro_torch.kernels.sharded_gather import (
+    fused_gather, scatter_add_onehot,
+)
 from repro_torch.kernels.topk import topk_scores
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[ids]`` over the leading axis, masked to zero rows where
+    ``owned`` is false; its backward scatters the cotangents of the owned
+    slots back with :func:`scatter_add_onehot`, whose sum order is fixed
+    by the data (no float atomics), so gradients are the same bits on
+    every run. Forward: ``index_select`` without a mask, the
+    ``fused_gather`` kernel (the plain version on the CPU) with one."""
+
+    @staticmethod
+    def forward(ctx, table, ids, owned, check):
+        ctx.table_shape = table.shape
+        ctx.save_for_backward(ids, owned)
+        rows = table.reshape(table.shape[0], -1)
+        if owned is None:
+            out = torch.index_select(rows, 0, ids)
+        else:
+            out = fused_gather(rows.contiguous(), ids, owned, check=check)
+        return out.reshape(ids.shape + table.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, owned = ctx.saved_tensors
+        shape = ctx.table_shape
+        dt = scatter_add_onehot(g.reshape(ids.shape[0], -1).contiguous(),
+                                ids, owned, shape[0])
+        return dt.reshape(shape), None, None, None
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for ``(V,)`` ids over the leading axis of ``table``
+    (any trailing shape), with the deterministic
+    :func:`scatter_add_onehot` backward — the row gather of every training
+    path (entity table, vertex states, relation tables)."""
+    return _GatherRows.apply(table, ids.long(), None, True)
 
 
 class _RGCNMessageBasis(torch.autograd.Function):
     """Forward through the two kernels; backward through the plain formula
     ``ref.rgcn_message_ref``, recomputed and differentiated (the reference's
-    ``_rgcn_bwd``: there is no backward kernel)."""
+    ``_rgcn_bwd``), whose gathers scatter their gradients back through
+    ``scatter_add_onehot``."""
 
     @staticmethod
     def forward(ctx, h, src, rel, dst, edge_mask, bases, coeffs):
@@ -37,6 +76,7 @@ class _RGCNMessageBasis(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         h, src, rel, dst, edge_mask, bases, coeffs = ctx.saved_tensors
+        from repro_torch.kernels import ref
         with torch.enable_grad():
             inputs = [x.detach().requires_grad_()
                       for x in (h, bases, coeffs)]
@@ -118,14 +158,33 @@ def flat_gather_plan(local_ids: torch.Tensor, owned: torch.Tensor,
 
 
 def fused_sharded_gather(table: torch.Tensor, local_ids: torch.Tensor,
-                         owned: torch.Tensor) -> torch.Tensor:
+                         owned: torch.Tensor, *, check: bool = True
+                         ) -> torch.Tensor:
     """``(V, d)`` rows of an ``(S, rows, d)`` row-sharded stack from an
     ``(S, V)`` per-shard plan: the take → mask → sum exchange as one masked
     row gather, bitwise equal to the chain. The plan is resolved where it
     lies (the host, for the server's numpy plans) and moved to the table's
-    device with the two ``(V,)`` arrays. Forward only: serving needs no
-    gradient."""
+    device with the two ``(V,)`` arrays.
+
+    Differentiable in ``table``: the backward scatter-adds the cotangents
+    into the stacked ``(S·rows, d)`` rows with ``scatter_add_onehot``
+    (layout-padding rows get zeros), the reference's ``_fsg_bwd``. The
+    flat row of a slot is its global id under the row-block layout, so the
+    gradient is bitwise the dense gather's (:func:`gather_rows`). ``check``
+    as in ``fused_gather``: serving checks every call, training once per
+    step."""
     s, rows, d = table.shape
     flat, any_owned = flat_gather_plan(local_ids, owned, rows)
-    return fused_gather(table.reshape(s * rows, d),
-                        flat.to(table.device), any_owned.to(table.device))
+    return _GatherRows.apply(table.reshape(s * rows, d),
+                             flat.to(table.device),
+                             any_owned.to(table.device), check)
+
+
+def masked_take(table: torch.Tensor, local_ids: torch.Tensor,
+                owned: torch.Tensor, *, check: bool = True) -> torch.Tensor:
+    """One shard's step of the take → mask → sum chain:
+    ``owned[v] ? table[local_ids[v]] : 0`` from a ``(rows, d)`` shard, whose
+    backward scatters only the owned slots' cotangents into the shard (an
+    unowned slot's masked cotangent is zero, so leaving it out changes no
+    value, and each row's sum stays the one the fused gather forms)."""
+    return _GatherRows.apply(table, local_ids.long(), owned, check)

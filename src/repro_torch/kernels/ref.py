@@ -12,14 +12,17 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.kge_score import apply_epilogue
+from repro_torch.kernels.ops import gather_rows
 from repro_torch.kernels.rgcn_message import (
     basis_message_plain as basis_message_ref,
 )
 from repro_torch.kernels.rgcn_message import segment_sum_plain
+from repro_torch.kernels.sharded_gather import scatter_add_onehot_plain
 from repro_torch.kernels.topk import topk_plain as topk_ref
 
 __all__ = ["basis_message_ref", "segment_mean_ref", "rgcn_message_ref",
-           "kge_score_ref", "topk_ref", "sharded_gather_ref"]
+           "kge_score_ref", "topk_ref", "sharded_gather_ref",
+           "sharded_scatter_add_ref"]
 
 
 def segment_mean_ref(msg: torch.Tensor, seg: torch.Tensor,
@@ -33,10 +36,11 @@ def rgcn_message_ref(h: torch.Tensor, src: torch.Tensor, rel: torch.Tensor,
                      dst: torch.Tensor, edge_mask: torch.Tensor,
                      bases: torch.Tensor, coeffs: torch.Tensor
                      ) -> torch.Tensor:
-    """The fused op's formula: gather → basis message → segment MEAN."""
-    msg = basis_message_ref(torch.index_select(h, 0, dst),
-                            torch.index_select(coeffs, 0, rel), bases,
-                            edge_mask)
+    """The fused op's formula: gather → basis message → segment MEAN. The
+    gathers are ``gather_rows``, so the gradient of the recompute in
+    ``ops.rgcn_message_basis``'s backward is deterministic on the card."""
+    msg = basis_message_ref(gather_rows(h, dst), gather_rows(coeffs, rel),
+                            bases, edge_mask)
     agg, deg = segment_mean_ref(msg, src, edge_mask, h.shape[0])
     return agg / torch.clamp_min(deg, 1.0)[:, None]
 
@@ -64,3 +68,12 @@ def sharded_gather_ref(table: torch.Tensor, local_ids: torch.Tensor,
     g = torch.stack([table[s][local_ids[s]] for s in range(table.shape[0])])
     zero = torch.zeros((), dtype=table.dtype, device=table.device)
     return torch.where(owned[:, :, None], g, zero).sum(dim=0)
+
+
+def sharded_scatter_add_ref(g: torch.Tensor, flat_ids: torch.Tensor,
+                            any_owned: torch.Tensor,
+                            num_rows: int) -> torch.Tensor:
+    """Transpose of the fused gather: the masked scatter-add of the
+    cotangents into the stacked table rows (``scatter_add_onehot``)."""
+    return scatter_add_onehot_plain(g, flat_ids.long(), any_owned.bool(),
+                                    num_rows)

@@ -20,7 +20,7 @@ TPU kernel has no counterpart of it).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -109,10 +109,12 @@ basis_message.launches = 0
 # ---------------------------------------------------------------------- #
 # segment_sum
 # ---------------------------------------------------------------------- #
-def segment_key(seg: torch.Tensor, edge_mask: torch.Tensor,
+def segment_key(seg: torch.Tensor, edge_mask: Optional[torch.Tensor],
                 num_segments: int) -> torch.Tensor:
     """Each edge's segment as int64, masked edges keyed to the sentinel
-    segment ``num_segments``."""
+    segment ``num_segments`` (no mask: every edge counts)."""
+    if edge_mask is None:
+        return seg.long()
     return torch.where(edge_mask, seg.long(),
                        torch.full_like(seg, num_segments, dtype=torch.long))
 
@@ -140,7 +142,7 @@ def segment_sum_plain(msg: torch.Tensor, seg: torch.Tensor,
     return agg[:num_segments], deg
 
 
-def segment_plan(seg: torch.Tensor, edge_mask: torch.Tensor,
+def segment_plan(seg: torch.Tensor, edge_mask: Optional[torch.Tensor],
                  num_segments: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(perm, offsets, chunk_ptr)``: the stable sort of the edges by

@@ -1,4 +1,5 @@
-"""Fused sharded-table row gather (port of ``fused_gather`` in
+"""The sharded table's row exchange, forward and backward (port of
+``fused_gather`` and ``scatter_add_onehot`` in
 ``repro/kernels/sharded_gather.py``).
 
 Exactly one shard owns every id of the row-sharded entity table, so the
@@ -8,31 +9,58 @@ shard-local take → mask → sum exchange folds into index arithmetic
 
     ``out[v] = any_owned[v] ? table_flat[flat[v]] : 0``
 
-bitwise equal to the chain (each output element is the owner's value).
+bitwise equal to the chain (each output element is the owner's value). Its
+transpose is the masked scatter-add
 
-:func:`fused_gather` launches the CUDA kernel ``csrc/sharded_gather.cu`` for
-CUDA tensors and runs :func:`fused_gather_plain` for CPU tensors. A flat id
-outside the table is a broken plan: the plain version raises an
-``IndexError`` on it, and so does the kernel's wrapper, which for that waits
-for the gather to finish (one synchronisation of the current stream per
-call) and reads the slot the kernel flagged.
+    ``out[r] = Σ_v [flat[v] == r ∧ owned[v]] · g[v]``,
+
+the gradient of the sharded table and of every row gather on the training
+path (``ops.gather_rows``).
+
+Each wrapper launches its CUDA kernel from ``csrc/sharded_gather.cu`` for
+CUDA tensors and runs its plain version for CPU tensors.
+
+* :func:`fused_gather`. A flat id outside the table is a broken plan: the
+  plain version raises an ``IndexError`` on it. The kernel flags the slot
+  in pinned host memory instead; with ``check=True`` (serving) the wrapper
+  waits for the gather (one synchronisation of the current stream) and
+  raises, with ``check=False`` (training) it does not wait, and
+  :func:`raise_if_flagged` raises once the caller has waited anyway.
+* :func:`scatter_add_onehot` sums without float atomics: the slots are
+  sorted stably by row (``rgcn_message.segment_plan``, unowned slots under
+  a sentinel row) and each row's slots are added in slot order, in chunks,
+  by the two passes the RGCN segment sum uses. So two runs give the same
+  bits, and a row's sum depends only on which slots hit it and in what
+  order.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.rgcn_message import (
+    CHUNK, segment_key, segment_plan,
+)
 
-_SIGNATURES = {"fused_gather_f32": [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_void_p]}
+_SIGNATURES = {
+    "fused_gather_f32": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p],
+    "scatter_add_f32": [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
+}
 
 # per CUDA device: a pinned host int64 the kernel sets to (slot + 1) when a
 # slot's flat id lies outside the table, 0 otherwise
 _BAD_SLOT = {}
+
+
+def _library():
+    return _build.load("sharded_gather", _SIGNATURES)
 
 
 def fused_gather_plain(table_flat: torch.Tensor, flat_ids: torch.Tensor,
@@ -44,10 +72,39 @@ def fused_gather_plain(table_flat: torch.Tensor, flat_ids: torch.Tensor,
     return torch.where(any_owned[:, None], table_flat[flat_ids], zero)
 
 
+def _bad_slot_flag(device: torch.device) -> torch.Tensor:
+    bad = _BAD_SLOT.get(device.index)
+    if bad is None:
+        bad = _BAD_SLOT[device.index] = torch.zeros(
+            1, dtype=torch.int64, pin_memory=True)
+    return bad
+
+
+def raise_if_flagged(device: torch.device) -> None:
+    """Raise ``IndexError`` if a :func:`fused_gather` on ``device`` flagged
+    a flat id outside its table, and clear the flag. Reads the pinned flag
+    without synchronising: call it once the launches in question have
+    finished (the trainer does, after reading the step's loss)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    bad = _BAD_SLOT.get(device.index)
+    if bad is None:
+        return
+    slot = int(bad[0]) - 1
+    if slot >= 0:
+        bad[0] = 0
+        raise IndexError(f"fused_gather: slot {slot} has a flat id outside "
+                         f"the table")
+
+
 def fused_gather(table_flat: torch.Tensor, flat_ids: torch.Tensor,
-                 any_owned: torch.Tensor) -> torch.Tensor:
+                 any_owned: torch.Tensor, *, check: bool = True
+                 ) -> torch.Tensor:
     """``out[v] = any_owned[v] ? table_flat[flat_ids[v]] : 0`` — the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors, the plain version for CPU tensors. ``check``:
+    wait for the gather and raise on a flat id outside the table (else
+    see :func:`raise_if_flagged`)."""
     if _build.on_cpu("fused_gather", table_flat, flat_ids, any_owned):
         return fused_gather_plain(table_flat, flat_ids, any_owned)
     if table_flat.dim() != 2 or flat_ids.dim() != 1:
@@ -62,18 +119,17 @@ def fused_gather(table_flat: torch.Tensor, flat_ids: torch.Tensor,
     out = torch.empty((v, d), dtype=torch.float32, device=table_flat.device)
     if out.numel() == 0:
         return out
-    lib = _build.load("sharded_gather", _SIGNATURES)
+    lib = _library()
     with torch.cuda.device(table_flat.device):
-        bad = _BAD_SLOT.get(table_flat.device.index)
-        if bad is None:
-            bad = _BAD_SLOT[table_flat.device.index] = torch.zeros(
-                1, dtype=torch.int64, pin_memory=True)
+        bad = _bad_slot_flag(table_flat.device)
         stream = torch.cuda.current_stream()
         code = lib.fused_gather_f32(
             table_flat.data_ptr(), flat_ids.data_ptr(), any_owned.data_ptr(),
             out.data_ptr(), r, v, d, bad.data_ptr(), stream.cuda_stream)
         _build.check_launch("fused_gather", code)
         fused_gather.launches += 1
+        if not check:
+            return out
         stream.synchronize()
     slot = int(bad[0]) - 1
     if slot >= 0:
@@ -85,3 +141,75 @@ def fused_gather(table_flat: torch.Tensor, flat_ids: torch.Tensor,
 
 
 fused_gather.launches = 0
+
+
+def scatter_add_onehot_plain(g: torch.Tensor, flat_ids: torch.Tensor,
+                             owned: Optional[torch.Tensor],
+                             num_rows: int) -> torch.Tensor:
+    """Plain PyTorch version: ``(V, d)`` cotangents, ``(V,)`` flat rows in
+    ``[0, R)`` and bool ownership (``None``: every slot owned) → ``(R, d)``,
+    one ``index_add_`` in slot order. Unowned slots go to a sentinel row
+    that is dropped."""
+    key = segment_key(flat_ids, owned, num_rows)
+    out = torch.zeros((num_rows + 1, g.shape[1]), dtype=g.dtype,
+                      device=g.device).index_add_(0, key, g)
+    return out[:num_rows]
+
+
+def scatter_add_onehot(g: torch.Tensor, flat_ids: torch.Tensor,
+                       owned: Optional[torch.Tensor],
+                       num_rows: int) -> torch.Tensor:
+    """``out[r] = Σ_v [flat_ids[v] == r ∧ owned[v]] · g[v]`` over ``(V, d)``
+    fp32 cotangents into ``(R, d)`` — the sort plan and the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors. ``owned=None`` owns
+    every slot; owned slots' ``flat_ids`` must lie in ``[0, R)``."""
+    tensors = (g, flat_ids) + (() if owned is None else (owned,))
+    if _build.on_cpu("scatter_add_onehot", *tensors):
+        return scatter_add_onehot_plain(g, flat_ids, owned, num_rows)
+    if g.dim() != 2:
+        raise ValueError("scatter_add_onehot: g must be (V, d)")
+    v, d = g.shape
+    r = int(num_rows)
+    _build.require("scatter_add_onehot", "g", g, torch.float32, (v, d))
+    _build.require("scatter_add_onehot", "flat_ids", flat_ids, torch.int64,
+                   (v,))
+    if owned is not None:
+        _build.require("scatter_add_onehot", "owned", owned, torch.bool,
+                       (v,))
+    if d < 1 or r >= 2 ** 31:
+        raise ValueError(f"scatter_add_onehot: d={d} must be positive and "
+                         f"R={r} below 2**31")
+    if r == 0:
+        return torch.empty((0, d), dtype=torch.float32, device=g.device)
+    return scatter_add_planned(g, *segment_plan(flat_ids, owned, r), r)
+
+
+def scatter_add_planned(g: torch.Tensor, perm: torch.Tensor,
+                        offsets: torch.Tensor, chunk_ptr: torch.Tensor,
+                        num_rows: int) -> torch.Tensor:
+    """The kernel alone on CUDA tensors, given ``segment_plan``'s output
+    for the slots' flat rows and ownership."""
+    v, d = g.shape
+    r = int(num_rows)
+    i64 = torch.int64
+    _build.require("scatter_add_onehot", "perm", perm, i64, (v,))
+    _build.require("scatter_add_onehot", "offsets", offsets, i64, (r + 1,))
+    _build.require("scatter_add_onehot", "chunk_ptr", chunk_ptr, i64,
+                   (r + 1,))
+    out = torch.empty((r, d), dtype=torch.float32, device=g.device)
+    # chunks: sum over rows of ceil(hits / CHUNK) <= V / CHUNK + R
+    max_chunks = v // CHUNK + r
+    partial = torch.empty((max_chunks, d), dtype=torch.float32,
+                          device=g.device)
+    lib = _library()
+    with torch.cuda.device(g.device):
+        code = lib.scatter_add_f32(
+            g.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
+            chunk_ptr.data_ptr(), out.data_ptr(), partial.data_ptr(), r, d,
+            max_chunks, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch("scatter_add_onehot", code)
+    scatter_add_onehot.launches += 1
+    return out
+
+
+scatter_add_onehot.launches = 0

@@ -1,20 +1,27 @@
 """KGE training CLI (port of the KGE half of ``repro/launch/train.py``).
 
-``--arch rgcn-fb15k237`` runs the paper's full-graph distributed KGE
-training (partition → expand → full edge batch per trainer → gradient
-mean → Adam) at a ``--scale`` of the synthetic FB15k-237 stand-in (or real
-files under ``--data-root``), then the filtered test evaluation. The
-flags are the reference's, plus ``--device`` (default ``cuda``; ``cpu``
-runs the kernels' plain versions). ``--arch rgcn-citation2`` (edge
+``--arch rgcn-fb15k237`` runs the paper's distributed KGE training
+(partition → expand → full edge batch, or edge mini-batches with
+``--batch-size``, per trainer → gradient mean → Adam) at a ``--scale`` of
+the synthetic FB15k-237 stand-in (or real files under ``--data-root``),
+then the filtered test evaluation. ``--table-shards`` row-shards the
+entity table (the simulated exchange, ``--gather-exchange fused`` or
+``masked_sum``; ``--gather-dedup`` dedupes mini-batch gather plans), and
+the ranking is then sharded over its row blocks. The flags are the
+reference's, plus ``--device`` (default ``cuda``; ``cpu`` runs the
+kernels' plain versions). ``--arch rgcn-citation2`` (feature-mode
 mini-batches), the LM architectures, and the reference's options the port
 has not reached raise ``NotImplementedError`` naming their ROADMAP item.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch rgcn-fb15k237 \\
       --use-kernel --trainers 4 --epochs 3 --scale 1.0
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rgcn-fb15k237 \\
+      --scale 1.0 --trainers 4 --batch-size 4096 --table-shards 4 \\
+      --pipeline async --use-kernel --epochs 1
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch rgcn-fb15k237 --use-kernel --scale 0.01 --epochs 1 \\
-      --trainers 2 --hidden-dim 16
+      --trainers 2 --hidden-dim 16 --batch-size 64 --table-shards 2
 """
 from __future__ import annotations
 
@@ -34,7 +41,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--trainers", type=int, default=4)
     ap.add_argument("--epochs", type=int, default=10)
     ap.add_argument("--batch-size", type=int, default=-1,
-                    help="edge mini-batch size (not ported: raises)")
+                    help="edge mini-batch size (default: full edge "
+                         "batch)")
     ap.add_argument("--scale", type=float, default=0.01)
     ap.add_argument("--strategy", default="vertex_cut",
                     choices=("vertex_cut", "edge_cut", "random"))
@@ -44,12 +52,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--prefetch", type=int, default=2,
                     help="per-partition prefetch queue depth")
     ap.add_argument("--table-shards", type=int, default=1,
-                    help="row-shard the entity table (not ported above 1)")
+                    help="row-shard the entity table over this many "
+                         "shards (1 = dense)")
     ap.add_argument("--sharded-transfer", action="store_true",
                     help="per-device batch placement (not ported: raises)")
     ap.add_argument("--gather-dedup", action="store_true",
-                    help="dedupe mini-batch gather plans (not ported: "
-                         "raises)")
+                    help="dedupe sharded-gather plans per trainer row in "
+                         "the collator (bitwise-identical output)")
     ap.add_argument("--spmd", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="the multi-device step (not ported: --spmd "
@@ -58,8 +67,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--gather-exchange", default=None,
                     choices=("fused", "masked_sum", "psum", "psum_scatter",
                              "alltoall"),
-                    help="sharded-gather exchange layout (not ported: "
-                         "raises)")
+                    help="sharded-gather exchange layout (default fused; "
+                         "the spmd layouts need the multi-process step, "
+                         "not ported)")
     ap.add_argument("--table-dtype", default="fp32",
                     choices=("fp32", "int8"),
                     help="entity-table storage (int8 is not ported: "
@@ -86,8 +96,8 @@ def run(args: argparse.Namespace) -> Dict:
     per-epoch and ``[eval]`` lines. Returns the trainer, the per-epoch
     history and the test metrics."""
     if args.arch == "rgcn-citation2":
-        raise not_ported("--arch rgcn-citation2 (always edge mini-batch)",
-                         "minibatch")
+        raise not_ported("--arch rgcn-citation2 (feature-mode edge "
+                         "mini-batches)", "citation2")
     if args.arch != "rgcn-fb15k237":
         raise not_ported(f"--arch {args.arch}", "lm")
 
@@ -109,26 +119,38 @@ def run(args: argparse.Namespace) -> Dict:
         **({"hidden_dim": args.hidden_dim} if args.hidden_dim > 0 else {}))
     splits = load_or_synthesize("fb15k-237", data_root=args.data_root,
                                 scale=args.scale)
+    pipe = ("full-graph (resident batch)" if cfg.batch_size is None
+            else f"{cfg.pipeline} pipeline, batch {cfg.batch_size}")
+    if cfg.gather_dedup:
+        pipe += ", deduped gather"
+    if cfg.gather_exchange:
+        pipe += f", {cfg.gather_exchange} exchange"
     print(f"[train] fb15k-237: {splits['train'].num_edges} train edges, "
           f"{splits['train'].num_entities} entities; "
           f"{cfg.decoder} decoder, {cfg.num_negatives} negatives/edge; "
-          f"{cfg.num_trainers} trainers ({cfg.strategy}, full-graph "
-          f"(resident batch), 1-shard entity table); d={cfg.hidden_dim}, "
+          f"{cfg.num_trainers} trainers ({cfg.strategy}, {pipe}, "
+          f"{cfg.num_table_shards}-shard entity table); d={cfg.hidden_dim}, "
           f"{'kernel' if cfg.use_kernel else 'plain'} message passing on "
           f"{args.device}", flush=True)
     trainer = KGETrainer(splits, cfg, device=args.device)
-    pad = trainer.padded
+    pad, budget = trainer.padded, trainer.budget
+    shape = (f"padded partitions V={pad.padded_vertices} "
+             f"E={pad.padded_edges}" if budget is None else
+             f"mini-batch budgets V={budget.max_vertices} "
+             f"E={budget.max_edges} T={budget.max_triplets}")
     print(f"[train] simulated step; RF={trainer.replication_factor:.2f}; "
-          f"padded partitions V={pad.padded_vertices} "
-          f"E={pad.padded_edges}", flush=True)
+          f"{shape}", flush=True)
     history = trainer.fit(log_fn=lambda r: print(
         f"  epoch {r['epoch']:3d} loss={r['loss']:.4f} "
         f"t={r['t_epoch']:.2f}s (host exposed "
         f"{r['t_get_compute_graph']:.2f}s of {r['t_host_build']:.2f}s, "
         f"overlap {r['overlap_fraction']:.0%})", flush=True))
+    trainer.close()
     t0 = time.perf_counter()
     metrics = trainer.evaluate("test")
-    print(f"[eval] {cfg.decoder} decoder, dense ranking, "
+    rank_mode = (f"{cfg.num_table_shards}-shard ranking"
+                 if cfg.num_table_shards > 1 else "dense ranking")
+    print(f"[eval] {cfg.decoder} decoder, {rank_mode}, "
           f"{len(trainer.partitions)}-partition streamed encode, "
           f"{time.perf_counter() - t0:.2f}s")
     print("[eval]", metrics, flush=True)

@@ -7,7 +7,7 @@ from repro_torch.models.decoders import (
 from repro_torch.models.kge import (
     KGEConfig, KGEModel, encode_partition, fullgraph_loss,
     fullgraph_negatives, fullgraph_scored_loss, init_kge_params,
-    vertex_input,
+    minibatch_loss, vertex_input,
 )
 from repro_torch.models.rgcn import (
     RGCNConfig, RGCNLayer, message_passing_ref, rgcn_encode, rgcn_layer,
@@ -18,5 +18,5 @@ __all__ = ["Decoder", "bce_loss", "get_decoder", "init_decoder_params",
            "score_against_candidates", "score_triplets", "KGEConfig",
            "KGEModel", "encode_partition", "fullgraph_loss",
            "fullgraph_negatives", "fullgraph_scored_loss",
-           "init_kge_params", "vertex_input", "RGCNConfig", "RGCNLayer",
+           "init_kge_params", "minibatch_loss", "vertex_input", "RGCNConfig", "RGCNLayer",
            "message_passing_ref", "rgcn_encode", "rgcn_layer"]

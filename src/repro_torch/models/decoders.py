@@ -22,10 +22,10 @@ on how many rows it is computed with: a shard's prepared candidates are
 bitwise the matching rows of the dense preparation on every device.
 
 Rows of a relation table (and, in training, of the vertex states) are
-gathered with ``torch.index_select``: the same values as ``table[ids]``,
-and a backward that is one ``index_add_``, where advanced indexing's
-backward serialises over duplicate ids on CUDA — a training batch repeats
-each relation thousands of times.
+gathered with ``kernels.ops.gather_rows``: the same values as
+``table[ids]``, and a deterministic backward (``scatter_add_onehot``),
+where advanced indexing's backward serialises over duplicate ids on CUDA
+— a training batch repeats each relation thousands of times.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.kge_score import EPILOGUES, apply_epilogue
+from repro_torch.kernels.ops import gather_rows
 
 Params = Dict[str, torch.Tensor]
 
@@ -206,7 +207,7 @@ class DistMult(Decoder):
                               device)
 
     def prepare_query(self, params, h_s, rel):
-        q = h_s * torch.index_select(params["rel_diag"], 0, rel)
+        q = h_s * gather_rows(params["rel_diag"], rel)
         return q, _zeros_bias(q)
 
     def prepare_candidates(self, params, candidates):
@@ -230,7 +231,7 @@ class TransE(Decoder):
 
     def prepare_query(self, params, h_s, rel):
         return _neg_l2_query(
-            h_s + torch.index_select(params["rel_vec"], 0, rel))
+            h_s + gather_rows(params["rel_vec"], rel))
 
     def prepare_candidates(self, params, candidates):
         return candidates, row_sum(candidates * candidates)
@@ -257,7 +258,7 @@ class ComplEx(Decoder):
     def prepare_query(self, params, h_s, rel):
         sr, si = _split_complex(h_s)
         rr, ri = _split_complex(
-            torch.index_select(params["rel_complex"], 0, rel))
+            gather_rows(params["rel_complex"], rel))
         q = torch.cat([sr * rr - si * ri, sr * ri + si * rr], dim=-1)
         return q, _zeros_bias(q)
 
@@ -286,7 +287,7 @@ class RotatE(Decoder):
 
     def prepare_query(self, params, h_s, rel):
         hr, hi = _split_complex(h_s)
-        theta = torch.index_select(params["rel_phase"], 0, rel)
+        theta = gather_rows(params["rel_phase"], rel)
         cos, sin = torch.cos(theta), torch.sin(theta)
         u = torch.cat([hr * cos - hi * sin, hr * sin + hi * cos], dim=-1)
         return _neg_l2_query(u)
@@ -332,9 +333,9 @@ def score_triplets(params: Params, decoder: Union[str, Decoder],
     dec = get_decoder(decoder)
     trip = triplets.contiguous()
     q, q_bias = dec.prepare_query(
-        params, torch.index_select(h, 0, trip[:, 0]), trip[:, 1])
+        params, gather_rows(h, trip[:, 0]), trip[:, 1])
     c, c_bias = dec.prepare_candidates(
-        params, torch.index_select(h, 0, trip[:, 2]))
+        params, gather_rows(h, trip[:, 2]))
     return apply_epilogue((q * c).sum(dim=-1) + q_bias + c_bias,
                           dec.epilogue)
 

@@ -1,17 +1,23 @@
-"""Full GNN-based KGE model: RGCN encoder + decoder (port of the full-graph
-part of ``repro/models/kge.py``; paper Fig. 1).
+"""Full GNN-based KGE model: RGCN encoder + decoder (port of
+``repro/models/kge.py``; paper Fig. 1).
 
 :class:`KGEModel` holds every parameter under the reference's tree names
 (``entity_embedding``, ``layers.<i>.<name>``, ``decoder.<name>``) and reads
 like that tree (``params["layers"]``), so the functions below mirror the
-reference's signatures.
+reference's signatures. With ``num_table_shards > 1`` the entity table is
+the row-sharded ``(S, rows, d)`` stack of ``repro_torch.sharding``.
 
-``fullgraph_loss`` is the full-edge-batch step on one padded partition (the
-paper's FB15k-237 setting) with constraint-based negatives drawn on the
-device. It is split in two: :func:`fullgraph_negatives` draws, and
-:func:`fullgraph_scored_loss` encodes and scores given the negatives, so a
-test can hand the second half the reference's draws. The edge mini-batch
-loss is not ported yet (``repro_torch.roadmap``).
+Two execution shapes:
+
+* ``minibatch_loss`` — edge mini-batch (Algorithm 1): comp-graph arrays
+  from ``repro_torch.core.minibatch``, vertex inputs gathered from the
+  global table (through the batch's host gather plan when the table is
+  sharded), RGCN, the batch triplets scored, BCE loss.
+* ``fullgraph_loss`` — the full-edge-batch step on one padded partition
+  (the paper's FB15k-237 setting) with constraint-based negatives drawn on
+  the device. It is split in two: :func:`fullgraph_negatives` draws, and
+  :func:`fullgraph_scored_loss` encodes and scores given the negatives, so
+  a test can hand the second half the reference's draws.
 """
 from __future__ import annotations
 
@@ -25,10 +31,15 @@ from torch import nn
 from repro_torch.core.negative import (
     constraint_based_negatives, global_closed_world_negatives, mix_pos_neg,
 )
+from repro_torch.kernels.ops import gather_rows
 from repro_torch.models import decoders
 from repro_torch.models.rgcn import (
     RGCNConfig, TreeModule, glorot, init_rgcn_layers, rgcn_encode,
     rgcn_layers,
+)
+from repro_torch.sharding.embedding import (
+    ShardedTableLayout, plan_local_gather_device, shard_table,
+    sharded_gather,
 )
 
 
@@ -49,6 +60,17 @@ class KGEConfig:
     def num_entities(self) -> int:
         return self.rgcn.num_entities
 
+    @property
+    def num_table_shards(self) -> int:
+        return self.rgcn.num_table_shards
+
+    def table_layout(self) -> Optional[ShardedTableLayout]:
+        """The entity table's row-block layout, ``None`` when it is dense
+        (one shard, or a feature-mode model without a table)."""
+        if self.rgcn.feature_dim is not None or self.num_table_shards <= 1:
+            return None
+        return ShardedTableLayout(self.num_entities, self.num_table_shards)
+
 
 class KGEModel(TreeModule):
     """Every parameter of the model, zero-initialised; fill it with
@@ -58,9 +80,11 @@ class KGEModel(TreeModule):
         super().__init__()
         r = cfg.rgcn
         if r.feature_dim is None:
+            layout = cfg.table_layout()
+            rows = ((r.num_entities,) if layout is None else
+                    (layout.num_shards, layout.rows_per_shard))
             self.entity_embedding = nn.Parameter(torch.zeros(
-                (r.num_entities, r.hidden_dim), dtype=torch.float32,
-                device=device))
+                rows + (r.hidden_dim,), dtype=torch.float32, device=device))
         self.layers = rgcn_layers(r, device)
         self.decoder = nn.ParameterDict({
             name: nn.Parameter(torch.zeros(shape, dtype=torch.float32,
@@ -73,11 +97,17 @@ class KGEModel(TreeModule):
 def init_kge_params(rng: np.random.Generator, cfg: KGEConfig,
                     device=None) -> KGEModel:
     """A :class:`KGEModel` drawn from ``rng``: Glorot-normal entity table
-    and layers (in the reference's order), then the decoder's own init."""
+    and layers (in the reference's order), then the decoder's own init. A
+    row-sharded table holds the same draw as the dense one, zero-padded,
+    so sharded and dense models start bitwise equal."""
     model = KGEModel(cfg, device)
     if "entity_embedding" in model:
-        model.entity_embedding.copy_(torch.from_numpy(
-            glorot(rng, tuple(model.entity_embedding.shape))))
+        table = torch.from_numpy(
+            glorot(rng, (cfg.num_entities, cfg.rgcn.hidden_dim)))
+        layout = cfg.table_layout()
+        if layout is not None:
+            table = shard_table(table, layout)
+        model.entity_embedding.copy_(table)
     init_rgcn_layers(model.layers, rng)
     dec = decoders.init_decoder_params(rng, cfg.decoder,
                                        cfg.rgcn.num_relations,
@@ -89,28 +119,90 @@ def init_kge_params(rng: np.random.Generator, cfg: KGEConfig,
 
 def vertex_input(params: Mapping, cfg: KGEConfig,
                  gather_global: torch.Tensor,
-                 features: Optional[torch.Tensor]) -> torch.Tensor:
+                 features: Optional[torch.Tensor],
+                 shard_local_ids: Optional[torch.Tensor] = None,
+                 shard_owned: Optional[torch.Tensor] = None,
+                 shard_inverse: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """The per-vertex model input: learned embedding rows (transductive)
-    or precomputed features (ogbl-citation2 style)."""
+    or precomputed features (ogbl-citation2 style).
+
+    With a row-sharded ``(S, rows, d)`` entity table the dense gather
+    becomes the simulated shard-local gather + exchange, driven by the
+    batch's host plan (``shard_local_ids`` / ``shard_owned``, plus
+    ``shard_inverse`` when deduplicated) or, without one (full-graph and
+    evaluation), by the identical in-graph plan. Every combination is
+    bitwise the dense gather, gradients included. The training path does
+    not wait per gather for ``fused_gather``'s bad-slot flag: the trainer
+    reads it once per step."""
     if cfg.rgcn.feature_dim is None:
-        return torch.index_select(params["entity_embedding"], 0,
-                                  gather_global)
+        table = params["entity_embedding"]
+        if table.dim() == 3:
+            if shard_local_ids is None:
+                shard_local_ids, shard_owned = plan_local_gather_device(
+                    table.shape[0], table.shape[1], gather_global)
+            return sharded_gather(table, shard_local_ids, shard_owned,
+                                  exchange=cfg.rgcn.gather_exchange,
+                                  inverse=shard_inverse, check=False)
+        return gather_rows(table, gather_global)
     if features is None:
         raise ValueError("a feature-mode model needs features")
     return torch.index_select(features, 0, gather_global)
+
+
+def _masked(x: torch.Tensor, vertex_mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(vertex_mask[:, None], x, torch.zeros_like(x))
 
 
 def _encode(params: Mapping, cfg: KGEConfig, part: Mapping[str, torch.Tensor],
             features: Optional[torch.Tensor],
             generator: Optional[torch.Generator], train: bool
             ) -> torch.Tensor:
-    x = vertex_input(params, cfg, part["local_to_global"], features)
-    x = torch.where(part["vertex_mask"][:, None], x, torch.zeros_like(x))
-    return rgcn_encode(params, cfg.rgcn, x, part["src"], part["rel"],
+    x = vertex_input(params, cfg, part["local_to_global"], features,
+                     part.get("shard_local_ids"), part.get("shard_owned"),
+                     part.get("shard_inverse"))
+    return rgcn_encode(params, cfg.rgcn, _masked(x, part["vertex_mask"]),
+                       part["src"], part["rel"],
                        part["dst"], part["edge_mask"],
                        dropout_generator=generator, train=train)
 
 
+# ====================================================================== #
+# Edge mini-batch loss (Algorithm 1 inner loop)
+# ====================================================================== #
+def minibatch_loss(params: Mapping, cfg: KGEConfig,
+                   batch: Mapping[str, torch.Tensor],
+                   features: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Loss on one padded ``EdgeMiniBatch`` (fields as tensors; batches
+    of a sharded-table pipeline also carry their gather plan). Dropout is
+    drawn from ``generator``; without one the encoder runs without it."""
+    x = vertex_input(params, cfg, batch["gather_global"], features,
+                     batch.get("shard_local_ids"), batch.get("shard_owned"),
+                     batch.get("shard_inverse"))
+    h = rgcn_encode(params, cfg.rgcn, _masked(x, batch["vertex_mask"]),
+                    batch["comp_src"], batch["comp_rel"], batch["comp_dst"],
+                    batch["comp_mask"], dropout_generator=generator,
+                    train=generator is not None)
+    scores = decoders.score_triplets(params["decoder"], cfg.decoder, h,
+                                     batch["triplets"])
+    mask = batch["triplet_mask"].to(torch.float32)
+    loss = decoders.bce_loss(scores, batch["labels"], mask)
+    pos = (batch["labels"] > 0.5).to(torch.float32)
+    aux = {
+        "loss": loss,
+        "pos_score_mean": torch.sum(scores * mask * pos)
+        / torch.clamp_min(torch.sum(mask * pos), 1.0),
+        "neg_score_mean": torch.sum(scores * mask * (1 - pos))
+        / torch.clamp_min(torch.sum(mask * (1 - pos)), 1.0),
+    }
+    return loss, aux
+
+
+# ====================================================================== #
+# Full-graph loss on a padded self-sufficient partition
+# ====================================================================== #
 def positive_triplets(part: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """``(E, 3)`` local (s, r, t) of every padded edge of the partition."""
     return torch.stack([part["src"], part["rel"], part["dst"]], dim=1)

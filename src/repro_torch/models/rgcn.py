@@ -26,6 +26,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.kernels.ops import gather_rows
+
 
 @dataclasses.dataclass(frozen=True)
 class RGCNConfig:
@@ -40,6 +42,11 @@ class RGCNConfig:
     dropout: float = 0.2
     self_loop: bool = True
     use_kernel: bool = False  # route basis edge compute through the kernels
+    num_table_shards: int = 1  # >1: entity table stored (S, rows, d), row-
+    #   sharded (repro_torch.sharding.embedding); the gather becomes the
+    #   simulated shard-local gather + exchange, bitwise the dense gather
+    gather_exchange: Optional[str] = None  # simulated exchange layout
+    #   ("fused" default, "masked_sum"; sharding.embedding.SIM_EXCHANGES)
 
     def layer_in_dim(self, layer: int) -> int:
         if layer == 0:
@@ -144,25 +151,26 @@ def message_passing_ref(h: torch.Tensor, src: torch.Tensor,
     """Plain edge compute + mean aggregation, ``(V, d_out)`` (no self loop
     or activation). An edge ``(s, r, t)`` carries ``W_r h_t`` into ``s``.
 
-    Row gathers are ``index_select``: its backward is one ``index_add_``,
-    where advanced indexing's backward (``indexing_backward_kernel`` on
-    CUDA) serialises over duplicate ids — 474 relation rows gathered for
-    378k edges."""
-    h_t = torch.index_select(h, 0, dst)
+    Row gathers are ``kernels.ops.gather_rows``: its backward is the
+    deterministic ``scatter_add_onehot``, where advanced indexing's
+    backward (``indexing_backward_kernel`` on CUDA) serialises over
+    duplicate ids — 474 relation rows gathered for 378k edges — and
+    ``index_add_`` adds with float atomics in no fixed order."""
+    h_t = gather_rows(h, dst)
     if "bases" in lp:
         # B projections once, then the per-edge coefficient mix
         proj = torch.einsum("ed,bdo->ebo", h_t, lp["bases"])
         msg = torch.einsum("ebo,eb->eo", proj,
-                           torch.index_select(lp["coeffs"], 0, rel))
+                           gather_rows(lp["coeffs"], rel))
     elif "blocks" in lp:
         r, nb, bi, bo = lp["blocks"].shape
         e = h_t.shape[0]
-        w_e = torch.index_select(lp["blocks"], 0, rel)    # (E, nb, bi, bo)
+        w_e = gather_rows(lp["blocks"], rel)              # (E, nb, bi, bo)
         msg = torch.einsum("enb,enbo->eno", h_t.reshape(e, nb, bi),
                            w_e).reshape(e, nb * bo)
     else:
         msg = torch.einsum("ed,edo->eo", h_t,
-                           torch.index_select(lp["rel_weight"], 0, rel))
+                           gather_rows(lp["rel_weight"], rel))
     msg = torch.where(edge_mask[:, None], msg, torch.zeros_like(msg))
     num_v = h.shape[0]
     agg = msg.new_zeros((num_v, msg.shape[1])).index_add_(0, src, msg)

@@ -7,19 +7,15 @@ item, instead of silently doing something else.
 from __future__ import annotations
 
 ITEMS = {
-    "minibatch": "ROADMAP Queue 1 item 1: edge mini-batch and sharded-table "
-                 "training (core/minibatch.py, the serial and async "
-                 "pipelines, rgcn-citation2, scatter_add_onehot)",
-    "sharded_table": "ROADMAP Queue 1 item 1: edge mini-batch and "
-                     "sharded-table training (row-sharded entity table, "
-                     "gather plans and exchanges, scatter_add_onehot, "
-                     "sharded ranking)",
-    "checkpoint": "ROADMAP Queue 1 item 2: checkpoints in the reference's "
+    "checkpoint": "ROADMAP Queue 1 item 1: checkpoints in the reference's "
                   ".npz + JSON manifest format",
-    "spmd": "ROADMAP Queue 1 item 3: the multi-process step over "
+    "spmd": "ROADMAP Queue 1 item 2: the multi-process step over "
             "torch.distributed",
-    "int8": "ROADMAP Queue 1 item 4: int8 tables, serving first, with the "
+    "int8": "ROADMAP Queue 1 item 3: int8 tables, serving first, with the "
             "fused_dequant_gather kernel",
+    "citation2": "ROADMAP Queue 1 item 4: feature-mode mini-batch training "
+                 "(--arch rgcn-citation2) and the ogbl candidate-list "
+                 "ranking protocol",
     "lm": "ROADMAP Queue 1 item 7: the LM substrate",
 }
 

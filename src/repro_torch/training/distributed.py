@@ -9,15 +9,20 @@ vmaps the trainers; here a loop over the leading trainer axis does it, one
 trainer's graph alive at a time. The reported loss (and every auxiliary
 metric) is the mean over trainers, as in the reference.
 
+The batch is any dict of tensors stacked on a leading trainer axis: the
+resident full-graph batch, or a stacked edge mini-batch with its gather
+plan.
+
 Per-trainer randomness: the reference folds the epoch into a PRNG key and
-splits it per trainer (``split_trainer_keys``). :func:`trainer_generators`
-is the port's schedule — one ``torch.Generator`` per (seed, epoch,
-trainer), seeded through numpy's ``SeedSequence`` so the streams are
-independent and reproducible.
+splits it per trainer (``split_trainer_keys``), then folds in the batch
+index on the mini-batch path. :func:`trainer_generators` is the port's
+schedule — one ``torch.Generator`` per (seed, epoch[, step], trainer),
+seeded through numpy's ``SeedSequence`` so the streams are independent and
+reproducible.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,9 +36,12 @@ LossFn = Callable[[nn.Module, Dict[str, torch.Tensor], torch.Generator],
 
 
 def trainer_generators(seed: int, num_trainers: int, epoch: int,
-                       device: torch.device) -> List[torch.Generator]:
-    """One generator per trainer for ``epoch``, on ``device``."""
-    states = np.random.SeedSequence([seed, epoch]).spawn(num_trainers)
+                       device: torch.device, step: Optional[int] = None
+                       ) -> List[torch.Generator]:
+    """One generator per trainer for ``epoch`` (and mini-batch ``step``),
+    on ``device``."""
+    entropy = [seed, epoch] + ([] if step is None else [step])
+    states = np.random.SeedSequence(entropy).spawn(num_trainers)
     gens = []
     for s in states:
         g = torch.Generator(device=device)

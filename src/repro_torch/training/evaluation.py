@@ -5,8 +5,10 @@ The encoder pass STREAMS over self-sufficient partitions: each partition
 is encoded with ``encode_partition`` and its CORE vertices are scattered
 into the global embedding matrix. Core vertices carry their full
 ``num_hops`` receptive field inside the partition (the self-sufficiency
-invariant), so the streamed embeddings equal a full-graph encode. Ranking
-then goes through ``repro_torch.eval.ranking``.
+invariant), so the streamed embeddings equal a full-graph encode. With a
+row-sharded entity table the encoder gathers through the in-graph plan.
+Ranking then goes through ``repro_torch.eval.ranking``: dense, or sharded
+over the table's row blocks when the table is sharded.
 """
 from __future__ import annotations
 
@@ -78,7 +80,8 @@ def evaluate_split(
     padded: Optional[PaddedPartitionBatch] = None,
 ) -> Dict[str, float]:
     """Filtered MRR / Hits@k on ``split`` (both directions, paper
-    protocol), keys prefixed with the split's name."""
+    protocol), keys prefixed with the split's name; with a row-sharded
+    entity table the ranking is sharded over its row blocks."""
     emb = encode_all_entities(
         params, kge_cfg, splits["train"].with_inverse_relations(), num_hops,
         features=features, partitions=partitions, padded=padded)
@@ -87,5 +90,7 @@ def evaluate_split(
         emb, decoder_params, splits[split],
         [splits["train"], splits["valid"], splits["test"]],
         num_relations_base=splits["train"].num_relations, decoder=decoder,
+        num_shards=(kge_cfg.num_table_shards
+                    if kge_cfg.rgcn.feature_dim is None else 1),
         device=emb.device)
     return {f"{split}_{k}": v for k, v in metrics.items()}

@@ -1,18 +1,22 @@
-"""End-to-end distributed KGE trainer (port of the full-graph path
-of ``repro/training/trainer.py``; paper Algorithm 1 + §4).
+"""End-to-end distributed KGE trainer (port of
+``repro/training/trainer.py``; paper Algorithm 1 + §4).
 
 The trainer composes four seams, as the reference does:
 
-* ``training.preprocessing`` — partition → expand → pad;
+* ``training.preprocessing`` — partition → expand → pad → budgets;
 * ``data.pipeline`` — the resident full-graph batch, copied to the device
-  once;
+  once, or the serial / async edge mini-batch pipeline;
 * ``training.distributed`` — the simulated data-parallel step (per-trainer
   gradients, their mean, one Adam step);
-* ``training.evaluation`` — streamed encoding + filtered ranking.
+* ``training.evaluation`` — streamed encoding + filtered ranking (sharded
+  over the entity table's row blocks when it is sharded).
 
 Everything runs on ``device`` (default ``cuda``). Options of the reference
 that the port has not reached raise ``NotImplementedError`` naming their
-ROADMAP item (``repro_torch.roadmap``).
+ROADMAP item (``repro_torch.roadmap``). Timing mirrors the paper's Fig. 6
+breakdown: ``t_get_compute_graph`` is the host batch construction left on
+the critical path, ``t_host_build`` all of it, ``overlap_fraction`` the
+share the pipeline hid behind the device step.
 """
 from __future__ import annotations
 
@@ -24,11 +28,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import KnowledgeGraph
-from repro_torch.data.pipeline import FullGraphPipeline
+from repro_torch.data.pipeline import FullGraphPipeline, make_input_pipeline
 from repro_torch.device import resolve_device
-from repro_torch.models.kge import KGEConfig, fullgraph_loss, init_kge_params
+from repro_torch.kernels.sharded_gather import raise_if_flagged
+from repro_torch.models.kge import (
+    KGEConfig, fullgraph_loss, init_kge_params, minibatch_loss,
+)
 from repro_torch.models.rgcn import RGCNConfig
 from repro_torch.roadmap import not_ported
+from repro_torch.sharding.embedding import SIM_EXCHANGES
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training.distributed import (
     make_simulated_train_step, trainer_generators,
@@ -61,30 +69,20 @@ class TrainConfig:
     seed: int = 0
     use_kernel: bool = False
     eval_every: int = 0                 # 0 => only at end
-    pipeline: str = "async"             # mini-batch only
-    prefetch: int = 2                   # mini-batch only
-    num_table_shards: int = 1
+    pipeline: str = "async"             # "async" | "serial" (mini-batch)
+    prefetch: int = 2                   # per-partition prefetch queue depth
+    num_table_shards: int = 1           # >1: row-shard the entity table
     sharded_transfer: bool = False
-    gather_dedup: bool = False
-    gather_exchange: Optional[str] = None
+    gather_dedup: bool = False          # dedupe mini-batch gather plans
+    gather_exchange: Optional[str] = None  # "fused" (default) | "masked_sum"
     table_dtype: str = "fp32"
     spmd: Optional[bool] = None         # None/False: the simulated step
 
 
 def check_ported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for every option the port has not
-    reached."""
-    if cfg.batch_size is not None:
-        raise not_ported(f"batch_size={cfg.batch_size} (edge mini-batch "
-                         "training)", "minibatch")
-    if cfg.gather_dedup:
-        raise not_ported("gather_dedup", "minibatch")
-    if cfg.num_table_shards > 1:
-        raise not_ported(f"num_table_shards={cfg.num_table_shards}",
-                         "sharded_table")
-    if cfg.gather_exchange is not None:
-        raise not_ported(f"gather_exchange={cfg.gather_exchange!r}",
-                         "sharded_table")
+    reached, and ``ValueError`` for an exchange the simulated step does
+    not have (the reference's check)."""
     if cfg.table_dtype != "fp32":
         raise not_ported(f"table_dtype={cfg.table_dtype!r}", "int8")
     if cfg.spmd:
@@ -92,11 +90,17 @@ def check_ported(cfg: TrainConfig) -> None:
     if cfg.sharded_transfer:
         raise not_ported("sharded_transfer (per-device batch placement)",
                          "spmd")
+    if cfg.gather_exchange is not None and \
+            cfg.gather_exchange not in SIM_EXCHANGES:
+        raise ValueError(
+            f"gather_exchange={cfg.gather_exchange!r} is not available on "
+            f"the simulated step (one of {SIM_EXCHANGES}); leave it None "
+            f"for the default")
 
 
 class KGETrainer:
     """Owns the preprocessed data, the model, the optimizer state, the
-    resident batch and the simulated step."""
+    input pipeline and the simulated step."""
 
     def __init__(self, splits: Dict[str, KnowledgeGraph], cfg: TrainConfig,
                  device=None):
@@ -108,14 +112,21 @@ class KGETrainer:
             torch.backends.cuda.matmul.allow_tf32 = False  # IEEE fp32
         train_kg = splits["train"].with_inverse_relations()
         self.train_kg = train_kg
+        feat = train_kg.features
+        if cfg.num_table_shards > 1 and feat is not None:
+            raise ValueError(
+                "num_table_shards > 1 requires learned entity embeddings "
+                "(feature-mode models have no table to shard)")
 
         # ---- offline preprocessing (paper §3.2) ----
         self.pre: PreprocessedGraph = preprocess_graph(
             train_kg, num_trainers=cfg.num_trainers, strategy=cfg.strategy,
-            num_hops=cfg.num_hops, seed=cfg.seed)
+            num_hops=cfg.num_hops, seed=cfg.seed,
+            batch_size=cfg.batch_size, num_negatives=cfg.num_negatives,
+            sampler=cfg.negative_sampler,
+            num_table_shards=cfg.num_table_shards)
 
         # ---- model ----
-        feat = train_kg.features
         self.kge_cfg = KGEConfig(
             rgcn=RGCNConfig(
                 num_entities=train_kg.num_entities,
@@ -126,6 +137,8 @@ class KGETrainer:
                 feature_dim=None if feat is None else feat.shape[1],
                 dropout=cfg.dropout,
                 use_kernel=cfg.use_kernel,
+                num_table_shards=cfg.num_table_shards,
+                gather_exchange=cfg.gather_exchange,
             ),
             decoder=cfg.decoder,
             num_negatives=cfg.num_negatives,
@@ -141,9 +154,23 @@ class KGETrainer:
         self._seed = cfg.seed + 1           # the reference's PRNGKey(seed+1)
         self._epoch = 0
         self.timings: List[Dict[str, float]] = []
-        self._step = make_simulated_train_step(self._fullgraph_loss,
-                                               self.optimizer)
-        self.pipeline = FullGraphPipeline(self.pre.padded, self.device)
+
+        # ---- step + input pipeline ----
+        self._fullgraph = cfg.batch_size is None
+        self._step = make_simulated_train_step(
+            self._fullgraph_loss if self._fullgraph else
+            self._minibatch_loss, self.optimizer)
+        if self._fullgraph:
+            self.pipeline = FullGraphPipeline(self.pre.padded, self.device)
+        else:
+            self.pipeline = make_input_pipeline(
+                cfg.pipeline, self.pre.partitions,
+                batch_size=cfg.batch_size,
+                num_negatives=cfg.num_negatives, num_hops=cfg.num_hops,
+                budget=self.pre.budget, seed=cfg.seed,
+                sampler=cfg.negative_sampler, csrs=self.pre.csrs,
+                prefetch=cfg.prefetch, table_layout=self.pre.table_layout,
+                dedup_gather=cfg.gather_dedup, device=self.device)
 
     # ------------------------------------------------------------------ #
     # preprocessing artifacts (stable public surface)
@@ -160,29 +187,54 @@ class KGETrainer:
     def replication_factor(self) -> float:
         return self.pre.replication_factor
 
+    @property
+    def budget(self):
+        return self.pre.budget
+
     # ------------------------------------------------------------------ #
     def _fullgraph_loss(self, params, batch, generator):
         return fullgraph_loss(params, self.kge_cfg, batch, generator,
                               features=self.features, train=True)
 
+    def _minibatch_loss(self, params, batch, generator):
+        return minibatch_loss(params, self.kge_cfg, batch,
+                              features=self.features, generator=generator)
+
+    def step_generators(self, epoch: int, step: int):
+        """The trainers' generators of one step: per epoch on the
+        full-graph path (one step per epoch), per (epoch, step) on the
+        mini-batch path."""
+        return trainer_generators(self._seed, self.cfg.num_trainers, epoch,
+                                  self.device,
+                                  None if self._fullgraph else step)
+
+    def step(self, batch: Dict[str, torch.Tensor], generators) -> float:
+        """One update on a trainer-stacked device batch; returns the loss
+        on the host. Reading the loss waits for the step, and then the
+        sharded gathers' bad-slot flag is read, without another wait."""
+        self.opt_state, m = self._step(self.params, self.opt_state, batch,
+                                       generators)
+        loss = float(m["loss"])
+        raise_if_flagged(self.device)
+        return loss
+
     def train_epoch(self) -> Dict[str, float]:
-        """One full-batch update (every trainer's whole partition); the
-        step time ends with the loss on the host."""
+        """One epoch: one full-batch update (every trainer's whole
+        partition), or one update per stacked mini-batch; each step's time
+        ends with its loss on the host."""
         self._epoch += 1
-        gens = trainer_generators(self._seed, self.cfg.num_trainers,
-                                  self._epoch, self.device)
         t_device, losses, nbatches = 0.0, [], 0
         for batch in self.pipeline.device_batches(self._epoch):
+            gens = self.step_generators(self._epoch, nbatches)
             t0 = time.perf_counter()
-            self.opt_state, m = self._step(self.params, self.opt_state,
-                                           batch, gens)
-            losses.append(float(m["loss"]))   # waits for the step
+            losses.append(self.step(batch, gens))
             t_device += time.perf_counter() - t0
             nbatches += 1
         stats = self.pipeline.last_stats
         rec = {
             "epoch": self._epoch,
             "loss": float(np.mean(losses)) if losses else float("nan"),
+            "losses": losses,
             "t_get_compute_graph": stats.exposed_wait_s,
             "t_host_build": stats.host_build_s,
             "t_warmup": stats.warmup_s,
@@ -207,6 +259,9 @@ class KGETrainer:
                 log_fn(rec)
         return history
 
+    def close(self) -> None:
+        self.pipeline.close()
+
     def save_checkpoint(self, directory: str, keep: int = 3) -> str:
         raise not_ported("save_checkpoint", "checkpoint")
 
@@ -223,7 +278,8 @@ class KGETrainer:
 
     def evaluate(self, split: str = "test") -> Dict[str, float]:
         """Filtered MRR / Hits@k on ``split``: streamed partition encoding,
-        then dense ranking through the ``kge_score`` kernel."""
+        then ranking through the ``kge_score`` kernel, dense or (with a
+        sharded table) one block per shard with the counts summed."""
         return evaluate_split(
             self.params, self.kge_cfg, self.splits, split,
             self.cfg.num_hops, self.cfg.decoder, features=self.features,

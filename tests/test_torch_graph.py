@@ -166,14 +166,6 @@ def test_preprocess_graph_equals_reference(num_trainers, strategy):
         assert_fields_equal(p, jp)
 
 
-def test_preprocess_graph_unported_options_raise():
-    kg, _ = both_kgs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        preprocess_graph(kg, num_trainers=2, batch_size=128)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        preprocess_graph(kg, num_trainers=2, num_table_shards=2)
-
-
 def _triplets(rng, b, v):
     return torch.from_numpy(np.stack([rng.integers(0, v, b),
                                       rng.integers(0, 7, b),

@@ -168,14 +168,11 @@ def test_ranking_unported_protocols_raise():
     emb = np.zeros((4, 2), np.float32)
     trip = np.zeros((1, 3), np.int32)
     fidx = ranking.CSRFilterIndex.build([])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         ranking.ranking_metrics(emb, {"rel_diag": np.ones((1, 2))}, trip,
                                 fidx, candidates=np.zeros((1, 3)),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        ranking.ranking_metrics(emb, {"rel_diag": np.ones((1, 2))}, trip,
-                                fidx, num_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         ranking.ranking_metrics(emb, {"rel_diag": np.ones((1, 2))}, trip,
                                 fidx, table_dtype="int8", device="cpu")
 
@@ -199,14 +196,10 @@ def test_cli_default_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--batch-size", "128"], "item 1"),
-    (["--table-shards", "2"], "item 1"),
-    (["--gather-dedup"], "item 1"),
-    (["--gather-exchange", "fused"], "item 1"),
-    (["--table-dtype", "int8"], "item 4"),
-    (["--spmd"], "item 3"),
-    (["--sharded-transfer"], "item 3"),
-    (["--arch", "rgcn-citation2"], "item 1"),
+    (["--table-dtype", "int8"], "item 3"),
+    (["--spmd"], "item 2"),
+    (["--sharded-transfer"], "item 2"),
+    (["--arch", "rgcn-citation2"], "item 4"),
     (["--arch", "gemma-2b"], "item 7"),
 ])
 def test_cli_unported_options_raise(extra, item):
@@ -214,11 +207,18 @@ def test_cli_unported_options_raise(extra, item):
         train_cli.main(SMALL + extra)
 
 
+@pytest.mark.parametrize("exchange", ["psum", "psum_scatter", "alltoall"])
+def test_cli_spmd_exchanges_rejected_on_the_simulated_step(exchange):
+    with pytest.raises(ValueError, match="not available on the simulated"):
+        train_cli.main(SMALL + ["--table-shards", "2", "--gather-exchange",
+                                exchange])
+
+
 def test_checkpoints_raise(trained):
     tr = trained[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         tr.save_checkpoint("unused")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         tr.restore("unused")
 
 
@@ -269,7 +269,7 @@ def test_full_graph_pipeline_copies_the_batch_once(trained):
 def test_trainer_unported_config_raises():
     splits = {"train": KnowledgeGraph(np.zeros(1), np.zeros(1), np.ones(1),
                                       2, 1)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        KGETrainer(splits, TrainConfig(batch_size=64), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        KGETrainer(splits, TrainConfig(table_dtype="int8"), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         KGETrainer(splits, TrainConfig(spmd=True), device="cpu")

@@ -7,10 +7,16 @@ Phases, each of which fails the run on error:
 
 1. Build: compile the four CUDA sources from ``src/repro_torch/csrc`` with
    ``nvcc -Xptxas -v`` for ``sm_90a`` (one process per source, all at once).
-2. Kernel vs plain: each of the six kernels against its plain PyTorch
+2. Kernel vs plain: each of the seven kernels against its plain PyTorch
    version on the card, with its time, its plain version's time, one
    PyTorch library call's time and the least time the card could take:
-   kge_score, topk and fused_gather at the serving shapes; basis_message
+   kge_score, topk and fused_gather at the serving shapes;
+   fused_dequant_gather at the serving shapes over tables quantized on the
+   card, and at the 4-shard mini-batch table gather (V = 17,200 into
+   14,544 x 75 int8): bitwise the plain version, unowned slots exactly 0,
+   two runs bitwise equal, a flat id outside the table raises, a table of
+   subnormal and zero scales comes through bitwise; quantize_rows on the
+   card bitwise the CPU's (FB15k-237 table, subnormal table); basis_message
    and segment_sum at the full-graph FB15k-237 training shape (one padded
    partition of 4: E = 377,984 edges, V = 13,760 vertices, d = 75, B = 2)
    and at edge cases (ragged E, an all-masked tile, empty segments,
@@ -28,8 +34,12 @@ Phases, each of which fails the run on error:
    table shards, filtered, cache 256, 8 slots, k=10; sharded == dense.
 4. Serving, ogbl-citation2 width (N=2,927,963, R=2, d=32): distmult, 1
    shard, unfiltered, 64 requests; sharded == dense.
+   Phases 3-4 again with --table-dtype int8 (FB15k-237 width as above;
+   ogbl-citation2 width at 4 shards): sharded == dense over the
+   dequantized table; the stored table's device bytes, int8 against fp32.
 5. Launch counts of the serving path (phases 3-4): kge_score, topk and
-   fused_gather each launched.
+   fused_gather each launched by the fp32 runs, kge_score, topk and
+   fused_dequant_gather by the int8 runs.
 6. Training, full-graph FB15k-237 at full width through
    ``repro_torch.launch.train`` (--arch rgcn-fb15k237 --use-kernel
    --trainers 4 --epochs 3 --scale 1.0: d=75, dropout 0.2), then the
@@ -51,12 +61,22 @@ Phases, each of which fails the run on error:
    rtol=1e-3, atol=1e-4; the 4-shard ranking metrics == the dense ranking
    from the same embeddings; two runs of one mini-batch step from the same
    state give bitwise-equal losses and parameters.
+6c. Training, edge mini-batches with the int8 table at full width: phase
+   6b's main run with --table-dtype int8; launch counts of that path
+   (fused_dequant_gather, scatter_add_onehot, basis_message, segment_sum
+   and kge_score each launched). Against it, --table-shards 1 and
+   --gather-dedup must give bitwise-equal per-step losses and final
+   parameters; two runs of one int8 step are bitwise equal; one step's
+   loss and gradients, the master table's included, are bitwise the fp32
+   path's on the dequantized master; 4-shard int8 ranking == 1-shard int8
+   ranking, and |MRR(int8) - MRR(fp32)| <= 0.02 on the same embeddings.
 7. Profile under ``torch.profiler``: steady serving steps of each serving
-   configuration, one steady full-graph step (kernel and plain encoder),
-   one evaluation encode and one steady mini-batch step: host time per
-   step, the card's busy time, the idle share and the device operations
-   that took the most time; and the async pipeline's exposed wait and
-   overlap fraction over the mini-batch epoch.
+   configuration (int8 at 4 shards included), one steady full-graph step
+   (kernel and plain encoder), one evaluation encode and one steady
+   mini-batch step each of the fp32 and int8 tables: host time per step,
+   the card's busy time, the idle share and the device operations that
+   took the most time; and the async pipeline's exposed wait and overlap
+   fraction over the mini-batch epoch.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -98,6 +118,14 @@ MB_GATES = {   # runs held against the main one: bitwise, or within LOSS_TOL
     "dedup": MB_MAIN + ["--gather-dedup"],
     "plain": ["--table-shards", "4", "--pipeline", "async"],
 }
+INT8 = ["--table-dtype", "int8"]
+MB_INT8_GATES = {   # int8 runs held bitwise against the int8 main run
+    "S1": MB_GATES["S1"] + INT8,
+    "dedup": MB_GATES["dedup"] + INT8,
+}
+# |MRR(int8) - MRR(fp32)| on the same embeddings; the reference's bound,
+# QUANT_MRR_DRIFT_LIMIT in benchmarks/pipeline_bench.py:203
+QUANT_MRR_DRIFT_LIMIT = 0.02
 LOSS_TOL = dict(rtol=1e-3, atol=1e-4)   # kernel vs plain per-epoch losses
 EMB_TOL = dict(rtol=1e-4, atol=1e-5)    # kernel vs plain encoder outputs
 
@@ -106,6 +134,7 @@ REPLACES = {
     "kge_score": "src/repro/kernels/kge_score.py:95",
     "topk": "src/repro/kernels/topk.py:98",
     "fused_gather": "src/repro/kernels/sharded_gather.py:87",
+    "fused_dequant_gather": "src/repro/kernels/sharded_gather.py:136",
     "basis_message": "src/repro/kernels/rgcn_message.py:79",
     "segment_sum": "src/repro/kernels/rgcn_message.py:152",
     "scatter_add_onehot": "src/repro/kernels/sharded_gather.py:195",
@@ -114,6 +143,7 @@ SOURCES = {
     "kge_score": "src/repro_torch/csrc/kge_score.cu",
     "topk": "src/repro_torch/csrc/topk.cu",
     "fused_gather": "src/repro_torch/csrc/sharded_gather.cu",
+    "fused_dequant_gather": "src/repro_torch/csrc/sharded_gather.cu",
     "basis_message": "src/repro_torch/csrc/rgcn_message.cu",
     "segment_sum": "src/repro_torch/csrc/rgcn_message.cu",
     "scatter_add_onehot": "src/repro_torch/csrc/sharded_gather.cu",
@@ -123,6 +153,9 @@ TRAINING_KERNELS = ("basis_message", "segment_sum", "scatter_add_onehot",
                     "kge_score")
 MINIBATCH_KERNELS = ("fused_gather", "scatter_add_onehot", "basis_message",
                      "segment_sum", "kge_score")
+SERVING_INT8_KERNELS = ("kge_score", "topk", "fused_dequant_gather")
+MINIBATCH_INT8_KERNELS = ("fused_dequant_gather", "scatter_add_onehot",
+                          "basis_message", "segment_sum", "kge_score")
 
 
 def log(msg: str) -> None:
@@ -463,6 +496,153 @@ def check_fused_gather(dev, rng, widths, mbs):
     report("fused_gather", f"minibatch_S4 (V={v}, R={lay.padded_rows}, "
            f"d=75)", stats["minibatch_S4"], "index_select")
     return max_err, stats
+
+
+def subnormal_table(rng, rows, d):
+    """A table whose rows take the smallest scales (2^-149 … 2^-127), with
+    all-zero rows between: a flush-to-zero anywhere would zero them."""
+    x = (rng.choice([-1.0, 1.0], (rows, d)) * rng.uniform(1, 2, (rows, d))
+         * np.exp2(rng.integers(-149, -120, (rows, 1)).astype(np.float64))
+         ).astype(np.float32)
+    x[::5] = 0.0
+    return x
+
+
+def check_fused_dequant_gather(dev, rng, widths, mbs):
+    """fused_dequant_gather at the serving batch (8) and dedup bucket (64)
+    over the FB15k-237 and ogbl-citation2 tables quantized on the card, and
+    at the mini-batch path's 4-shard table gather (``mbs``): bitwise the
+    plain version, unowned slots exactly 0, two runs bitwise equal, a flat
+    id outside the table raises; a table of subnormal and zero scales comes
+    through bitwise and nonzero. ``quantize_rows`` on the card is bitwise
+    the CPU's for the FB15k-237 table and the subnormal table. Returns
+    (max |kernel - plain|, per-width times, table bytes per width)."""
+    import torch
+    from repro_torch.kernels.ops import flat_gather_plan
+    from repro_torch.kernels.sharded_gather import (
+        fused_dequant_gather, fused_dequant_gather_plain,
+    )
+    from repro_torch.sharding import quantize_rows
+
+    def same(a, b):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return torch.equal(a.cpu(), b.cpu())
+
+    def run_both(codes, scales, flat_t, owned_t, label, check=True):
+        got = fused_dequant_gather(codes, scales, flat_t, owned_t,
+                                   check=check)
+        got2 = fused_dequant_gather(codes, scales, flat_t, owned_t,
+                                    check=check)
+        want = fused_dequant_gather_plain(codes, scales, flat_t, owned_t)
+        torch.cuda.synchronize()
+        if not (same(got, want) and same(got, got2)):
+            raise AssertionError(f"fused_dequant_gather {label}: kernel != "
+                                 f"plain, or two runs differ")
+        if not bool((got[~owned_t].view(torch.int32) == 0).all()):
+            raise AssertionError(f"fused_dequant_gather {label}: an unowned "
+                                 f"slot is not exactly 0")
+        return got, want
+
+    def bound(v, n_own, d):
+        # owned slots' codes and scales, every slot's id and ownership,
+        # the output; one multiply per output element
+        return bound_ms(n_own * d + 4 * n_own + 9 * v + 4 * v * d, v * d)
+
+    def library(codes, scales, flat_t, owned_t):
+        # several PyTorch calls: index_select twice, the cast, the product
+        # and the where (no one call computes this function)
+        rows = (codes.index_select(0, flat_t).float()
+                * scales.index_select(0, flat_t)[:, None])
+        return torch.where(owned_t[:, None], rows, 0.0)
+
+    max_err, stats, table_bytes = 0.0, {}, {}
+    for label, c, d in widths:
+        table = torch.from_numpy(rng.normal(0, .1, (c, d)).astype(np.float32)
+                                 ).to(dev)
+        codes, scales = quantize_rows(table)
+        table_bytes[label] = dict(int8=codes.numel() + 4 * scales.numel(),
+                                  fp32=4 * table.numel())
+        if c <= 100_000:          # the CPU quantizer at FB15k-237 width
+            cc, cs = quantize_rows(table.cpu())
+            if not (same(codes, cc) and same(scales, cs)):
+                raise AssertionError(f"quantize_rows {label}: card != CPU")
+        del table
+        for v in (SLOTS, 64):
+            flat = rng.integers(0, c, v)
+            flat[1] = flat[0]                 # duplicate id
+            flat[2] = c - 1                   # the last row
+            owned = rng.random(v) < .75
+            owned[:3] = True
+            flat_t = torch.from_numpy(flat.astype(np.int64)).to(dev)
+            owned_t = torch.from_numpy(owned).to(dev)
+            got, want = run_both(codes, scales, flat_t, owned_t,
+                                 f"{label} V={v}")
+            max_err = max(max_err, max_abs_diff(got, want))
+        bad = flat_t.clone()
+        bad[3] = c                            # a broken plan: one past the end
+        try:
+            fused_dequant_gather(codes, scales, bad, owned_t)
+        except IndexError:
+            pass
+        else:
+            raise AssertionError(f"fused_dequant_gather {label}: a flat id "
+                                 f"outside the table did not raise")
+        flat_t, owned_t = flat_t[:SLOTS], owned_t[:SLOTS]
+        n_own = int(owned_t.sum())
+        stats[label] = dict(V=SLOTS, d=d, **timings(
+            lambda: fused_dequant_gather(codes, scales, flat_t, owned_t),
+            lambda: fused_dequant_gather_plain(codes, scales, flat_t,
+                                               owned_t),
+            lambda: library(codes, scales, flat_t, owned_t),
+            *bound(SLOTS, n_own, d)))
+        report("fused_dequant_gather", f"{label} (V={SLOTS}, d={d})",
+               stats[label], "index_select, cast, mul, where")
+    # subnormal and zero scales
+    x = subnormal_table(rng, 4096, 75)
+    codes, scales = quantize_rows(torch.from_numpy(x).to(dev))
+    cc, cs = quantize_rows(torch.from_numpy(x))
+    if not (same(codes, cc) and same(scales, cs)):
+        raise AssertionError("quantize_rows subnormal table: card != CPU")
+    flat_t = torch.from_numpy(rng.integers(0, 4096, 2048)).to(dev)
+    owned_t = torch.ones(2048, dtype=torch.bool, device=dev)
+    got, _ = run_both(codes, scales, flat_t, owned_t, "subnormal scales")
+    want = (cc.float() * cs[:, None])[flat_t.cpu()]
+    nonzero = want != 0
+    if not (same(got, want) and bool((got.cpu()[nonzero] != 0).all())
+            and bool(nonzero.any())):
+        raise AssertionError("fused_dequant_gather: subnormal rows flushed")
+    log(f"[phase 2] fused_dequant_gather: subnormal scales "
+        f"{float(cs[cs > 0].min()):.3g} … {float(cs.max()):.3g} and "
+        f"{int((cs == 0).sum())} zero rows bitwise through the card; "
+        f"quantize_rows on the card == CPU")
+    # the mini-batch path: one trainer's 4-shard int8 table gather
+    lay = mbs["layout"]
+    master = torch.from_numpy(rng.normal(0, .1, (lay.padded_rows, 75))
+                              .astype(np.float32)).to(dev)
+    codes, scales = quantize_rows(master)
+    flat, owned = flat_gather_plan(torch.from_numpy(mbs["local"]),
+                                   torch.from_numpy(mbs["owned"]),
+                                   lay.rows_per_shard)
+    flat_t, owned_t = flat.to(dev), owned.to(dev)
+    got, want = run_both(codes, scales, flat_t, owned_t, "minibatch_S4",
+                         check=False)
+    max_err = max(max_err, max_abs_diff(got, want))
+    v, n_own = flat.shape[0], int(owned.sum())
+    stats["minibatch_S4"] = dict(V=v, d=75, **timings(
+        lambda: fused_dequant_gather(codes, scales, flat_t, owned_t,
+                                     check=False),
+        lambda: fused_dequant_gather_plain(codes, scales, flat_t, owned_t),
+        lambda: library(codes, scales, flat_t, owned_t),
+        *bound(v, n_own, 75)))
+    stats["minibatch_S4"]["quantize_ms"], _ = timed(
+        lambda: quantize_rows(master))
+    report("fused_dequant_gather", f"minibatch_S4 (V={v}, R="
+           f"{lay.padded_rows}, d=75)", stats["minibatch_S4"],
+           "index_select, cast, mul, where")
+    log(f"[phase 2] quantize_rows of the 4-shard master ({lay.padded_rows} x "
+        f"75): {stats['minibatch_S4']['quantize_ms']:.4f} ms")
+    return max_err, stats, table_bytes
 
 
 def training_partition():
@@ -828,6 +1008,43 @@ def two_runs_bitwise(trainer, batch, generators_fn):
     return l1
 
 
+def int8_grads_equal_fp32_on_dequant(trainer, batch):
+    """One mini-batch loss of trainer 0 (no dropout) through the int8
+    gather, against the fp32 path with the master replaced by its
+    dequantized self: the loss and every gradient, the master table's
+    included, must be bitwise equal (the straight-through backward is the
+    fp32 path's scatter-add). Returns the loss."""
+    import dataclasses
+    import torch
+    from repro_torch.models.kge import minibatch_loss
+    from repro_torch.sharding import dequantize_rows, quantize_rows
+    from repro_torch.training.distributed import trainer_slice
+    part = trainer_slice(batch, 0)
+    cfg8 = trainer.kge_cfg
+    cfg32 = dataclasses.replace(cfg8, rgcn=dataclasses.replace(
+        cfg8.rgcn, table_dtype="fp32"))
+    names, params = zip(*trainer.params.named_parameters())
+    table = trainer.params.entity_embedding
+    saved = table.detach().clone()
+    loss8, _ = minibatch_loss(trainer.params, cfg8, part)
+    g8 = torch.autograd.grad(loss8, params)
+    try:
+        with torch.no_grad():
+            table.copy_(dequantize_rows(*quantize_rows(saved)))
+        loss32, _ = minibatch_loss(trainer.params, cfg32, part)
+        g32 = torch.autograd.grad(loss32, params)
+    finally:
+        with torch.no_grad():
+            table.copy_(saved)
+    bad = [n for n, a, b in zip(names, g8, g32)
+           if not torch.equal(a.view(torch.int32), b.view(torch.int32))]
+    if loss8.item() != loss32.item() or bad:
+        raise AssertionError(f"int8 vs fp32 on the dequantized master: "
+                             f"losses {loss8.item()!r} {loss32.item()!r}, "
+                             f"gradients differ in {bad}")
+    return loss8.item()
+
+
 def first_batch(trainer, epoch):
     """The first device batch the trainer's pipeline gives for ``epoch``
     (the pipeline is closed after it)."""
@@ -850,24 +1067,29 @@ def plain_twin(trainer):
 # ---------------------------------------------------------------------- #
 # phases 3-4: the serving path through its entry points
 # ---------------------------------------------------------------------- #
-def serve_argv(width, decoder, shards, requests, filtered, cache_size):
+def serve_argv(width, decoder, shards, requests, filtered, cache_size,
+               table_dtype="fp32"):
     return (["--entities", str(width["entities"]),
              "--relations", str(width["relations"]),
              "--dim", str(width["dim"]), "--decoder", decoder,
              "--table-shards", str(shards), "--slots", str(SLOTS),
              "--topk", str(K), "--requests", str(requests), "--zipf", "1.3",
              "--cache-size", str(cache_size), "--seed", "0",
-             "--device", "cuda"] + (["--filtered"] if filtered else []))
+             "--table-dtype", table_dtype, "--device", "cuda"]
+            + (["--filtered"] if filtered else []))
 
 
-def serve_once(width, decoder, shards, requests, *, filtered, cache_size):
+def serve_once(width, decoder, shards, requests, *, filtered, cache_size,
+               table_dtype="fp32"):
     from repro_torch.kernels import KERNELS
     from repro_torch.launch import serve
-    argv = serve_argv(width, decoder, shards, requests, filtered, cache_size)
+    argv = serve_argv(width, decoder, shards, requests, filtered, cache_size,
+                      table_dtype)
     before = {n: w.launches for n, w in KERNELS.items()}
     out = serve.run(serve.parse_args(argv))
     if not out["equal_dense"]:
-        raise AssertionError(f"{decoder} S={shards}: sharded != dense")
+        raise AssertionError(f"{decoder} S={shards} {table_dtype}: sharded "
+                             f"!= dense")
     # the run's top-k calls: warmup step, one per batch, one in the check;
     # the check's dense block is one more kge_score launch
     calls = 1 + -(-requests // SLOTS) + 1
@@ -879,7 +1101,7 @@ def serve_once(width, decoder, shards, requests, *, filtered, cache_size):
 
 
 def profile_serving(width, decoder, shards, *, filtered, cache_size,
-                    steps: int = 10):
+                    table_dtype="fp32", steps: int = 10):
     """Where a serving step's time goes (phase 7): :func:`step_profile` of
     ``steps`` steady engine steps. The profiled stream is played once
     before the windows, so every window meets the same cache state and
@@ -887,7 +1109,8 @@ def profile_serving(width, decoder, shards, *, filtered, cache_size,
     from repro_torch.launch import serve
     from repro_torch.serving import KGEServeEngine
     args = serve.parse_args(
-        serve_argv(width, decoder, shards, 0, filtered, cache_size))
+        serve_argv(width, decoder, shards, 0, filtered, cache_size,
+                   table_dtype))
     server, _, _ = serve.build_server(args)
     engine = KGEServeEngine(server, slots=SLOTS, max_k=K, filtered=filtered)
     rng = np.random.default_rng(3)
@@ -970,12 +1193,16 @@ def main() -> int:
               "topk": check_topk(dev, rng, widths[:3]),
               "fused_gather": check_fused_gather(dev, rng, gather_widths,
                                                  mbs)}
+    fdg_err, fdg_stats, table_bytes = check_fused_dequant_gather(
+        dev, rng, gather_widths, mbs)
+    phase2["fused_dequant_gather"] = (fdg_err, fdg_stats)
     bm_err, bm_stats, bm_configs = check_basis_message(dev, rng, part, mbs)
     phase2["basis_message"] = (bm_err, bm_stats)
     phase2["segment_sum"] = check_segment_sum(dev, rng, part, mbs)
     phase2["scatter_add_onehot"] = check_scatter_add(dev, rng, mbs)
     log("[phase 2] kge_score and basis_message within their stated bounds; "
-        "topk and fused_gather bitwise equal to their plain versions; "
+        "topk, fused_gather and fused_dequant_gather bitwise equal to their "
+        "plain versions; "
         "segment_sum deg == plain, agg within its bound, runs bitwise "
         "equal; scatter_add_onehot within its bound, non-hit rows 0, runs "
         "bitwise equal")
@@ -1001,6 +1228,38 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the serving path: "
                              f"{missing}")
     log(f"[phase 5] launches during phases 3-4: {serve_launches}")
+    # phases 3-4 with the int8 table; counts read around exactly these
+    for w in KERNELS.values():
+        w.launches = 0
+    for decoder in ("distmult", "transe"):
+        for shards in (1, 4):
+            runs[f"fb15k237_{decoder}_S{shards}_int8"] = serve_once(
+                FB15K, decoder, shards, 200, filtered=True, cache_size=256,
+                table_dtype="int8")
+    runs["citation2_distmult_S4_int8"] = serve_once(
+        CITATION2, "distmult", 4, 64, filtered=False, cache_size=0,
+        table_dtype="int8")
+    serve_int8_launches = {name: w.launches for name, w in KERNELS.items()}
+    missing = [k for k in SERVING_INT8_KERNELS if serve_int8_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the int8 serving "
+                             f"path: {missing}")
+    log("[phases 3-4] int8 table: sharded == dense over the dequantized "
+        "table for distmult and transe at 1 and 4 shards (FB15k-237 width) "
+        "and at 4 shards (ogbl-citation2 width)")
+    log(f"[phase 5] launches during the int8 serving runs: "
+        f"{serve_int8_launches}")
+    for fp32_run, int8_run in (("fb15k237_distmult_S4",
+                                "fb15k237_distmult_S4_int8"),
+                               ("citation2_distmult_S1",
+                                "citation2_distmult_S4_int8")):
+        b32, b8 = runs[fp32_run]["table_bytes"], runs[int8_run]["table_bytes"]
+        log(f"[phases 3-4] device table bytes: {int8_run} {b8} against "
+            f"{fp32_run} {b32} ({b8 / b32:.4f}x)")
+    rows_c2 = -(-CITATION2["entities"] // 4)
+    log(f"[phase 4] int8 citation2 S4: one transient dequantized block of "
+        f"{rows_c2} x {CITATION2['dim']} fp32 = "
+        f"{rows_c2 * CITATION2['dim'] * 4 / 1e6:.1f} MB")
     for label, r in runs.items():
         log(f"[serve] {label}: p50 {r['p50_ms']:.3f} ms, p99 "
             f"{r['p99_ms']:.3f} ms, {r['qps']:.1f} QPS, launches per step "
@@ -1107,14 +1366,86 @@ def main() -> int:
     log(f"[phase 6b] two runs of one mini-batch step: loss {mb_loss!r} and "
         f"every parameter bitwise equal")
 
+    # phase 6c: the int8 mini-batch path; counts reset and read inside
+    # train_once
+    mb8 = {"main": train_once(MB_ARGV + MB_MAIN + INT8)}
+    mb8_launches = mb8["main"]["launches"]
+    for label, extra in MB_INT8_GATES.items():
+        mb8[label] = train_once(MB_ARGV + extra)
+    for label, r in mb8.items():
+        h = r["history"][0]
+        log(f"[phase 6c] int8 {label} run: {h['num_batches']} steps, mean "
+            f"loss {h['loss']!r}, device step {h['t_device_step']:.3f} s, "
+            f"host exposed {h['t_get_compute_graph']:.3f} s of "
+            f"{h['t_host_build']:.3f} s built (overlap "
+            f"{h['overlap_fraction']:.3f}), {r['wall_s']:.1f} s in all; "
+            f"{r['metrics']}")
+    missing = [k for k in MINIBATCH_INT8_KERNELS if mb8_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the int8 mini-batch "
+                             f"path: {missing}")
+    log(f"[phase 6c] launches during the int8 main run: {mb8_launches}")
+    main8 = mb8["main"]["trainer"]
+    main8_losses = mb8["main"]["history"][0]["losses"]
+    if not (len(main8_losses) > 1 and np.isfinite(main8_losses).all()):
+        raise AssertionError(f"int8 mini-batch losses: {main8_losses}")
+    for label in MB_INT8_GATES:
+        got = mb8[label]["history"][0]["losses"]
+        bad = bitwise_mismatch(main8, mb8[label]["trainer"])
+        if got != main8_losses or bad:
+            raise AssertionError(f"int8 mini-batch {label} != main: losses "
+                                 f"{got} vs {main8_losses}, params {bad}")
+    log("[phase 6c] int8: per-step losses and final parameters bitwise equal "
+        "for --table-shards 1 and 4, with and without --gather-dedup")
+    emb8 = main8.encode_all_entities()
+    if emb8.shape != (FB15K["entities"], FB15K["dim"]) or \
+            not bool(torch.isfinite(emb8).all()):
+        raise AssertionError(f"bad embeddings {tuple(emb8.shape)}")
+    splits = main8.splits
+    rank_args = (emb8, {k: v.detach() for k, v in
+                        main8.params["decoder"].items()}, splits["test"],
+                 [splits[k] for k in ("train", "valid", "test")],
+                 splits["train"].num_relations)
+    int8_s4 = evaluate_both_directions(*rank_args, num_shards=4,
+                                       table_dtype="int8")
+    int8_s1 = evaluate_both_directions(*rank_args, num_shards=1,
+                                       table_dtype="int8")
+    fp32_m = evaluate_both_directions(*rank_args, num_shards=1)
+    if int8_s4 != int8_s1 or {f"test_{k}": v for k, v in
+                              int8_s4.items()} != mb8["main"]["metrics"]:
+        raise AssertionError(f"int8 4-shard ranking {int8_s4} != 1-shard "
+                             f"{int8_s1} (run: {mb8['main']['metrics']})")
+    drift = abs(int8_s4["mrr"] - fp32_m["mrr"])
+    if drift > QUANT_MRR_DRIFT_LIMIT:
+        raise AssertionError(f"|MRR(int8) - MRR(fp32)| = {drift} > "
+                             f"{QUANT_MRR_DRIFT_LIMIT}")
+    log(f"[phase 6c] int8 4-shard ranking == 1-shard: {int8_s4}; fp32 "
+        f"ranking of the same embeddings {fp32_m}; |MRR drift| {drift!r} <= "
+        f"{QUANT_MRR_DRIFT_LIMIT}")
+    mb8_batch = first_batch(main8, 2)
+    mb8_loss = two_runs_bitwise(main8, mb8_batch,
+                                lambda: main8.step_generators(2, 0))
+    log(f"[phase 6c] two runs of one int8 mini-batch step: loss "
+        f"{mb8_loss!r} and every parameter bitwise equal")
+    st_loss = int8_grads_equal_fp32_on_dequant(main8, mb8_batch)
+    log(f"[phase 6c] one int8 step's loss {st_loss!r} and every gradient, "
+        f"the master table's included, bitwise the fp32 path's on the "
+        f"dequantized master")
+
     # phase 7: where a steady step's time goes
     profiles = {}
     configs = [(f"fb15k237_{dec}_S{sh}", FB15K, dec, sh, True, 256)
                for dec in ("distmult", "transe") for sh in (1, 4)]
     configs.append(("citation2_distmult_S1", CITATION2, "distmult", 1,
                     False, 0))
-    for label, width, dec, sh, filt, cache in configs:
-        p = profile_serving(width, dec, sh, filtered=filt, cache_size=cache)
+    configs = [c + ("fp32",) for c in configs] + [
+        ("fb15k237_distmult_S4_int8", FB15K, "distmult", 4, True, 256,
+         "int8"),
+        ("citation2_distmult_S4_int8", CITATION2, "distmult", 4, False, 0,
+         "int8")]
+    for label, width, dec, sh, filt, cache, dtype in configs:
+        p = profile_serving(width, dec, sh, filtered=filt, cache_size=cache,
+                            table_dtype=dtype)
         profiles[label] = p
         log(f"[phase 7] serve {label}: {p['step_ms']:.3f} ms per step, "
             f"device busy {p['device_ms_per_step']:.3f} ms, idle share "
@@ -1138,6 +1469,13 @@ def main() -> int:
         f"{p['step_ms']:.3f} ms, device busy {p['device_ms_per_step']:.3f} "
         f"ms, idle share {p['idle_share']:.3f}; top "
         f"{p['top_device_ms_per_step']}")
+    gens8 = main8.step_generators(2, 0)
+    p = step_profile(lambda: main8.step(mb8_batch, gens8))
+    profiles["minibatch_step_int8"] = p
+    log(f"[phase 7] int8 mini-batch step (4-shard table, kernel encoder): "
+        f"{p['step_ms']:.3f} ms, device busy {p['device_ms_per_step']:.3f} "
+        f"ms, idle share {p['idle_share']:.3f}; top "
+        f"{p['top_device_ms_per_step']}")
     h = mb["main"]["history"][0]
     profiles["minibatch_pipeline"] = {
         k: h[k] for k in ("num_batches", "t_get_compute_graph",
@@ -1152,14 +1490,18 @@ def main() -> int:
     kernels = []
     # each kernel's head shape: the mini-batch path's where it runs there
     heads = {"kge_score": "rank_S4", "topk": "citation2_S1",
-             "fused_gather": "minibatch_S4", "basis_message": "minibatch",
-             "segment_sum": "minibatch", "scatter_add_onehot": "table_grad"}
+             "fused_gather": "minibatch_S4",
+             "fused_dequant_gather": "minibatch_S4",
+             "basis_message": "minibatch", "segment_sum": "minibatch",
+             "scatter_add_onehot": "table_grad"}
     for name, head_shape in heads.items():
         max_err, stats = phase2[name]
         head = stats[head_shape]
         by_path = {"serve": serve_launches[name],
+                   "serve_int8": serve_int8_launches[name],
                    "train": train_launches[name],
-                   "minibatch": mb_launches[name]}
+                   "minibatch": mb_launches[name],
+                   "minibatch_int8": mb8_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),
@@ -1182,8 +1524,17 @@ def main() -> int:
                                          "launches": r["launches"],
                                          "wall_s": r["wall_s"]}
                                      for k, r in mb.items()},
+                       "minibatch_int8": {k: {"history": r["history"],
+                                              "metrics": r["metrics"],
+                                              "launches": r["launches"],
+                                              "wall_s": r["wall_s"]}
+                                          for k, r in mb8.items()},
+                       "int8_table_bytes": table_bytes,
+                       "int8_ranking": {"S4": int8_s4, "S1": int8_s1,
+                                        "fp32": fp32_m, "mrr_drift": drift},
                        "fullgraph_two_run_loss": fg_loss,
                        "minibatch_two_run_loss": mb_loss,
+                       "minibatch_int8_two_run_loss": mb8_loss,
                        "embedding_max_abs_diff": emb_err,
                        "profile": profiles,
                        "total_s": time.perf_counter() - t_start}, f, indent=1)

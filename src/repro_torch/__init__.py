@@ -1,8 +1,10 @@
-"""PyTorch/CUDA port of the KGE serving path.
+"""PyTorch/CUDA port of the KGE system: sharded top-k serving, full-graph
+and edge mini-batch training, filtered evaluation, with the entity table
+dense, row-sharded or int8.
 
 A second package beside the JAX/Pallas reference ``repro``: the same
 subpackage layout and names, rewritten in PyTorch, with every Pallas kernel
-on the serving path replaced by a CUDA C++ kernel for Hopper (``csrc/``).
+on those paths replaced by a CUDA C++ kernel for Hopper (``csrc/``).
 The port imports ``torch`` and numpy only — never ``jax`` and nothing of
 ``repro``.
 

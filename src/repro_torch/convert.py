@@ -5,7 +5,9 @@ numpy arrays (``np.asarray`` of each leaf), become the port's tensors
 (:func:`from_jax`, serving), and its whole KGE parameter tree becomes the
 port's ``KGEModel`` and back (:func:`kge_model_from_jax`,
 :func:`kge_model_to_jax`), so both packages can start from the same
-weights.
+weights. An int8 table in the reference's ``{"codes", "scales"}`` form
+crosses both ways bit for bit (:func:`quantized_table_from_jax`,
+:func:`quantized_table_to_jax`).
 """
 from __future__ import annotations
 
@@ -119,3 +121,29 @@ def kge_model_to_jax(model) -> Dict:
         else:
             tree[name] = value
     return tree
+
+
+def quantized_table_from_jax(quantized: Mapping, *, device=None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``quantize_table`` dict (``codes`` int8 of shape
+    ``(..., rows, d)``, ``scales`` float32 of shape ``(..., rows)``, numpy
+    or ``np.asarray``-able) → ``(codes, scales)`` tensors on ``device``
+    (default ``cuda``), copied bit for bit."""
+    dev = resolve_device(device)
+    codes, scales = np.asarray(quantized["codes"]), np.asarray(
+        quantized["scales"])
+    if codes.dtype != np.int8:
+        raise TypeError(f"codes must be int8, got {codes.dtype}")
+    scales = _f32_array("scales", scales)
+    if codes.ndim < 2 or scales.shape != codes.shape[:-1]:
+        raise ValueError(f"codes {codes.shape} and scales {scales.shape} "
+                         f"are not (..., rows, d) and (..., rows)")
+    return torch.tensor(codes, device=dev), torch.tensor(scales, device=dev)
+
+
+def quantized_table_to_jax(codes: torch.Tensor, scales: torch.Tensor
+                           ) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`quantized_table_from_jax`: the
+    ``{"codes", "scales"}`` dict with numpy leaves."""
+    return {"codes": codes.detach().cpu().numpy().copy(),
+            "scales": scales.detach().cpu().numpy().copy()}

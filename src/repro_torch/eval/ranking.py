@@ -248,20 +248,20 @@ def ranking_metrics(entity_emb, decoder_params: Dict,
     batch's filter bias built on the host. ``device`` defaults to the
     table's own when it is a tensor, else to ``cuda``. ``num_shards > 1``
     ranks candidate-axis-sharded over the row-sharded table
-    (``repro_torch.eval.sharded``), with exactly the dense metrics. The
-    ogbl candidate-list protocol and int8 tables are not ported yet and
-    raise."""
+    (``repro_torch.eval.sharded``), with exactly the dense metrics. An
+    int8 table always takes the sharded path, one shard included: its
+    block-at-a-time dequantization keeps the fp32 table off the device,
+    and the metrics are exactly the dense ones over the dequantized table.
+    The ogbl candidate-list protocol is not ported yet and raises."""
     if candidates is not None:
         raise not_ported("the candidate-list (ogbl) ranking protocol",
                          "citation2")
-    if table_dtype != "fp32":
-        raise not_ported(f"table_dtype={table_dtype!r} ranking", "int8")
-    if num_shards > 1:
+    if num_shards > 1 or table_dtype != "fp32":
         from repro_torch.eval.sharded import sharded_ranking_metrics
         return sharded_ranking_metrics(
             entity_emb, decoder_params, test_triplets, filter_index,
-            num_shards, hits_ks=hits_ks, batch_size=batch_size,
-            decoder=decoder, device=device)
+            max(num_shards, 1), hits_ks=hits_ks, batch_size=batch_size,
+            decoder=decoder, table_dtype=table_dtype, device=device)
     if device is None and isinstance(entity_emb, torch.Tensor):
         device = entity_emb.device
     dev = resolve_device(device)

@@ -7,7 +7,10 @@ version:
   (replaces ``repro/kernels/topk.py::topk_scores``).
 * ``fused_gather`` — the sharded table's fused masked row gather
   (replaces ``repro/kernels/sharded_gather.py::fused_gather``).
-* ``scatter_add_onehot`` — its transpose, the masked scatter-add of row
+* ``fused_dequant_gather`` — its int8 twin, the dequantization fused into
+  the gather (replaces
+  ``repro/kernels/sharded_gather.py::fused_dequant_gather``).
+* ``scatter_add_onehot`` — their transpose, the masked scatter-add of row
   cotangents, deterministic without float atomics: the backward of the
   sharded table and of every training-path row gather (replaces
   ``repro/kernels/sharded_gather.py::scatter_add_onehot``).
@@ -26,22 +29,25 @@ from repro_torch.kernels.kge_score import (
     EPILOGUES, NORM_EPS, apply_epilogue, kge_score, kge_score_plain,
 )
 from repro_torch.kernels.ops import (
-    flat_gather_plan, fused_sharded_gather, gather_rows, kge_score_padded,
-    masked_take, merge_topk, rgcn_message_basis, topk_padded,
+    dequant_sharded_gather, flat_gather_plan, fused_sharded_gather,
+    gather_rows, kge_score_padded, masked_take, merge_topk,
+    quantized_sharded_gather, rgcn_message_basis, topk_padded,
 )
 from repro_torch.kernels.rgcn_message import (
     basis_message, basis_message_plain, segment_sum, segment_sum_plain,
 )
 from repro_torch.kernels.sharded_gather import (
-    fused_gather, fused_gather_plain, scatter_add_onehot,
-    scatter_add_onehot_plain,
+    fused_dequant_gather, fused_dequant_gather_plain, fused_gather,
+    fused_gather_plain, scatter_add_onehot, scatter_add_onehot_plain,
 )
 from repro_torch.kernels.topk import topk_plain, topk_scores
 
 # every kernel wrapper of the port; each counts its launches in
 # ``wrapper.launches``
 KERNELS = {"kge_score": kge_score, "topk": topk_scores,
-           "fused_gather": fused_gather, "basis_message": basis_message,
+           "fused_gather": fused_gather,
+           "fused_dequant_gather": fused_dequant_gather,
+           "basis_message": basis_message,
            "segment_sum": segment_sum,
            "scatter_add_onehot": scatter_add_onehot}
 
@@ -49,6 +55,8 @@ __all__ = ["ops", "ref", "EPILOGUES", "NORM_EPS", "KERNELS",
            "apply_epilogue", "kge_score", "kge_score_plain",
            "kge_score_padded", "topk_scores", "topk_plain", "topk_padded",
            "merge_topk", "fused_gather", "fused_gather_plain",
+           "fused_dequant_gather", "fused_dequant_gather_plain",
+           "dequant_sharded_gather", "quantized_sharded_gather",
            "flat_gather_plan", "fused_sharded_gather", "gather_rows",
            "masked_take", "scatter_add_onehot", "scatter_add_onehot_plain",
            "basis_message",

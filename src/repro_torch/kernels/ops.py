@@ -1,7 +1,7 @@
 """Public wrappers around the kernels (port of ``repro/kernels/ops.py``):
 the fused RGCN message layer, the row gather with a deterministic
-backward, optional arguments, k checks, the shard merge and the flat-index
-gather plan.
+backward, the int8 table's gathers, optional arguments, k checks, the
+shard merge and the flat-index gather plan.
 
 The TPU wrappers padded E, V, B and C to the kernels' 128-row tiles; the
 CUDA kernels take ragged shapes, so nothing is padded here and the results
@@ -16,9 +16,10 @@ import torch
 from repro_torch.kernels.kge_score import kge_score
 from repro_torch.kernels.rgcn_message import basis_message, segment_sum
 from repro_torch.kernels.sharded_gather import (
-    fused_gather, scatter_add_onehot,
+    fused_dequant_gather, fused_gather, scatter_add_onehot,
 )
 from repro_torch.kernels.topk import topk_scores
+from repro_torch.sharding.embedding import quantize_rows
 
 
 class _GatherRows(torch.autograd.Function):
@@ -47,6 +48,21 @@ class _GatherRows(torch.autograd.Function):
         dt = scatter_add_onehot(g.reshape(ids.shape[0], -1).contiguous(),
                                 ids, owned, shape[0])
         return dt.reshape(shape), None, None, None
+
+
+class _QuantizedGatherRows(_GatherRows):
+    """The int8 training gather over a flat ``(R, d)`` fp32 master:
+    forward quantizes the master row-wise and runs ``fused_dequant_gather``;
+    backward is :class:`_GatherRows`' scatter-add into the master rows
+    (straight-through: not the zero-almost-everywhere derivative of
+    ``rint``), the reference's ``_fsg_bwd``."""
+
+    @staticmethod
+    def forward(ctx, table, ids, owned, check):
+        ctx.table_shape = table.shape
+        ctx.save_for_backward(ids, owned)
+        codes, scales = quantize_rows(table)
+        return fused_dequant_gather(codes, scales, ids, owned, check=check)
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -188,3 +204,35 @@ def masked_take(table: torch.Tensor, local_ids: torch.Tensor,
     unowned slot's masked cotangent is zero, so leaving it out changes no
     value, and each row's sum stays the one the fused gather forms)."""
     return _GatherRows.apply(table, local_ids.long(), owned, check)
+
+
+def dequant_sharded_gather(codes: torch.Tensor, scales: torch.Tensor,
+                           local_ids: torch.Tensor, owned: torch.Tensor, *,
+                           check: bool = True) -> torch.Tensor:
+    """``(V, d)`` fp32 rows of an int8 ``(S, rows, d)`` code stack with
+    ``(S, rows)`` scales from an ``(S, V)`` plan: the plan collapsed by
+    :func:`flat_gather_plan` (where it lies) and one ``fused_dequant_gather``
+    — only the V gathered rows are ever dequantized. Bitwise the reference's
+    dequantize-then-gather (``ref.dequant_gather_ref``). No gradient."""
+    s, rows, d = codes.shape
+    flat, any_owned = flat_gather_plan(local_ids, owned, rows)
+    return fused_dequant_gather(
+        codes.reshape(s * rows, d), scales.reshape(s * rows),
+        flat.to(codes.device), any_owned.to(codes.device), check=check)
+
+
+def quantized_sharded_gather(table: torch.Tensor, local_ids: torch.Tensor,
+                             owned: torch.Tensor, *, check: bool = True
+                             ) -> torch.Tensor:
+    """The int8 training gather: ``(V, d)`` rows of the fp32 master stack
+    ``(S, rows, d)``, quantized row-wise in the step and gathered through
+    ``fused_dequant_gather``. Differentiable in ``table`` with the
+    straight-through backward, the same scatter-add as
+    :func:`fused_sharded_gather`'s, so master gradients are bitwise the
+    fp32 path's on the dequantized master. ``check`` as in
+    ``fused_gather``."""
+    s, rows, d = table.shape
+    flat, any_owned = flat_gather_plan(local_ids, owned, rows)
+    return _QuantizedGatherRows.apply(table.reshape(s * rows, d),
+                                      flat.to(table.device),
+                                      any_owned.to(table.device), check)

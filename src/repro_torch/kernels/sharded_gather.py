@@ -1,5 +1,5 @@
 """The sharded table's row exchange, forward and backward (port of
-``fused_gather`` and ``scatter_add_onehot`` in
+``fused_gather``, ``fused_dequant_gather`` and ``scatter_add_onehot`` in
 ``repro/kernels/sharded_gather.py``).
 
 Exactly one shard owns every id of the row-sharded entity table, so the
@@ -9,8 +9,13 @@ shard-local take → mask → sum exchange folds into index arithmetic
 
     ``out[v] = any_owned[v] ? table_flat[flat[v]] : 0``
 
-bitwise equal to the chain (each output element is the owner's value). Its
-transpose is the masked scatter-add
+bitwise equal to the chain (each output element is the owner's value).
+The int8 table's twin dequantizes the gathered row on the way,
+
+    ``out[v] = any_owned[v] ? codes_flat[flat[v]] · scales_flat[flat[v]] : 0``
+
+one exact fp32 product per element, so it is bitwise the gather of the
+dequantized table. The transpose of both is the masked scatter-add
 
     ``out[r] = Σ_v [flat[v] == r ∧ owned[v]] · g[v]``,
 
@@ -20,12 +25,13 @@ path (``ops.gather_rows``).
 Each wrapper launches its CUDA kernel from ``csrc/sharded_gather.cu`` for
 CUDA tensors and runs its plain version for CPU tensors.
 
-* :func:`fused_gather`. A flat id outside the table is a broken plan: the
-  plain version raises an ``IndexError`` on it. The kernel flags the slot
-  in pinned host memory instead; with ``check=True`` (serving) the wrapper
-  waits for the gather (one synchronisation of the current stream) and
-  raises, with ``check=False`` (training) it does not wait, and
-  :func:`raise_if_flagged` raises once the caller has waited anyway.
+* :func:`fused_gather` and :func:`fused_dequant_gather`. A flat id outside
+  the table is a broken plan: the plain version raises an ``IndexError``
+  on it. The kernel flags the slot in pinned host memory instead; with
+  ``check=True`` (serving) the wrapper waits for the gather (one
+  synchronisation of the current stream) and raises, with ``check=False``
+  (training) it does not wait, and :func:`raise_if_flagged` raises once
+  the caller has waited anyway.
 * :func:`scatter_add_onehot` sums without float atomics: the slots are
   sorted stably by row (``rgcn_message.segment_plan``, unowned slots under
   a sentinel row) and each row's slots are added in slot order, in chunks,
@@ -50,6 +56,10 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p],
+    "fused_dequant_gather_i8": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p],
     "scatter_add_f32": [ctypes.c_void_p] * 6 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
 }
@@ -80,11 +90,23 @@ def _bad_slot_flag(device: torch.device) -> torch.Tensor:
     return bad
 
 
+def _check_flag(kernel: str, bad: torch.Tensor, flat_ids: torch.Tensor,
+                rows: int) -> None:
+    """After a synchronised launch: raise on (and clear) a flagged slot."""
+    slot = int(bad[0]) - 1
+    if slot >= 0:
+        bad[0] = 0
+        raise IndexError(f"{kernel}: slot {slot} has flat id "
+                         f"{int(flat_ids[slot])}, outside the table's "
+                         f"{rows} rows")
+
+
 def raise_if_flagged(device: torch.device) -> None:
-    """Raise ``IndexError`` if a :func:`fused_gather` on ``device`` flagged
-    a flat id outside its table, and clear the flag. Reads the pinned flag
-    without synchronising: call it once the launches in question have
-    finished (the trainer does, after reading the step's loss)."""
+    """Raise ``IndexError`` if a :func:`fused_gather` or
+    :func:`fused_dequant_gather` on ``device`` flagged a flat id outside
+    its table, and clear the flag. Reads the pinned flag without
+    synchronising: call it once the launches in question have finished
+    (the trainer does, after reading the step's loss)."""
     device = torch.device(device)
     if device.type != "cuda":
         return
@@ -94,8 +116,8 @@ def raise_if_flagged(device: torch.device) -> None:
     slot = int(bad[0]) - 1
     if slot >= 0:
         bad[0] = 0
-        raise IndexError(f"fused_gather: slot {slot} has a flat id outside "
-                         f"the table")
+        raise IndexError(f"sharded gather: slot {slot} has a flat id "
+                         f"outside the table")
 
 
 def fused_gather(table_flat: torch.Tensor, flat_ids: torch.Tensor,
@@ -131,16 +153,65 @@ def fused_gather(table_flat: torch.Tensor, flat_ids: torch.Tensor,
         if not check:
             return out
         stream.synchronize()
-    slot = int(bad[0]) - 1
-    if slot >= 0:
-        bad[0] = 0
-        raise IndexError(f"fused_gather: slot {slot} has flat id "
-                         f"{int(flat_ids[slot])}, outside the table's {r} "
-                         f"rows")
+    _check_flag("fused_gather", bad, flat_ids, r)
     return out
 
 
 fused_gather.launches = 0
+
+
+def fused_dequant_gather_plain(codes_flat: torch.Tensor,
+                               scales_flat: torch.Tensor,
+                               flat_ids: torch.Tensor,
+                               any_owned: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: ``(R, d)`` int8 codes, ``(R,)`` fp32 scales,
+    ``(V,)`` int64 flat rows, ``(V,)`` bool ownership → ``(V, d)`` fp32,
+    zero rows where no shard owns the slot."""
+    rows = codes_flat[flat_ids].float() * scales_flat[flat_ids][:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=codes_flat.device)
+    return torch.where(any_owned[:, None], rows, zero)
+
+
+def fused_dequant_gather(codes_flat: torch.Tensor, scales_flat: torch.Tensor,
+                         flat_ids: torch.Tensor, any_owned: torch.Tensor, *,
+                         check: bool = True) -> torch.Tensor:
+    """``out[v] = any_owned[v] ? codes_flat[flat_ids[v]] ·
+    scales_flat[flat_ids[v]] : 0`` in fp32 — the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. ``check`` as in
+    :func:`fused_gather`."""
+    name = "fused_dequant_gather"
+    if _build.on_cpu(name, codes_flat, scales_flat, flat_ids, any_owned):
+        return fused_dequant_gather_plain(codes_flat, scales_flat, flat_ids,
+                                          any_owned)
+    if codes_flat.dim() != 2 or flat_ids.dim() != 1:
+        raise ValueError(f"{name}: codes_flat must be 2-D and flat_ids 1-D")
+    r, d = codes_flat.shape
+    v = flat_ids.shape[0]
+    _build.require(name, "codes_flat", codes_flat, torch.int8, (r, d))
+    _build.require(name, "scales_flat", scales_flat, torch.float32, (r,))
+    _build.require(name, "flat_ids", flat_ids, torch.int64, (v,))
+    _build.require(name, "any_owned", any_owned, torch.bool, (v,))
+    out = torch.empty((v, d), dtype=torch.float32, device=codes_flat.device)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(codes_flat.device):
+        bad = _bad_slot_flag(codes_flat.device)
+        stream = torch.cuda.current_stream()
+        code = lib.fused_dequant_gather_i8(
+            codes_flat.data_ptr(), scales_flat.data_ptr(),
+            flat_ids.data_ptr(), any_owned.data_ptr(), out.data_ptr(), r, v,
+            d, bad.data_ptr(), stream.cuda_stream)
+        _build.check_launch(name, code)
+        fused_dequant_gather.launches += 1
+        if not check:
+            return out
+        stream.synchronize()
+    _check_flag(name, bad, flat_ids, r)
+    return out
+
+
+fused_dequant_gather.launches = 0
 
 
 def scatter_add_onehot_plain(g: torch.Tensor, flat_ids: torch.Tensor,

@@ -6,13 +6,16 @@ entity table and decoder parameters (both drawn from numpy generators
 seeded by ``--seed``), wraps it in the dynamic-batching
 :class:`repro_torch.serving.KGEServeEngine`, and drives a Zipf-skewed query
 stream through it — printing p50/p99 request latency and QPS, and the
-sharded == dense top-k equality check. The process exits non-zero when the
-check fails. Runs on the GPU unless ``--device cpu`` is given.
+sharded == dense top-k equality check (over the dequantized table with
+``--table-dtype int8``). The process exits non-zero when the check fails.
+Runs on the GPU unless ``--device cpu`` is given.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --table-shards 4
   PYTHONPATH=src python -m repro_torch.launch.serve --decoder rotate \
       --filtered --cache-size 256 --requests 200
+  PYTHONPATH=src python -m repro_torch.launch.serve --table-shards 4 \
+      --table-dtype int8 --filtered --cache-size 256
 """
 from __future__ import annotations
 
@@ -51,8 +54,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "CSRFilterIndex bias (serving sentinel t=-1)")
     ap.add_argument("--table-dtype", default="fp32",
                     choices=("fp32", "int8"),
-                    help="entity-table storage; int8 is not ported yet and "
-                         "raises")
+                    help="entity-table storage: int8 keeps only row-wise "
+                         "int8 codes and fp32 power-of-two scales on the "
+                         "device and dequantizes one shard block at a time")
     ap.add_argument("--cache-size", type=int, default=0,
                     help="hot-entity head-embedding LRU entries "
                          "(0 disables; bits never change)")
@@ -98,17 +102,22 @@ def build_server(args: argparse.Namespace):
 
 def check_equal_dense(server, emb: np.ndarray, params,
                       args: argparse.Namespace) -> bool:
-    """The serving contract: sharded top-k == dense top-k. The dense
-    reference scores all N columns in one block through the same
-    ``kge_score`` path and selects with the plain top-k."""
+    """The serving contract: sharded top-k == dense top-k (over the
+    dequantized table for ``--table-dtype int8``: dequantization is an
+    exact product, so equality stays exact). The dense reference scores
+    all N columns in one block through the same ``kge_score`` path and
+    selects with the plain top-k."""
     from repro_torch.kernels.topk import topk_plain
     from repro_torch.models.decoders import get_decoder
+    from repro_torch.sharding.embedding import dequantize_rows, quantize_rows
 
     rng = np.random.default_rng(args.seed + 1)
     heads = rng.integers(0, args.entities, args.slots)
     rels = rng.integers(0, args.relations, args.slots)
     k = min(args.topk, args.entities)
     table = torch.from_numpy(emb).to(server.device)
+    if args.table_dtype == "int8":
+        table = dequantize_rows(*quantize_rows(table))
     dense = get_decoder(args.decoder).rank_scores(
         server.params, table[torch.from_numpy(heads).to(server.device)],
         torch.from_numpy(rels).to(server.device), table)
@@ -119,7 +128,8 @@ def check_equal_dense(server, emb: np.ndarray, params,
 
 def run(args: argparse.Namespace) -> Dict[str, float]:
     """Serve the request stream and check sharded == dense. Returns the
-    latency numbers and ``equal_dense``."""
+    latency numbers, the stored table's device bytes and
+    ``equal_dense``."""
     from repro_torch.device import resolve_device
     from repro_torch.serving import KGEServeEngine
 
@@ -132,8 +142,10 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
           f"(rows/shard={server.layout.rows_per_shard}), "
           f"slots={args.slots}, max_k={engine.max_k}, "
           f"device={server.device}"
+          + (", int8 table" if args.table_dtype == "int8" else "")
           + (", filtered" if args.filtered else "")
-          + (f", cache={args.cache_size}" if args.cache_size else ""))
+          + (f", cache={args.cache_size}" if args.cache_size else "")
+          + f"; table {server.table_bytes} bytes")
 
     rng = np.random.default_rng(args.seed + 2)
     heads = np.minimum(rng.zipf(args.zipf, args.requests) - 1,
@@ -160,7 +172,8 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
            "p50_ms": float(np.percentile(lat_ms, 50)),
            "p99_ms": float(np.percentile(lat_ms, 99)),
            "cache_hits": server.cache_hits,
-           "cache_misses": server.cache_misses}
+           "cache_misses": server.cache_misses,
+           "table_bytes": server.table_bytes}
     print(f"[serve] {args.requests} requests in {wall:.2f}s — "
           f"{out['qps']:.1f} QPS, "
           f"p50={out['p50_ms']:.2f}ms p99={out['p99_ms']:.2f}ms")

@@ -7,7 +7,9 @@ the synthetic FB15k-237 stand-in (or real files under ``--data-root``),
 then the filtered test evaluation. ``--table-shards`` row-shards the
 entity table (the simulated exchange, ``--gather-exchange fused`` or
 ``masked_sum``; ``--gather-dedup`` dedupes mini-batch gather plans), and
-the ranking is then sharded over its row blocks. The flags are the
+the ranking is then sharded over its row blocks. ``--table-dtype int8``
+trains the fp32 master through the quantized gather and ranks over the
+int8 table (sharded ranking, one shard included). The flags are the
 reference's, plus ``--device`` (default ``cuda``; ``cpu`` runs the
 kernels' plain versions). ``--arch rgcn-citation2`` (feature-mode
 mini-batches), the LM architectures, and the reference's options the port
@@ -22,6 +24,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch rgcn-fb15k237 --use-kernel --scale 0.01 --epochs 1 \\
       --trainers 2 --hidden-dim 16 --batch-size 64 --table-shards 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rgcn-fb15k237 \
+      --scale 1.0 --trainers 4 --batch-size 4096 --table-shards 4 \
+      --table-dtype int8 --use-kernel --epochs 1
 """
 from __future__ import annotations
 
@@ -72,8 +77,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "not ported)")
     ap.add_argument("--table-dtype", default="fp32",
                     choices=("fp32", "int8"),
-                    help="entity-table storage (int8 is not ported: "
-                         "raises)")
+                    help="entity-table storage: int8 keeps the fp32 "
+                         "master for Adam and gathers it quantized")
     ap.add_argument("--decoder", default="distmult",
                     choices=registered_decoders(),
                     help="KGE scoring function (the paper trains distmult)")
@@ -125,6 +130,8 @@ def run(args: argparse.Namespace) -> Dict:
         pipe += ", deduped gather"
     if cfg.gather_exchange:
         pipe += f", {cfg.gather_exchange} exchange"
+    if cfg.table_dtype != "fp32":
+        pipe += f", {cfg.table_dtype} table"
     print(f"[train] fb15k-237: {splits['train'].num_edges} train edges, "
           f"{splits['train'].num_entities} entities; "
           f"{cfg.decoder} decoder, {cfg.num_negatives} negatives/edge; "
@@ -149,7 +156,10 @@ def run(args: argparse.Namespace) -> Dict:
     t0 = time.perf_counter()
     metrics = trainer.evaluate("test")
     rank_mode = (f"{cfg.num_table_shards}-shard ranking"
-                 if cfg.num_table_shards > 1 else "dense ranking")
+                 if cfg.num_table_shards > 1 or cfg.table_dtype != "fp32"
+                 else "dense ranking")
+    if cfg.table_dtype != "fp32":
+        rank_mode += f" over the {cfg.table_dtype} table"
     print(f"[eval] {cfg.decoder} decoder, {rank_mode}, "
           f"{len(trainer.partitions)}-partition streamed encode, "
           f"{time.perf_counter() - t0:.2f}s")

@@ -133,17 +133,26 @@ def vertex_input(params: Mapping, cfg: KGEConfig,
     ``shard_inverse`` when deduplicated) or, without one (full-graph and
     evaluation), by the identical in-graph plan. Every combination is
     bitwise the dense gather, gradients included. The training path does
-    not wait per gather for ``fused_gather``'s bad-slot flag: the trainer
-    reads it once per step."""
+    not wait per gather for the gather kernels' bad-slot flag: the trainer
+    reads it once per step.
+
+    With ``table_dtype="int8"`` every entity-table gather quantizes the
+    fp32 master and gathers through the straight-through int8 gather; a
+    dense ``(N, d)`` master is gathered as a one-shard stack, so the int8
+    values do not depend on the shard count."""
     if cfg.rgcn.feature_dim is None:
         table = params["entity_embedding"]
+        table_dtype = cfg.rgcn.table_dtype
+        if table.dim() == 2 and table_dtype == "int8":
+            table = table[None]
         if table.dim() == 3:
             if shard_local_ids is None:
                 shard_local_ids, shard_owned = plan_local_gather_device(
                     table.shape[0], table.shape[1], gather_global)
             return sharded_gather(table, shard_local_ids, shard_owned,
                                   exchange=cfg.rgcn.gather_exchange,
-                                  inverse=shard_inverse, check=False)
+                                  inverse=shard_inverse, check=False,
+                                  table_dtype=table_dtype)
         return gather_rows(table, gather_global)
     if features is None:
         raise ValueError("a feature-mode model needs features")

@@ -47,6 +47,8 @@ class RGCNConfig:
     #   simulated shard-local gather + exchange, bitwise the dense gather
     gather_exchange: Optional[str] = None  # simulated exchange layout
     #   ("fused" default, "masked_sum"; sharding.embedding.SIM_EXCHANGES)
+    table_dtype: str = "fp32"  # "fp32" | "int8": int8 keeps the fp32
+    #   master for Adam and gathers it quantized (straight-through)
 
     def layer_in_dim(self, layer: int) -> int:
         if layer == 0:

@@ -11,8 +11,6 @@ ITEMS = {
                   ".npz + JSON manifest format",
     "spmd": "ROADMAP Queue 1 item 2: the multi-process step over "
             "torch.distributed",
-    "int8": "ROADMAP Queue 1 item 3: int8 tables, serving first, with the "
-            "fused_dequant_gather kernel",
     "citation2": "ROADMAP Queue 1 item 4: feature-mode mini-batch training "
                  "(--arch rgcn-citation2) and the ogbl candidate-list "
                  "ranking protocol",

@@ -1,5 +1,4 @@
-"""Sharded top-k link-prediction serving (port of ``repro/serving/kge.py``,
-fp32 tables).
+"""Sharded top-k link-prediction serving (port of ``repro/serving/kge.py``).
 
 * ``ShardedKGEServer`` — candidate-axis-sharded scoring plus per-shard
   top-k. The entity table is row-sharded once; each shard's ``(B, rows/S)``
@@ -30,6 +29,12 @@ fp32 tables).
   on the host and gathers only the misses through the sharded gather
   (deduplicated, bucket-padded). Cached rows are the gather's own output,
   so the cache changes latency, never bits.
+
+* int8 tables (``table_dtype="int8"``): only the codes and the per-row
+  scales live on the device. Each request dequantizes one shard's block at
+  a time and prepares its candidates there; heads come through the fused
+  dequantizing gather. Dequantization is one exact product per element,
+  so the answers are exactly the dense top-k over the dequantized table.
 """
 from __future__ import annotations
 
@@ -44,11 +49,11 @@ from repro_torch.device import resolve_device
 from repro_torch.eval.ranking import CSRFilterIndex
 from repro_torch.eval.sharded import shard_filter_bias_block, shard_scores
 from repro_torch.kernels.ops import merge_topk, topk_padded
+from repro_torch.eval.sharded import table_block, table_rows
 from repro_torch.models.decoders import Decoder, get_decoder
-from repro_torch.roadmap import not_ported
 from repro_torch.sharding.embedding import (
     TABLE_DTYPES, ShardedTableLayout, plan_local_gather, plan_unique_gather,
-    shard_table, sharded_gather,
+    quantize_rows, shard_table,
 )
 
 
@@ -60,8 +65,9 @@ class ShardedKGEServer:
     decoder's parameter dictionary (numpy arrays or tensors; see
     ``repro_torch.convert.from_jax``). ``filter_index`` (a
     ``CSRFilterIndex`` or the dict form) enables ``filtered=True``;
-    ``cache_size`` bounds the head-embedding LRU (0 disables it). Runs on
-    ``device`` (default ``cuda``)."""
+    ``cache_size`` bounds the head-embedding LRU (0 disables it).
+    ``table_dtype="int8"`` keeps only row-wise int8 codes and fp32 scales
+    on the device. Runs on ``device`` (default ``cuda``)."""
 
     def __init__(self, entity_emb, decoder_params,
                  decoder: Union[str, Decoder] = "distmult", *,
@@ -71,21 +77,27 @@ class ShardedKGEServer:
         if table_dtype not in TABLE_DTYPES:
             raise ValueError(
                 f"table_dtype={table_dtype!r} not in {TABLE_DTYPES}")
-        if table_dtype != "fp32":
-            raise not_ported("table_dtype='int8'", "int8")
         self.device = resolve_device(device)
         self.decoder = get_decoder(decoder)
         self.table_dtype = table_dtype
         emb = torch.as_tensor(entity_emb, dtype=torch.float32)
         self.num_entities, self.dim = emb.shape
         self.layout = ShardedTableLayout(self.num_entities, num_shards)
-        self.table = shard_table(emb.to(self.device, copy=True), self.layout)
         self.params = {name: torch.as_tensor(p).to(self.device, copy=True)
                        for name, p in decoder_params.items()}
         self.filter_index = filter_index
-        self._prepared = [
-            self.decoder.prepare_candidates(self.params, self.table[s])
-            for s in range(self.layout.num_shards)]
+        if table_dtype == "int8":
+            # only codes and scales are kept; candidates are prepared per
+            # request from one dequantized shard block at a time
+            self.table = quantize_rows(shard_table(emb.to(self.device),
+                                                   self.layout))
+            self._prepared = None
+        else:
+            self.table = shard_table(emb.to(self.device, copy=True),
+                                     self.layout)
+            self._prepared = [
+                self.decoder.prepare_candidates(self.params, self.table[s])
+                for s in range(self.layout.num_shards)]
         # per-shard base bias: -inf on layout-padded tail columns, 0 on
         # real rows — shared by every unfiltered batch
         rows = self.layout.rows_per_shard
@@ -103,17 +115,25 @@ class ShardedKGEServer:
         self.cache_hits = 0
         self.cache_misses = 0
 
+    @property
+    def table_bytes(self) -> int:
+        """Device bytes of the stored table: the ``(S, rows, d)`` fp32
+        stack, or int8 codes plus fp32 scales."""
+        parts = self.table if isinstance(self.table, tuple) else (
+            self.table,)
+        return sum(t.numel() * t.element_size() for t in parts)
+
     # ------------------------------------------------------------------ #
     # head-embedding fetch (sharded gather + optional LRU)
     # ------------------------------------------------------------------ #
     def head_embeddings(self, heads: np.ndarray) -> torch.Tensor:
-        """``(B, d)`` head rows via the sharded gather — bitwise the dense
-        ``emb[heads]`` rows. With ``cache_size > 0`` only cache misses
+        """``(B, d)`` head rows via the sharded gather (the dequantizing
+        one for int8) — bitwise the dense ``emb[heads]`` rows. With ``cache_size > 0`` only cache misses
         touch the gather (deduplicated and bucket-padded)."""
         heads = np.asarray(heads, np.int64)
         if self._cache_size <= 0:
             li, ow = plan_local_gather(self.layout, heads)
-            return sharded_gather(self.table, li, ow)
+            return table_rows(self.table, li, ow)
         uniq = np.unique(heads)
         missing = np.array([e for e in uniq if int(e) not in self._cache],
                            np.int64)
@@ -121,7 +141,7 @@ class ShardedKGEServer:
         self.cache_misses += len(missing)
         if len(missing):
             li, ow, inv = plan_unique_gather(self.layout, missing)
-            rows = sharded_gather(self.table, li, ow, inverse=inv)
+            rows = table_rows(self.table, li, ow, inverse=inv)
             for e, row in zip(missing, rows.cpu().numpy()):
                 self._cache[int(e)] = row
         for e in uniq:                       # LRU touch, then evict
@@ -134,7 +154,7 @@ class ShardedKGEServer:
         if any(v is None for v in rows_by_id.values()):
             # batch larger than the cache: gather the batch directly
             li, ow = plan_local_gather(self.layout, heads)
-            return sharded_gather(self.table, li, ow)
+            return table_rows(self.table, li, ow)
         host = np.stack([rows_by_id[int(e)] for e in heads])
         return torch.from_numpy(host).to(self.device)
 
@@ -193,9 +213,11 @@ class ShardedKGEServer:
         kp = min(k, rows)    # per-shard k': enough for any global winner
         vals_parts, ids_parts = [], []
         for s in range(self.layout.num_shards):
-            scores = shard_scores(self.decoder, self.params, self.table[s],
-                                  q, q_bias, bias[s],
-                                  prepared=self._prepared[s])
+            scores = shard_scores(self.decoder, self.params,
+                                  table_block(self.table, s), q, q_bias,
+                                  bias[s],
+                                  prepared=None if self._prepared is None
+                                  else self._prepared[s])
             v, i = topk_padded(scores, kp)
             vals_parts.append(v)
             ids_parts.append(i + s * rows)   # local → global id

@@ -22,16 +22,29 @@ exchange (port of the single-device part of
   ``table[ids]`` gather, and their gradients bitwise the dense gather's:
   every backward is ``scatter_add_onehot`` over the same slots in the
   same order.
+* ``QuantizedTableLayout`` / ``quantize_rows`` / ``dequantize_rows`` —
+  the int8 table (``table_dtype="int8"``): int8 codes in ``[-127, 127]``
+  plus one fp32 scale per row, the smallest power of two ``>= amax / 127``
+  over the whole fp32 range, subnormals included (exactly 0 for an
+  all-zero row). ``codes = rint(x / scale)`` is then an exact division and
+  ``codes · scale`` an exact product, so quantization is idempotent, the
+  round-trip error is at most ``scale / 2`` per element, and dequantizing
+  commutes bitwise with every gather. Serving and ranking keep only codes
+  and scales (``sharded_dequant_gather``); training keeps the fp32 master
+  and gathers through the straight-through
+  ``kernels.ops.quantized_sharded_gather``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 TABLE_DTYPES = ("fp32", "int8")
+INT8_QMAX = 127          # symmetric code range [-127, 127]
+_MIN_SCALE_EXP = -149    # exponent of the smallest positive fp32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,12 +68,119 @@ class ShardedTableLayout:
     def padded_rows(self) -> int:
         return self.num_shards * self.rows_per_shard
 
+    def bytes_per_shard(self, dim: int, itemsize: int = 4) -> int:
+        """One shard's table bytes, the quantity sharding shrinks."""
+        return self.rows_per_shard * dim * itemsize
+
     def shard_row_span(self, shard: int) -> Tuple[int, int]:
         """Global row range ``[lo, hi)`` of the REAL rows shard ``shard``
         stores — ``hi - lo < rows_per_shard`` on ragged tail shards, whose
         remaining local rows are layout padding (scored ``-inf``)."""
         lo = shard * self.rows_per_shard
         return lo, max(lo, min(self.num_rows, lo + self.rows_per_shard))
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedTableLayout(ShardedTableLayout):
+    """The int8 table's layout: the same row blocks as
+    :class:`ShardedTableLayout`, but a shard holds ``(rows, d)`` int8 codes
+    plus ``(rows,)`` fp32 scales, ``(d + 4) / (4 d)`` of the fp32 bytes."""
+
+    def bytes_per_shard(self, dim: int, itemsize: int = 1) -> int:
+        """int8 codes (``itemsize=1``) plus one fp32 scale per row."""
+        return self.rows_per_shard * (dim * itemsize + 4)
+
+
+# ---------------------------------------------------------------------- #
+# Row-wise symmetric int8 quantization (power-of-two scales)
+# ---------------------------------------------------------------------- #
+def _bit_length(m: torch.Tensor) -> torch.Tensor:
+    """Bits of each non-negative int64 below ``2^32`` (0 for 0), by binary
+    search on shifts."""
+    n = torch.zeros_like(m)
+    for s in (16, 8, 4, 2, 1):
+        big = m >= (1 << s)
+        n = n + torch.where(big, s, 0)
+        m = torch.where(big, m >> s, m)
+    return n + (m > 0).long()
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """``2^e`` for non-negative int64 exponents, by a shift."""
+    return torch.ones_like(e) << e
+
+
+def _int_mantissa(mag: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(M, E)`` with ``|x| = M · 2^E`` in integers, for the int64 bit
+    patterns ``mag`` of non-negative fp32 values (``M`` carries the
+    implicit bit of a normal value)."""
+    e, m = mag >> 23, mag & 0x7FFFFF
+    return (torch.where(e == 0, m, m | (1 << 23)),
+            torch.where(e == 0, -149, e - 150))
+
+
+def quantize_rows(table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise symmetric int8 quantization: ``(..., rows, d)`` fp32 →
+    ``(codes (..., rows, d) int8, scales (..., rows) f32)`` on the table's
+    device, bitwise the reference's ``quantize_rows``.
+
+    Integer arithmetic on the fp32 bit patterns throughout, so no float
+    operation ever touches a subnormal and the result does not depend on
+    a device's flush-to-zero mode. Per row, with ``amax = M · 2^E`` (``M``
+    the integer mantissa, implicit bit included, of bit length ``L``) and
+    ``p = E + L - 1``: ``127 · 2^(p-6) >= amax`` iff ``64 M <= 127 ·
+    2^(L-1)``, so the scale exponent is ``p - 6`` or ``p - 5``, clamped to
+    ``[-149, 127]``. Each code is ``rint(|x| / 2^k)`` by shifting the
+    element's integer mantissa, rounding half to even."""
+    bits = table.float().contiguous().view(torch.int32).long()
+    mag = bits & 0x7FFFFFFF
+    # for non-negative fp32 the bit pattern orders like the value
+    amax = mag.amax(dim=-1) if mag.shape[-1] else torch.zeros(
+        mag.shape[:-1], dtype=torch.int64, device=mag.device)
+    big_m, big_e = _int_mantissa(amax)
+    length = _bit_length(big_m)
+    p = big_e + length - 1
+    fits = 64 * big_m <= 127 * _pow2(torch.clamp_min(length - 1, 0))
+    k = torch.clamp(torch.where(fits, p - 6, p - 5), _MIN_SCALE_EXP, 127)
+    scale_bits = torch.where(k >= -126, (k + 127) << 23,
+                             _pow2(torch.clamp(k + 149, 0, 22)))
+    scale_bits = torch.where(amax > 0, scale_bits, 0)
+    scales = scale_bits.int().view(torch.float32)
+    # each element |x| = M · 2^E; its code magnitude rint(M · 2^(E - k))
+    # is at most 127, so a left shift is at most 7 and a right shift past
+    # 25 leaves less than a half
+    elem_m, elem_e = _int_mantissa(mag)
+    shift = elem_e - k[..., None]
+    left = elem_m << torch.clamp(shift, 0, 7)
+    t = torch.clamp(-shift, 1, 25)
+    floor = elem_m >> t
+    rem = elem_m & (_pow2(t) - 1)
+    half = _pow2(t - 1)
+    up = (rem > half) | ((rem == half) & ((floor & 1) == 1))
+    code = torch.where(shift >= 0, left, floor + up.long())
+    codes = torch.clamp(torch.where(bits < 0, -code, code), -INT8_QMAX,
+                        INT8_QMAX).to(torch.int8)
+    return codes, scales
+
+
+def dequantize_rows(codes: torch.Tensor,
+                    scales: torch.Tensor) -> torch.Tensor:
+    """``codes (..., rows, d) int8 × scales (..., rows) f32 → fp32``, one
+    exact power-of-two product per element."""
+    return codes.float() * scales[..., None]
+
+
+def quantize_table(table: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A stacked ``(S, rows, d)`` (or dense ``(V, d)``) fp32 table → the
+    ``{"codes", "scales"}`` form of the reference's checkpoints and
+    servers."""
+    codes, scales = quantize_rows(table)
+    return {"codes": codes, "scales": scales}
+
+
+def dequantize_table(quantized: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Inverse of :func:`quantize_table` (same stacked or dense shape)."""
+    return dequantize_rows(quantized["codes"], quantized["scales"])
 
 
 def shard_table(table: torch.Tensor,
@@ -186,9 +306,30 @@ class ShardedGatherPlan:
 SIM_EXCHANGES = ("fused", "masked_sum")
 
 
+def sharded_dequant_gather(codes: torch.Tensor, scales: torch.Tensor,
+                           local_ids, owned, *, inverse=None,
+                           check: bool = True) -> torch.Tensor:
+    """Gather ``(V, d)`` fp32 rows straight from a quantized stack
+    (``codes (S, rows, d)`` int8, ``scales (S, rows)`` f32) with an
+    ``(S, V)`` plan, the dequantization fused into the gather
+    (``kernels.ops.dequant_sharded_gather``): the serving and ranking
+    path, where only codes and scales live on the device. Bitwise the
+    dense gather of the dequantized table. No gradient. ``inverse``
+    expands a deduplicated plan's rows back to batch slots."""
+    from repro_torch.kernels.ops import dequant_sharded_gather
+
+    out = dequant_sharded_gather(codes, scales, torch.as_tensor(local_ids),
+                                 torch.as_tensor(owned), check=check)
+    if inverse is None:
+        return out
+    return torch.index_select(
+        out, 0, torch.as_tensor(inverse).to(out.device).long())
+
+
 def sharded_gather(table: torch.Tensor, local_ids, owned, *,
                    exchange: Optional[str] = None,
-                   inverse=None, check: bool = True) -> torch.Tensor:
+                   inverse=None, check: bool = True,
+                   table_dtype: str = "fp32") -> torch.Tensor:
     """Gather ``(V, d)`` rows from the ``(S, rows, d)`` stack with an
     ``(S, V)`` plan (numpy arrays or tensors), bitwise the dense
     ``table[ids]`` gather, differentiable in ``table``.
@@ -198,18 +339,32 @@ def sharded_gather(table: torch.Tensor, local_ids, owned, *,
     results. ``inverse`` (from a deduplicated plan) expands the gathered
     unique rows back to batch slots after the exchange, through
     ``gather_rows``. ``check`` as in ``kernels.sharded_gather.fused_gather``:
-    the training path passes ``False`` and checks once per step."""
+    the training path passes ``False`` and checks once per step.
+
+    ``table_dtype="int8"`` keeps ``table`` the fp32 master and gathers
+    through the straight-through ``kernels.ops.quantized_sharded_gather``
+    (quantize the master, then the fused dequantizing gather; the backward
+    is the fp32 path's scatter-add), so master gradients are bitwise the
+    fp32 path's on the dequantized master. Both exchanges coincide for
+    int8: a masked-sum chain through the quantizer would have no gradient
+    through ``rint``."""
     from repro_torch.kernels.ops import (
         fused_sharded_gather, gather_rows, masked_take,
+        quantized_sharded_gather,
     )
 
+    if table_dtype not in TABLE_DTYPES:
+        raise ValueError(
+            f"unknown table_dtype {table_dtype!r}: one of {TABLE_DTYPES}")
     exchange = exchange or "fused"
     if exchange not in SIM_EXCHANGES:
         raise ValueError(
             f"unknown sim exchange {exchange!r}: one of {SIM_EXCHANGES}")
     # a plan is resolved where it lies (the host, for numpy plans)
     local_ids, owned = torch.as_tensor(local_ids), torch.as_tensor(owned)
-    if exchange == "fused":
+    if table_dtype == "int8":
+        out = quantized_sharded_gather(table, local_ids, owned, check=check)
+    elif exchange == "fused":
         out = fused_sharded_gather(table, local_ids, owned, check=check)
     else:
         local_ids = local_ids.to(table.device)

@@ -8,7 +8,7 @@ into the global embedding matrix. Core vertices carry their full
 invariant), so the streamed embeddings equal a full-graph encode. With a
 row-sharded entity table the encoder gathers through the in-graph plan.
 Ranking then goes through ``repro_torch.eval.ranking``: dense, or sharded
-over the table's row blocks when the table is sharded.
+over the table's row blocks when the table is sharded or int8.
 """
 from __future__ import annotations
 
@@ -81,16 +81,18 @@ def evaluate_split(
 ) -> Dict[str, float]:
     """Filtered MRR / Hits@k on ``split`` (both directions, paper
     protocol), keys prefixed with the split's name; with a row-sharded
-    entity table the ranking is sharded over its row blocks."""
+    entity table the ranking is sharded over its row blocks, and with an
+    int8 table it ranks over the quantized embeddings."""
     emb = encode_all_entities(
         params, kge_cfg, splits["train"].with_inverse_relations(), num_hops,
         features=features, partitions=partitions, padded=padded)
     decoder_params = {k: v.detach() for k, v in params["decoder"].items()}
+    learned = kge_cfg.rgcn.feature_dim is None
     metrics = evaluate_both_directions(
         emb, decoder_params, splits[split],
         [splits["train"], splits["valid"], splits["test"]],
         num_relations_base=splits["train"].num_relations, decoder=decoder,
-        num_shards=(kge_cfg.num_table_shards
-                    if kge_cfg.rgcn.feature_dim is None else 1),
+        num_shards=kge_cfg.num_table_shards if learned else 1,
+        table_dtype=kge_cfg.rgcn.table_dtype if learned else "fp32",
         device=emb.device)
     return {f"{split}_{k}": v for k, v in metrics.items()}

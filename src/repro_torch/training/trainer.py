@@ -36,7 +36,7 @@ from repro_torch.models.kge import (
 )
 from repro_torch.models.rgcn import RGCNConfig
 from repro_torch.roadmap import not_ported
-from repro_torch.sharding.embedding import SIM_EXCHANGES
+from repro_torch.sharding.embedding import SIM_EXCHANGES, TABLE_DTYPES
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training.distributed import (
     make_simulated_train_step, trainer_generators,
@@ -75,7 +75,9 @@ class TrainConfig:
     sharded_transfer: bool = False
     gather_dedup: bool = False          # dedupe mini-batch gather plans
     gather_exchange: Optional[str] = None  # "fused" (default) | "masked_sum"
-    table_dtype: str = "fp32"
+    table_dtype: str = "fp32"           # "fp32" | "int8": int8 keeps the
+    #   fp32 master for Adam; every entity-table gather quantizes it and
+    #   runs the fused dequantizing gather, with a straight-through backward
     spmd: Optional[bool] = None         # None/False: the simulated step
 
 
@@ -83,8 +85,6 @@ def check_ported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for every option the port has not
     reached, and ``ValueError`` for an exchange the simulated step does
     not have (the reference's check)."""
-    if cfg.table_dtype != "fp32":
-        raise not_ported(f"table_dtype={cfg.table_dtype!r}", "int8")
     if cfg.spmd:
         raise not_ported("spmd=True (the shard_map step)", "spmd")
     if cfg.sharded_transfer:
@@ -117,6 +117,13 @@ class KGETrainer:
             raise ValueError(
                 "num_table_shards > 1 requires learned entity embeddings "
                 "(feature-mode models have no table to shard)")
+        if cfg.table_dtype not in TABLE_DTYPES:
+            raise ValueError(
+                f"table_dtype={cfg.table_dtype!r} not in {TABLE_DTYPES}")
+        if cfg.table_dtype == "int8" and feat is not None:
+            raise ValueError(
+                "table_dtype='int8' requires learned entity embeddings "
+                "(feature-mode models have no table to quantize)")
 
         # ---- offline preprocessing (paper §3.2) ----
         self.pre: PreprocessedGraph = preprocess_graph(
@@ -139,6 +146,7 @@ class KGETrainer:
                 use_kernel=cfg.use_kernel,
                 num_table_shards=cfg.num_table_shards,
                 gather_exchange=cfg.gather_exchange,
+                table_dtype=cfg.table_dtype,
             ),
             decoder=cfg.decoder,
             num_negatives=cfg.num_negatives,
@@ -279,7 +287,8 @@ class KGETrainer:
     def evaluate(self, split: str = "test") -> Dict[str, float]:
         """Filtered MRR / Hits@k on ``split``: streamed partition encoding,
         then ranking through the ``kge_score`` kernel, dense or (with a
-        sharded table) one block per shard with the counts summed."""
+        sharded or int8 table) one block per shard with the counts
+        summed."""
         return evaluate_split(
             self.params, self.kge_cfg, self.splits, split,
             self.cfg.num_hops, self.cfg.decoder, features=self.features,

@@ -295,6 +295,57 @@ def test_trainer_trajectory_near_reference(splits):
                                    err_msg=name, **LOSS_TOL)
 
 
+def test_int8_trainer_trajectory_near_reference(splits):
+    """``table_dtype="int8"`` mini-batch training (batch 64, 2 table
+    shards): with and without plan dedup the port's per-step losses and
+    final parameters are bitwise equal, and within ``rtol=1e-3,
+    atol=1e-4`` of ``repro.KGETrainer(table_dtype="int8")``'s."""
+    jsplits = j_synthetic_fb15k(scale=0.01, seed=3)
+    kw = dict(MB, dropout=0.0, num_table_shards=2, table_dtype="int8")
+    jtr = JKGETrainer(jsplits, JTrainConfig(**kw))
+    start = jax.tree_util.tree_map(np.array, jtr.params)    # copies
+    jhist = jtr.fit()
+    jtr.close()
+    runs = []
+    for dedup in (False, True):
+        tr = KGETrainer(splits, TrainConfig(**kw, gather_dedup=dedup),
+                        device="cpu")
+        tr.params = convert.kge_model_from_jax(start, tr.kge_cfg,
+                                               device="cpu")
+        tr.opt_state = tr.optimizer.init(
+            {n: p.detach() for n, p in tr.params.named_parameters()})
+        runs.append((tr, tr.fit()))
+        tr.close()
+    (tr, hist), (tr_d, hist_d) = runs
+    assert [h["losses"] for h in hist] == [h["losses"] for h in hist_d]
+    for (n, a), (_, b) in zip(tr.params.named_parameters(),
+                              tr_d.params.named_parameters()):
+        assert torch.equal(a, b), n
+    np.testing.assert_allclose([h["loss"] for h in hist],
+                               [h["loss"] for h in jhist], **LOSS_TOL)
+    want = convert.flatten_tree(jax.tree_util.tree_map(np.asarray,
+                                                       jtr.params))
+    for name, p in tr.params.named_parameters():
+        assert not np.allclose(p.detach().numpy(),
+                               convert.flatten_tree(start)[name],
+                               **LOSS_TOL), name
+        np.testing.assert_allclose(p.detach().numpy(), want[name],
+                                   err_msg=name, **LOSS_TOL)
+
+
+def test_int8_trainer_losses_bitwise_across_table_shards(splits):
+    """Int8 at 1 and 2 table shards: the same per-step losses and entity
+    table, bitwise (a dense master is gathered as a one-shard stack)."""
+    runs = {s: _fit(splits, num_table_shards=s, table_dtype="int8")
+            for s in (1, 2)}
+    (tr1, l1), (tr2, l2) = runs[1], runs[2]
+    assert l1 == l2
+    n = tr1.train_kg.num_entities
+    assert torch.equal(tr1.params.entity_embedding,
+                       unshard_table(tr2.params.entity_embedding, n))
+    assert tr1.evaluate("valid") == tr2.evaluate("valid")
+
+
 def test_feature_mode_rejects_sharding():
     from repro_torch.data import synthetic_citation2
     splits = synthetic_citation2(scale=0.0003, seed=0)

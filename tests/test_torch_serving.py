@@ -13,6 +13,11 @@ through cos/sin of a random phase, which XLA and PyTorch may round a unit
 apart; its scores are compared within ``rtol = atol = 1e-5`` (a few fp32
 ulps of the O(1) distances, propagated through the norm expansion), and
 its indices must still be ``==``.
+
+The int8 server is fed a table of multiples of 1/256 that quantization
+rounds (to multiples of 1/64 and finer), so the int8 answers differ from
+the fp32 ones; the dequantized values and the 1/8 relation tables still
+keep every product and sum exact, so the same gates hold.
 """
 import ast
 import os
@@ -34,7 +39,7 @@ from repro.serving import ShardedKGEServer as JServer
 from repro.sharding.embedding import ShardedTableLayout as JLayout
 from repro.sharding.embedding import plan_unique_gather as j_plan_unique
 from repro.sharding.embedding import shard_table as j_shard_table
-from repro_torch.convert import from_jax
+from repro_torch.convert import from_jax, quantized_table_from_jax
 from repro_torch.core.graph import KnowledgeGraph
 from repro_torch.eval.ranking import CSRFilterIndex, build_filter_index
 from repro_torch.eval.sharded import shard_filter_bias_block
@@ -43,7 +48,8 @@ from repro_torch.models.decoders import (
 )
 from repro_torch.serving import KGEServeEngine, ShardedKGEServer
 from repro_torch.sharding.embedding import (
-    ShardedTableLayout, plan_unique_gather, shard_table, unshard_table,
+    ShardedTableLayout, dequantize_rows, plan_unique_gather, quantize_rows,
+    shard_table, unshard_table,
 )
 
 N_ENT, DIM, N_REL = 57, 8, 3
@@ -154,6 +160,84 @@ def test_sharded_server_equals_jax_server(emb, graph_arrays, decoder, shards,
         np.testing.assert_allclose(gv, jv, rtol=1e-5, atol=1e-5)
     else:
         assert np.array_equal(gv, jv)
+
+
+@pytest.fixture(scope="module")
+def emb8():
+    """A table that int8 quantization rounds: multiples of 1/256 up to
+    about 1.2 in magnitude, rows of different ranges, and duplicate rows
+    for exact ties."""
+    rng = np.random.default_rng(8)
+    e = (rng.integers(-300, 301, (N_ENT, DIM)) / 256.0).astype(np.float32)
+    e[::3] /= 8                      # smaller rows take smaller scales
+    e[7] = e[19]
+    e[40] = e[19]
+    return e
+
+
+_JAX_INT8_SERVERS: dict = {}
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("decoder", registered_decoders())
+def test_int8_server_equals_jax_server(emb8, graph_arrays, decoder, shards,
+                                       filtered):
+    """``table_dtype="int8"``: indices ``==`` the JAX int8 server's for
+    every decoder, shard count and filter mode (duplicate heads
+    included); scores ``==`` (RotatE: within the stated tolerance)."""
+    key = (decoder, shards)
+    if key not in _JAX_INT8_SERVERS:
+        _JAX_INT8_SERVERS[key] = JServer(
+            emb8, {n: jnp.asarray(v) for n, v in params_for(decoder).items()},
+            decoder, num_shards=shards,
+            filter_index=JCSR.build([jax_graph(graph_arrays)]),
+            table_dtype="int8")
+    jsrv = _JAX_INT8_SERVERS[key]
+    jv, ji = jsrv.topk_tails(HEADS, RELS, 11, filtered=filtered)
+    srv = port_server(emb8, params_for(decoder), decoder, num_shards=shards,
+                      filter_index=CSRFilterIndex.build(
+                          [port_graph(graph_arrays)]), table_dtype="int8")
+    gv, gi = srv.topk_tails(HEADS, RELS, 11, filtered=filtered)
+    # the device holds the reference's codes and scales, bit for bit
+    codes, scales = quantized_table_from_jax(
+        {"codes": jsrv.table[0], "scales": jsrv.table[1]}, device="cpu")
+    assert torch.equal(srv.table[0], codes)
+    assert torch.equal(srv.table[1].view(torch.int32),
+                       scales.view(torch.int32))
+    assert np.array_equal(gi, ji)
+    if decoder == "rotate":
+        np.testing.assert_allclose(gv, jv, rtol=1e-5, atol=1e-5)
+    else:
+        assert np.array_equal(gv, jv)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_int8_server_equals_dense_over_dequantized(emb8, graph_arrays,
+                                                   shards):
+    """Int8 serving == the dense top-k over the dequantized table (through
+    the head cache too), and the table takes (d + 4) / (4 d) of the fp32
+    bytes."""
+    p = params_for("transe", 2)
+    dq = dequantize_rows(*quantize_rows(torch.from_numpy(emb8))).numpy()
+    assert not np.array_equal(dq, emb8)
+    heads, rels = np.array([0, 3, 7, 19, 19]), np.array([0, 1, 2, 2, 0])
+    csr = CSRFilterIndex.build([port_graph(graph_arrays)])
+    for filtered in (False, True):
+        dv, di = dense_topk(dq, p, "transe", heads, rels, 9,
+                            JCSR.build([jax_graph(graph_arrays)])
+                            if filtered else None)
+        for cache in (0, 4):
+            srv = port_server(emb8, p, "transe", num_shards=shards,
+                              filter_index=csr, cache_size=cache,
+                              table_dtype="int8")
+            for _ in range(2):            # the second round hits the cache
+                sv, si = srv.topk_tails(heads, rels, 9, filtered=filtered)
+                assert np.array_equal(si, di) and np.array_equal(sv, dv)
+    rows = srv.layout.rows_per_shard
+    assert srv.table_bytes == shards * rows * (DIM + 4)
+    fp32 = port_server(emb8, p, "transe", num_shards=shards)
+    assert fp32.table_bytes == shards * rows * DIM * 4
 
 
 @pytest.mark.parametrize("shards", [1, 2, 4])
@@ -276,17 +360,22 @@ def test_from_jax_checks_shapes_and_dtypes(emb):
 # server and engine behaviour (mirrors tests/test_serving.py)
 # ---------------------------------------------------------------------- #
 def test_k_clamps_to_vocab_and_int8_raises(emb):
-    srv = port_server(emb, params_for("distmult"), "distmult", num_shards=2)
-    sv, si = srv.topk_tails(np.array([0]), np.array([0]), k=10 * N_ENT)
-    assert si.shape == (1, N_ENT)
-    assert sorted(si[0].tolist()) == list(range(N_ENT))
-    with pytest.raises(ValueError):
-        srv.topk_tails(np.array([0]), np.array([0]), k=0)
-    with pytest.raises(ValueError):
-        srv.topk_tails(np.array([0]), np.array([0]), filtered=True)
-    with pytest.raises(NotImplementedError):
+    """k clamps to the vocabulary and bad arguments raise, for the fp32 and
+    (ported since) the int8 table; an unknown table dtype raises."""
+    for dtype in ("fp32", "int8"):
+        srv = port_server(emb, params_for("distmult"), "distmult",
+                          num_shards=2, table_dtype=dtype)
+        sv, si = srv.topk_tails(np.array([0]), np.array([0]), k=10 * N_ENT)
+        assert si.shape == (1, N_ENT)
+        assert sorted(si[0].tolist()) == list(range(N_ENT))
+        with pytest.raises(ValueError):
+            srv.topk_tails(np.array([0]), np.array([0]), k=0)
+        with pytest.raises(ValueError):
+            srv.topk_tails(np.array([0]), np.array([0]), filtered=True)
+    assert srv.table[0].dtype == torch.int8
+    with pytest.raises(ValueError, match="table_dtype"):
         port_server(emb, params_for("distmult"), "distmult",
-                    table_dtype="int8")
+                    table_dtype="int4")
 
 
 def test_filtered_masks_all_known_tails(emb, graph_arrays):
@@ -379,13 +468,17 @@ def test_serve_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_jax(np.zeros((4, 2), np.float32),
                  {"rel_diag": np.zeros((1, 2), np.float32)})
-    with pytest.raises(NotImplementedError):
-        serve.main(SMALL + ["--device", "cpu", "--table-dtype", "int8"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(SMALL + ["--table-dtype", "int8"])
+    # on the CPU the int8 server runs and passes its equality check
+    assert serve.run(serve.parse_args(
+        SMALL + ["--device", "cpu", "--table-dtype", "int8"]))["equal_dense"]
 
 
 @pytest.mark.parametrize("decoder,flags", [
     ("distmult", []), ("transe", ["--filtered"]),
-    ("rotate", ["--filtered", "--policy", "smallest-k-first"])])
+    ("rotate", ["--filtered", "--policy", "smallest-k-first"]),
+    ("complex", ["--filtered", "--table-dtype", "int8"])])
 def test_serve_cli_on_cpu_passes_its_equality_check(decoder, flags, capsys):
     from repro_torch.launch import serve
     serve.main(SMALL + ["--device", "cpu", "--decoder", decoder] + flags)

@@ -319,6 +319,62 @@ def test_sharded_ranking_equals_dense_and_reference(decoder, s):
     assert got == want
 
 
+def lossy(rng, shape):
+    """Multiples of 1/256 that int8 quantization rounds; the dequantized
+    values times the 1/8 relation tables keep every score exact."""
+    return (rng.integers(-300, 301, shape) / 256.0).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def rank_splits():
+    from repro.data import synthetic_fb15k as j_synthetic_fb15k
+    from repro.eval.ranking import CSRFilterIndex as JIndex
+    from repro_torch.data import synthetic_fb15k
+    splits = synthetic_fb15k(scale=0.01, seed=5)
+    jsplits = j_synthetic_fb15k(scale=0.01, seed=5)
+    fidx = ranking.CSRFilterIndex.build(
+        [splits[k].with_inverse_relations()
+         for k in ("train", "valid", "test")])
+    jfidx = JIndex.build([jsplits[k].with_inverse_relations()
+                          for k in ("train", "valid", "test")])
+    return splits, fidx, jsplits, jfidx
+
+
+@pytest.mark.parametrize("decoder", ["distmult", "transe"])
+@pytest.mark.parametrize("s", [1, 2, 4])
+def test_int8_ranking_equals_reference(rank_splits, decoder, s):
+    """Int8 filtered metrics ``==`` the reference's int8 sharded ranking
+    from the same embeddings, and ``==`` at every shard count."""
+    splits, fidx, jsplits, jfidx = rank_splits
+    rng = np.random.default_rng(10 + s)
+    n, r = splits["train"].num_entities, splits["train"].num_relations
+    emb = lossy(rng, (n, 8))
+    emb[::4] /= 16
+    emb[7] = emb[3]                         # exact ties
+    dparams = {("rel_diag" if decoder == "distmult" else "rel_vec"):
+               grid(rng, (2 * r, 8))}
+    test = splits["test"].triplets()
+    got = ranking.ranking_metrics(emb, dparams, test, fidx, num_shards=s,
+                                  decoder=decoder, table_dtype="int8",
+                                  device="cpu")
+    want = j_sharded_metrics(emb, dparams, jsplits["test"].triplets(),
+                             jfidx, s, decoder=decoder, interpret=True,
+                             table_dtype="int8")
+    assert got == want
+    for other in (1, 4):
+        assert sharded_ranking_metrics(
+            emb, dparams, test, fidx, other, decoder=decoder,
+            table_dtype="int8", device="cpu") == got
+    # == the fp32 ranking of the dequantized table
+    from repro_torch.sharding import dequantize_rows, quantize_rows
+    dq = dequantize_rows(*quantize_rows(torch.from_numpy(emb)))
+    assert ranking.ranking_metrics(dq, dparams, test, fidx, decoder=decoder,
+                                   device="cpu") == got
+    with pytest.raises(ValueError, match="table_dtype"):
+        sharded_ranking_metrics(emb, dparams, test, fidx, s,
+                                table_dtype="int4", device="cpu")
+
+
 def test_sharded_model_round_trips_through_convert():
     from repro.models.kge import KGEConfig as JKGEConfig
     from repro.models.kge import init_kge_params as j_init

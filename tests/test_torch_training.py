@@ -70,13 +70,12 @@ def jax_negatives(jtr, epoch):
     return out
 
 
-@pytest.fixture(scope="module")
-def trained():
+def train_both(**extra):
     """Both trainers after 3 epochs from the same start and negatives."""
     splits = synthetic_fb15k(scale=0.01, seed=3)
     jsplits = j_synthetic_fb15k(scale=0.01, seed=3)
     kw = dict(num_trainers=2, epochs=3, hidden_dim=16, learning_rate=0.05,
-              use_kernel=True, dropout=0.0)
+              use_kernel=True, dropout=0.0, **extra)
     jtr = JKGETrainer(jsplits, JTrainConfig(**kw))
     tr = KGETrainer(splits, TrainConfig(**kw), device="cpu")
     tr.params = convert.kge_model_from_jax(host_tree(jtr.params),
@@ -95,6 +94,26 @@ def trained():
     assert not draws
     jhist = jtr.fit()
     return tr, jtr, hist, jhist
+
+
+@pytest.fixture(scope="module")
+def trained():
+    return train_both()
+
+
+def test_int8_trainer_losses_and_params_match_reference():
+    """``table_dtype="int8"`` full-graph training: the same gate as the
+    fp32 trainer's against ``repro.KGETrainer(table_dtype="int8")``."""
+    tr, jtr, hist, jhist = train_both(table_dtype="int8")
+    assert tr.kge_cfg.rgcn.table_dtype == "int8"
+    np.testing.assert_allclose([h["loss"] for h in hist],
+                               [h["loss"] for h in jhist], **LOSS_TOL)
+    want = convert.flatten_tree(host_tree(jtr.params))
+    for name, p in tr.params.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name],
+                                   err_msg=name, **LOSS_TOL)
+    assert set(tr.evaluate("valid")) == {"valid_mrr", "valid_hits@1",
+                                         "valid_hits@3", "valid_hits@10"}
 
 
 def test_trainer_losses_and_params_match_reference(trained):
@@ -165,6 +184,8 @@ def test_evaluate_reports_split_metrics(trained):
 
 
 def test_ranking_unported_protocols_raise():
+    """The candidate-list protocol still raises; int8 ranking (ported
+    since) ranks, exactly as the fp32 ranking of the dequantized table."""
     emb = np.zeros((4, 2), np.float32)
     trip = np.zeros((1, 3), np.int32)
     fidx = ranking.CSRFilterIndex.build([])
@@ -172,9 +193,16 @@ def test_ranking_unported_protocols_raise():
         ranking.ranking_metrics(emb, {"rel_diag": np.ones((1, 2))}, trip,
                                 fidx, candidates=np.zeros((1, 3)),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ranking.ranking_metrics(emb, {"rel_diag": np.ones((1, 2))}, trip,
-                                fidx, table_dtype="int8", device="cpu")
+    emb = np.random.default_rng(0).standard_normal((6, 2)).astype(
+        np.float32)
+    trip = np.array([[0, 0, 1], [2, 0, 5], [4, 0, 3]], np.int32)
+    params = {"rel_diag": np.ones((1, 2), np.float32)}
+    got = ranking.ranking_metrics(emb, params, trip, fidx,
+                                  table_dtype="int8", device="cpu")
+    from repro_torch.sharding import dequantize_rows, quantize_rows
+    dq = dequantize_rows(*quantize_rows(torch.from_numpy(emb)))
+    assert got == ranking.ranking_metrics(dq, params, trip, fidx,
+                                          device="cpu")
 
 
 def test_cli_runs_to_eval_line():
@@ -195,8 +223,19 @@ def test_cli_default_device_raises_without_cuda():
         train_cli.main(args)
 
 
+def test_cli_int8_runs_to_eval_line():
+    """``--table-dtype int8`` (full-graph) trains and ranks over the int8
+    table."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = train_cli.main(SMALL + ["--table-dtype", "int8"])
+    text = out.getvalue()
+    assert "int8 table" in text and "[eval]" in text and "test_mrr" in text
+    assert "1-shard ranking over the int8 table" in text
+    assert np.isfinite(res["history"][0]["loss"])
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["--table-dtype", "int8"], "item 3"),
     (["--spmd"], "item 2"),
     (["--sharded-transfer"], "item 2"),
     (["--arch", "rgcn-citation2"], "item 4"),
@@ -267,9 +306,23 @@ def test_full_graph_pipeline_copies_the_batch_once(trained):
 
 
 def test_trainer_unported_config_raises():
+    """spmd still raises; an int8 table (ported since) trains, with the
+    reference's errors for an unknown dtype and for feature mode."""
     splits = {"train": KnowledgeGraph(np.zeros(1), np.zeros(1), np.ones(1),
                                       2, 1)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        KGETrainer(splits, TrainConfig(table_dtype="int8"), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         KGETrainer(splits, TrainConfig(spmd=True), device="cpu")
+    with pytest.raises(ValueError, match="table_dtype='int4'"):
+        KGETrainer(splits, TrainConfig(table_dtype="int4"), device="cpu")
+    from repro_torch.data import synthetic_citation2
+    with pytest.raises(ValueError, match="learned entity embeddings"):
+        KGETrainer(synthetic_citation2(scale=0.0003, seed=0),
+                   TrainConfig(table_dtype="int8", batch_size=64),
+                   device="cpu")
+    tr = KGETrainer(synthetic_fb15k(scale=0.01, seed=3), TrainConfig(
+        num_trainers=2, epochs=1, hidden_dim=8, table_dtype="int8"),
+        device="cpu")
+    before = tr.params.entity_embedding.detach().clone()
+    rec = tr.train_epoch()
+    assert np.isfinite(rec["loss"]) and rec["num_batches"] == 1
+    assert not torch.equal(before, tr.params.entity_embedding)

@@ -5,11 +5,12 @@
 
 Phases, each of which fails the run on error:
 
-1. Build: compile the four CUDA sources from ``src/repro_torch/csrc`` with
+1. Build: compile the five CUDA sources from ``src/repro_torch/csrc`` with
    ``nvcc -Xptxas -v`` for ``sm_90a`` (one process per source, all at once).
-2. Kernel vs plain: each of the seven kernels against its plain PyTorch
+2. Kernel vs plain: each of the eight kernels against its plain PyTorch
    version on the card, with its time, its plain version's time, one
-   PyTorch library call's time and the least time the card could take:
+   PyTorch library call's time (where one computes the function) and the
+   least time the card could take:
    kge_score, topk and fused_gather at the serving shapes;
    fused_dequant_gather at the serving shapes over tables quantized on the
    card, and at the 4-shard mini-batch table gather (V = 17,200 into
@@ -28,7 +29,11 @@ Phases, each of which fails the run on error:
    slots unowned, one row hit by every slot, R not a multiple of 128,
    V = 0): within 2 gamma_n sum|g| of the plain version, rows no owned
    slot hits exactly 0, two runs bitwise equal, the 4-shard table gradient
-   bitwise the dense one.
+   bitwise the dense one; wkv_chunked at the rwkv6-3b prefill shape
+   (BH = 4 x 40 heads, S = 2,048, hd = chunk = 64) and at edge cases
+   (S ragged, BH = 1, S < chunk, chunk = 16, hd = 8, 16, 32) against the
+   plain chunked form and the sequential oracle: finite, two runs bitwise
+   equal, and a block above the card's shared memory refused.
 3. Serving, FB15k-237 width (N=14,541, R=474, d=75): 200 Zipf(1.3) requests
    through ``repro_torch.launch.serve`` with distmult and transe at 1 and 4
    table shards, filtered, cache 256, 8 slots, k=10; sharded == dense.
@@ -70,13 +75,26 @@ Phases, each of which fails the run on error:
    loss and gradients, the master table's included, are bitwise the fp32
    path's on the dequantized master; 4-shard int8 ranking == 1-shard int8
    ranking, and |MRR(int8) - MRR(fp32)| <= 0.02 on the same embeddings.
-7. Profile under ``torch.profiler``: steady serving steps of each serving
+7. Profile under ``torch.profiler``: one rwkv6-3b prefill (with the WKV
+   kernel's share of it) and one steady decode step; steady serving steps
+   of each serving
    configuration (int8 at 4 shards included), one steady full-graph step
    (kernel and plain encoder), one evaluation encode and one steady
    mini-batch step each of the fp32 and int8 tables: host time per step,
    the card's busy time, the idle share and the device operations that
    took the most time; and the async pipeline's exposed wait and overlap
    fraction over the mini-batch epoch.
+8. LM serving, rwkv6-3b at full width (run before phase 7's profiles):
+   fp32 weights from a CUDA generator, TF32 off. (a) ``make_prefill_step``
+   at B = 4, S = 2,048 with the WKV kernel against the plain chunked form
+   (last logits within LM_LOGIT_TOL), its time and model-FLOP rate; (b) a
+   64-token prompt through ``decode_step`` ends at the kernel prefill's
+   last logits, and a steady decode step's time against reading the
+   weights; (c) ``ServeEngine(slots=4, max_seq=64)`` answers 8 greedy
+   requests, all done and none truncated; (d) wkv_chunked launched 32
+   times per prefill forward and never while decoding. Cut against the
+   reference's ``prefill_32k`` shape: B = 4 (not 32), S = 2,048 (not
+   32,768); the model's depth and widths are whole.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -129,6 +147,26 @@ QUANT_MRR_DRIFT_LIMIT = 0.02
 LOSS_TOL = dict(rtol=1e-3, atol=1e-4)   # kernel vs plain per-epoch losses
 EMB_TOL = dict(rtol=1e-4, atol=1e-5)    # kernel vs plain encoder outputs
 
+# phase 8: rwkv6-3b at full width (configs/rwkv6_3b.py), cut against the
+# reference's prefill_32k shape (B = 32, S = 32,768; launch/specs.py:35) to
+# B = 4, S = 2,048: the full fp32 logits the prefill forms are then 2.1 GB
+# instead of 275 GB. Depth and widths are the model's own (32 layers).
+LM_ARCH, LM_B, LM_S = "rwkv6-3b", 4, 2048
+LM_DECODE_PROMPT = 64                      # phase 8b: tokens through decode
+LM_SERVE = dict(slots=4, max_seq=64, requests=8, max_prompt=16,
+                new_tokens=16)              # phase 8c
+# Last-position logits of two fp32 evaluations of the 32-layer stack that
+# differ only in summation order (the kernel's fmaf chains against cuBLAS's
+# blocking, or the chunked form against the per-token recurrence): each
+# layer meets the reference's own per-layer gate for these forms
+# (rtol=1e-3, tests/test_perf_variants.py:27-28) with a wide margin, and
+# the logits (|x| about 1) sit behind 32 such layers and the head.
+LM_LOGIT_TOL = dict(rtol=1e-3, atol=1e-3)
+# the WKV kernel against its sequential oracle: the reference's gate
+# (tests/test_kernels.py:186-187)
+WKV_TOL = dict(rtol=1e-4, atol=1e-4)
+WKV_ULPS_PER_STEP = 8    # against the plain chunked form: see check_wkv
+
 # each kernel's pallas_call in the JAX package
 REPLACES = {
     "kge_score": "src/repro/kernels/kge_score.py:95",
@@ -138,6 +176,7 @@ REPLACES = {
     "basis_message": "src/repro/kernels/rgcn_message.py:79",
     "segment_sum": "src/repro/kernels/rgcn_message.py:152",
     "scatter_add_onehot": "src/repro/kernels/sharded_gather.py:195",
+    "wkv_chunked": "src/repro/kernels/wkv_chunk.py:85",
 }
 SOURCES = {
     "kge_score": "src/repro_torch/csrc/kge_score.cu",
@@ -147,6 +186,7 @@ SOURCES = {
     "basis_message": "src/repro_torch/csrc/rgcn_message.cu",
     "segment_sum": "src/repro_torch/csrc/rgcn_message.cu",
     "scatter_add_onehot": "src/repro_torch/csrc/sharded_gather.cu",
+    "wkv_chunked": "src/repro_torch/csrc/wkv_chunk.cu",
 }
 SERVING_KERNELS = ("kge_score", "topk", "fused_gather")
 TRAINING_KERNELS = ("basis_message", "segment_sum", "scatter_add_onehot",
@@ -160,6 +200,18 @@ MINIBATCH_INT8_KERNELS = ("fused_dequant_gather", "scatter_add_onehot",
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def launch_counts():
+    """Each kernel wrapper's launch count."""
+    from repro_torch.kernels import KERNELS
+    return {n: w.launches for n, w in KERNELS.items()}
+
+
+def reset_counts():
+    from repro_torch.kernels import KERNELS
+    for w in KERNELS.values():
+        w.launches = 0
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -945,6 +997,295 @@ def check_scatter_add(dev, rng, mbs):
     return max_err, stats
 
 
+def wkv_inputs(dev, rng, bh, s, hd):
+    """r, k, v, log_decay, u on the card, drawn as the reference's kernel
+    tests draw them (tests/test_kernels.py:176-183)."""
+    import torch
+
+    def card(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    r, k, v = (card(rng.normal(size=(bh, s, hd)) * 0.5) for _ in range(3))
+    lw = card(-np.exp(rng.normal(size=(bh, s, hd)) * 0.3 - 3))
+    u = card(rng.normal(size=(bh, hd)) * 0.1)
+    return r, k, v, lw, u
+
+
+def wkv_ops(bh, s, hd, chunk):
+    """FLOP the chunked WKV needs: per chunk of n steps the two products
+    over the strict lower triangle, r_t k_t^T and scores v, n (n - 1) hd
+    each, and the two with the state, r_t S and k_out^T v, 2 n hd^2 each."""
+    lengths = [min(chunk, s - lo) for lo in range(0, s, chunk)]
+    return bh * sum(2 * n * (n - 1) * hd + 4 * n * hd * hd for n in lengths)
+
+
+def check_wkv(dev, rng):
+    """wkv_chunked at the rwkv6-3b prefill shape (BH = 4 batch rows x 40
+    heads, S = 2,048, hd = chunk = 64) and at edge cases (S ragged, BH = 1,
+    S shorter than the chunk, chunk = 16, hd = 8, 16, 32). Every output
+    finite; two runs bitwise equal; within the reference's gate of the
+    sequential oracle ``ref.wkv_chunk_ref``; and within
+    WKV_ULPS_PER_STEP * chunk ulps of each row's largest output of the
+    plain chunked form (the same factorization: each output is a sum of
+    at most chunk + 2 hd + 1 terms in another order, and the state's
+    rounding decays with it). A block above the card's shared memory
+    (hd = 128, chunk = 64) raises ValueError. Returns (max |kernel - plain
+    chunked|, per-case errors with the times at the prefill shape)."""
+    import torch
+    from repro_torch.kernels.ref import wkv_chunk_ref
+    from repro_torch.kernels.wkv_chunk import wkv_chunked, wkv_chunked_plain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [("prefill", LM_B * 40, LM_S, 64, 64),
+             ("S ragged", 7, 1000, 64, 64), ("BH=1", 1, 300, 64, 64),
+             ("S<chunk", 4, 10, 64, 64), ("chunk=16", 12, 200, 64, 16),
+             ("hd=8", 5, 77, 8, 16), ("hd=16", 9, 130, 16, 32),
+             ("hd=32", 3, 96, 32, 64)]
+    max_err, stats = 0.0, {}
+    for label, bh, s, hd, chunk in cases:
+        x = wkv_inputs(dev, rng, bh, s, hd)
+        got = wkv_chunked(*x, chunk=chunk)
+        got2 = wkv_chunked(*x, chunk=chunk)
+        plain = wkv_chunked_plain(*x, chunk=chunk)
+        seq = wkv_chunk_ref(*x)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"wkv_chunked {label}: non-finite output")
+        if not torch.equal(got.view(torch.int32), got2.view(torch.int32)):
+            raise AssertionError(f"wkv_chunked {label}: two runs differ")
+        err = (got.double() - plain.double()).abs().amax(dim=(1, 2))
+        tol = WKV_ULPS_PER_STEP * chunk * U32 * \
+            plain.double().abs().amax(dim=(1, 2))
+        if bool((err > tol).any()):
+            i = int(torch.argmax(err / tol))
+            raise AssertionError(
+                f"wkv_chunked {label}: row {i} |kernel - plain chunked| "
+                f"{float(err[i])} > {float(tol[i])}")
+        torch.testing.assert_close(got, seq, **WKV_TOL)
+        max_err = max(max_err, float(err.max()))
+        seq_err = max_abs_diff(got, seq)
+        stats[label] = dict(BH=bh, S=s, hd=hd, chunk=chunk,
+                            max_abs_err=float(err.max()),
+                            bound_share=float((err / tol).max()),
+                            max_abs_err_vs_sequential=seq_err)
+        log(f"[phase 2] wkv_chunked {label} (BH={bh}, S={s}, hd={hd}, "
+            f"chunk={chunk}): max |kernel - plain chunked| "
+            f"{float(err.max()):.3g} (largest share of its bound "
+            f"{float((err / tol).max()):.3f}), max |kernel - sequential| "
+            f"{seq_err:.3g}; finite, two runs bitwise equal")
+        if label == "prefill":
+            nbytes = 4 * (5 * bh * s * hd + bh * hd)
+            b_ms, b_by = bound_ms(nbytes, wkv_ops(bh, s, hd, chunk))
+            ms, call_ms = timed(lambda: wkv_chunked(*x, chunk=chunk))
+            plain_ms, plain_call_ms = timed(
+                lambda: wkv_chunked_plain(*x, chunk=chunk))
+            # the oracle's 2,048 steps are some 14,000 device operations a
+            # call, too many for the profiler's windows: CUDA events only
+            seq_call_ms = time_ms(lambda: wkv_chunk_ref(*x), reps=3,
+                                  warmup=1)
+            stats[label].update(
+                ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                plain_call_ms=plain_call_ms, sequential_call_ms=seq_call_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            log(f"[phase 2] wkv_chunked {label}: {ms:.4f} ms ({call_ms:.4f} "
+                f"ms per call), plain chunked {plain_ms:.4f} ms, sequential "
+                f"{seq_call_ms:.1f} ms per call, no single library call; "
+                f"bound "
+                f"{b_ms:.6f} ms ({b_by})")
+        del x, got, got2, plain, seq
+    x = wkv_inputs(dev, rng, 2, 64, 128)
+    try:
+        wkv_chunked(*x, chunk=64)
+    except ValueError as e:
+        log(f"[phase 2] wkv_chunked hd=128, chunk=64 refused: {e}")
+    else:
+        raise AssertionError("wkv_chunked: a block above the card's shared "
+                             "memory did not raise")
+    return max_err, stats
+
+
+# ---------------------------------------------------------------------- #
+# phase 8: rwkv6-3b prefill and greedy serving at full width
+# ---------------------------------------------------------------------- #
+def lm_requests(rng, vocab):
+    """LM_SERVE's requests: prompts of 1 to max_prompt tokens (both ends
+    present), new_tokens each."""
+    from repro_torch.serving import Request
+    c = LM_SERVE
+    lens = rng.integers(1, c["max_prompt"] + 1, c["requests"])
+    lens[:2] = (1, c["max_prompt"])
+    return [Request(i, rng.integers(1, vocab, int(n)),
+                    max_new_tokens=c["new_tokens"])
+            for i, n in enumerate(lens)]
+
+
+def run_lm(dev, rng):
+    """Phase 8: rwkv6-3b at full width, fp32 weights from a CUDA generator
+    (seed 0), TF32 off. (a) make_prefill_step at B = 4, S = 2,048 with
+    rwkv_mode="chunked_kernel" against "chunked" (plain): last-position
+    logits within LM_LOGIT_TOL. (b) a 64-token prompt through decode_step
+    (no kernel) ends at the kernel prefill's last logits within
+    LM_LOGIT_TOL. (c) ServeEngine(slots=4, max_seq=64) answers 8 greedy
+    requests (prompts of 1-16 tokens, 16 new tokens): all done, none
+    truncated. (d) wkv_chunked launched 32 times per prefill forward and
+    never while decoding. Returns (results, state for phase 7)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.specs import InputShape, model_flops
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.nn import transformer as T
+    from repro_torch.serving import ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(LM_ARCH)
+    kcfg = dataclasses.replace(cfg, rwkv_mode="chunked_kernel")
+    pcfg = dataclasses.replace(cfg, rwkv_mode="chunked")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(device=dev)
+                           .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    res = dict(init_s=time.perf_counter() - t0,
+               params=T.count_params(params),
+               param_bytes=sum(t.numel() * t.element_size()
+                               for _, t in T.leaves(params)))
+    if res["params"] != 3_073_313_280:
+        raise AssertionError(f"{LM_ARCH}: {res['params']} parameters")
+    log(f"[phase 8] {LM_ARCH}: {res['params']:,} fp32 parameters "
+        f"({res['param_bytes'] / 1e9:.2f} GB) drawn on the card in "
+        f"{res['init_s']:.2f} s")
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_B, LM_S))
+                           ).to(dev)
+    batch = {"tokens": tok}
+    prefill_k, prefill_p = make_prefill_step(kcfg), make_prefill_step(pcfg)
+    windows = {}
+    with torch.inference_mode():
+        # (a) the main path: one kernel prefill, counts around exactly it
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        lk = prefill_k(params, batch)
+        torch.cuda.synchronize()
+        windows["prefill"] = launch_counts()
+        res["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
+        lp = prefill_p(params, batch)
+        torch.cuda.synchronize()
+        for name, x in (("kernel", lk), ("plain", lp)):
+            if tuple(x.shape) != (LM_B, cfg.vocab_size) or \
+                    not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"{name} prefill logits: shape "
+                                     f"{tuple(x.shape)} or not finite")
+        res["prefill_max_abs_diff"] = max_abs_diff(lk, lp)
+        torch.testing.assert_close(lk, lp, **LM_LOGIT_TOL)
+        res["prefill_argmax_agree"] = int(
+            (lk.argmax(-1) == lp.argmax(-1)).sum())
+        res["prefill_ms"] = time_ms(lambda: prefill_k(params, batch),
+                                    reps=3, warmup=1)
+        res["plain_prefill_ms"] = time_ms(lambda: prefill_p(params, batch),
+                                          reps=3, warmup=1)
+        res["prefill_flop"] = model_flops(
+            cfg, InputShape("prefill", LM_S, LM_B, "prefill"))
+        res["prefill_tflops"] = res["prefill_flop"] / res["prefill_ms"] / 1e9
+        log(f"[phase 8a] prefill B={LM_B}, S={LM_S}: kernel == plain "
+            f"chunked last logits within {LM_LOGIT_TOL} (max |diff| "
+            f"{res['prefill_max_abs_diff']:.3g}, argmax agrees in "
+            f"{res['prefill_argmax_agree']} of {LM_B}); kernel "
+            f"{res['prefill_ms']:.1f} ms = {res['prefill_tflops']:.2f} "
+            f"TFLOP/s of model FLOPs ({res['prefill_flop']:.4g}), plain "
+            f"{res['plain_prefill_ms']:.1f} ms; peak memory "
+            f"{res['prefill_peak_bytes'] / 1e9:.2f} GB")
+        # (b) a prompt through decode_step against the kernel prefill
+        n = LM_DECODE_PROMPT
+        tok_b = tok[:, :n].contiguous()
+        reset_counts()
+        want = prefill_k(params, {"tokens": tok_b})
+        torch.cuda.synchronize()
+        windows["prefill_b"] = launch_counts()
+        cache = T.init_decode_cache(cfg, LM_B, device=dev)
+        reset_counts()
+        for t in range(n):
+            logits, cache = T.decode_step(params, cfg, tok_b[:, t:t + 1],
+                                          cache)
+        torch.cuda.synchronize()
+        windows["decode"] = launch_counts()
+        res["decode_max_abs_diff"] = max_abs_diff(logits[:, 0], want)
+        torch.testing.assert_close(logits[:, 0], want, **LM_LOGIT_TOL)
+        res["decode_argmax_agree"] = int(
+            (logits[:, 0].argmax(-1) == want.argmax(-1)).sum())
+        serve_step = make_serve_step(cfg)
+        step_batch = {"tokens": tok_b[:, -1:]}
+        res["decode_step_ms"] = time_ms(
+            lambda: serve_step(params, cache, step_batch), reps=10,
+            warmup=2)
+        res["decode_floor_ms"] = res["param_bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"[phase 8b] {n} tokens through decode_step == the kernel "
+            f"prefill's last logits within {LM_LOGIT_TOL} (max |diff| "
+            f"{res['decode_max_abs_diff']:.3g}, argmax agrees in "
+            f"{res['decode_argmax_agree']} of {LM_B}); a steady decode step "
+            f"{res['decode_step_ms']:.3f} ms against the "
+            f"{res['decode_floor_ms']:.3f} ms of reading the weights")
+    # (c) greedy serving through the engine (its own inference mode)
+    reqs = lm_requests(rng, cfg.vocab_size)
+    engine = ServeEngine(cfg, params, slots=LM_SERVE["slots"],
+                         max_seq=LM_SERVE["max_seq"])
+    reset_counts()
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    res["serve_s"] = time.perf_counter() - t0
+    windows["serve"] = launch_counts()
+    for r in reqs:
+        if not (r.done and not r.truncated and
+                len(r.output) == LM_SERVE["new_tokens"] and
+                all(0 <= x < cfg.vocab_size for x in r.output)):
+            raise AssertionError(f"request {r.request_id}: done={r.done}, "
+                                 f"truncated={r.truncated}, {r.output}")
+    res["serve_tokens"] = {r.request_id: r.output for r in reqs}
+    log(f"[phase 8c] ServeEngine(slots={LM_SERVE['slots']}, max_seq="
+        f"{LM_SERVE['max_seq']}): {len(reqs)} requests (prompts "
+        f"{sorted(len(r.prompt) for r in reqs)} tokens) all done, none "
+        f"truncated, {LM_SERVE['new_tokens']} tokens each, in "
+        f"{res['serve_s']:.2f} s; request 0 -> {reqs[0].output}")
+    # (d) the launch counts of the path
+    for label, forwards in (("prefill", 1), ("prefill_b", 1), ("decode", 0),
+                            ("serve", 0)):
+        got = windows[label]
+        want_n = cfg.num_layers * forwards
+        others = {k: v for k, v in got.items() if k != "wkv_chunked" and v}
+        if got["wkv_chunked"] != want_n or others:
+            raise AssertionError(f"phase 8 {label}: launches {got}, "
+                                 f"expected wkv_chunked {want_n} only")
+    res["launches"] = windows
+    log(f"[phase 8d] wkv_chunked launches: {windows['prefill']['wkv_chunked']}"
+        f" in the S={LM_S} prefill, {windows['prefill_b']['wkv_chunked']} in "
+        f"the S={n} prefill, {windows['decode']['wkv_chunked']} in {n} decode "
+        f"steps, {windows['serve']['wkv_chunked']} in the engine's run")
+    state = dict(params=params, batch=batch, prefill=prefill_k,
+                 serve_step=serve_step, cache=cache, step_batch=step_batch)
+    return res, state
+
+
+def profile_lm(state):
+    """Phase 7 for the LM path: one kernel prefill and one steady decode
+    step — host time, the card's busy time, the idle share, the top device
+    operations and the WKV kernel's share of the prefill."""
+    import torch
+    out = {}
+    with torch.inference_mode():
+        w = profiled(lambda: state["prefill"](state["params"], state["batch"]),
+                     1, host=False)
+        wkv_us = sum(t for n, t in w["by_name"].items()
+                     if n.startswith("wkv_chunk"))
+        top = sorted(w["by_name"].items(), key=lambda kv: -kv[1])[:8]
+        out["lm_prefill"] = dict(
+            step_ms=w["wall_us"] / 1e3, device_ms_per_step=w["busy_us"] / 1e3,
+            idle_share=1.0 - w["busy_us"] / w["wall_us"],
+            device_events=w["count"], wkv_ms=wkv_us / 1e3,
+            wkv_share=wkv_us / w["busy_us"],
+            top_device_ms_per_step={n: t / 1e3 for n, t in top})
+        out["lm_decode_step"] = step_profile(
+            lambda: state["serve_step"](state["params"], state["cache"],
+                                        state["step_batch"]))
+    return out
+
+
 # ---------------------------------------------------------------------- #
 # phase 6: the training path through its entry point
 # ---------------------------------------------------------------------- #
@@ -952,14 +1293,12 @@ def train_once(argv):
     """``repro_torch.launch.train`` with ``argv``: train, then the test
     evaluation. Returns its result and the kernel launches the run
     made."""
-    from repro_torch.kernels import KERNELS
     from repro_torch.launch import train
-    for w in KERNELS.values():
-        w.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = train.main(argv)
     out["wall_s"] = time.perf_counter() - t0
-    out["launches"] = {n: w.launches for n, w in KERNELS.items()}
+    out["launches"] = launch_counts()
     return out
 
 
@@ -1164,10 +1503,13 @@ def main() -> int:
     logs = _build.build(ptxas_info=True)
     build_s = time.perf_counter() - t0
     log(f"[phase 1] built {sorted(logs)} with nvcc in {build_s:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[phase 1] {name}: {line.strip()}")
+    ptxas = {name: [line.strip() for line in text.splitlines()
+                    if "registers" in line or "spill" in line
+                    or "smem" in line]
+             for name, text in logs.items()}
+    for name, lines in ptxas.items():
+        for line in lines:
+            log(f"[phase 1] {name}: {line}")
 
     # phase 2: kernel vs plain at the serving and training shapes
     rng = np.random.default_rng(0)
@@ -1200,16 +1542,17 @@ def main() -> int:
     phase2["basis_message"] = (bm_err, bm_stats)
     phase2["segment_sum"] = check_segment_sum(dev, rng, part, mbs)
     phase2["scatter_add_onehot"] = check_scatter_add(dev, rng, mbs)
+    phase2["wkv_chunked"] = check_wkv(dev, rng)
     log("[phase 2] kge_score and basis_message within their stated bounds; "
         "topk, fused_gather and fused_dequant_gather bitwise equal to their "
         "plain versions; "
         "segment_sum deg == plain, agg within its bound, runs bitwise "
         "equal; scatter_add_onehot within its bound, non-hit rows 0, runs "
-        "bitwise equal")
+        "bitwise equal; wkv_chunked within its bounds of the plain chunked "
+        "form and the sequential oracle, finite, runs bitwise equal")
 
     # phases 3-4: the serving path; counts read around exactly these runs
-    for w in KERNELS.values():
-        w.launches = 0
+    reset_counts()
     runs = {}
     for decoder in ("distmult", "transe"):
         for shards in (1, 4):
@@ -1220,7 +1563,7 @@ def main() -> int:
     runs["citation2_distmult_S1"] = serve_once(
         CITATION2, "distmult", 1, 64, filtered=False, cache_size=0)
     log("[phase 4] ogbl-citation2 width: sharded == dense")
-    serve_launches = {name: w.launches for name, w in KERNELS.items()}
+    serve_launches = launch_counts()
 
     # phase 5: every kernel of the serving path launched during phases 3-4
     missing = [k for k in SERVING_KERNELS if serve_launches[k] == 0]
@@ -1229,8 +1572,7 @@ def main() -> int:
                              f"{missing}")
     log(f"[phase 5] launches during phases 3-4: {serve_launches}")
     # phases 3-4 with the int8 table; counts read around exactly these
-    for w in KERNELS.values():
-        w.launches = 0
+    reset_counts()
     for decoder in ("distmult", "transe"):
         for shards in (1, 4):
             runs[f"fb15k237_{decoder}_S{shards}_int8"] = serve_once(
@@ -1239,7 +1581,7 @@ def main() -> int:
     runs["citation2_distmult_S4_int8"] = serve_once(
         CITATION2, "distmult", 4, 64, filtered=False, cache_size=0,
         table_dtype="int8")
-    serve_int8_launches = {name: w.launches for name, w in KERNELS.items()}
+    serve_int8_launches = launch_counts()
     missing = [k for k in SERVING_INT8_KERNELS if serve_int8_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the int8 serving "
@@ -1432,8 +1774,23 @@ def main() -> int:
         f"the master table's included, bitwise the fp32 path's on the "
         f"dequantized master")
 
+    # phase 8: rwkv6-3b prefill and greedy serving at full width; counts
+    # reset and read inside run_lm around each part of the path
+    lm, lm_state = run_lm(dev, rng)
+    lm_launches = {n: sum(w[n] for w in lm["launches"].values())
+                   for n in KERNELS}
+
     # phase 7: where a steady step's time goes
-    profiles = {}
+    profiles = profile_lm(lm_state)
+    for label, p in profiles.items():
+        extra = (f", wkv_chunked {p['wkv_ms']:.3f} ms = "
+                 f"{p['wkv_share']:.4f} of device busy"
+                 if "wkv_ms" in p else "")
+        log(f"[phase 7] {label}: {p['step_ms']:.3f} ms, device busy "
+            f"{p['device_ms_per_step']:.3f} ms, idle share "
+            f"{p['idle_share']:.3f}{extra}; top "
+            f"{p['top_device_ms_per_step']}")
+    del lm_state
     configs = [(f"fb15k237_{dec}_S{sh}", FB15K, dec, sh, True, 256)
                for dec in ("distmult", "transe") for sh in (1, 4)]
     configs.append(("citation2_distmult_S1", CITATION2, "distmult", 1,
@@ -1493,7 +1850,7 @@ def main() -> int:
              "fused_gather": "minibatch_S4",
              "fused_dequant_gather": "minibatch_S4",
              "basis_message": "minibatch", "segment_sum": "minibatch",
-             "scatter_add_onehot": "table_grad"}
+             "scatter_add_onehot": "table_grad", "wkv_chunked": "prefill"}
     for name, head_shape in heads.items():
         max_err, stats = phase2[name]
         head = stats[head_shape]
@@ -1501,7 +1858,8 @@ def main() -> int:
                    "serve_int8": serve_int8_launches[name],
                    "train": train_launches[name],
                    "minibatch": mb_launches[name],
-                   "minibatch_int8": mb8_launches[name]}
+                   "minibatch_int8": mb8_launches[name],
+                   "lm": lm_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),
@@ -1511,7 +1869,7 @@ def main() -> int:
             widths=stats))
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"device": card, "build_s": build_s,
+            json.dump({"device": card, "build_s": build_s, "ptxas": ptxas,
                        "kernels": kernels, "basis_message_configs": bm_configs,
                        "serve": runs,
                        "train": {k: {"history": r["history"],
@@ -1536,6 +1894,7 @@ def main() -> int:
                        "minibatch_two_run_loss": mb_loss,
                        "minibatch_int8_two_run_loss": mb8_loss,
                        "embedding_max_abs_diff": emb_err,
+                       "lm": lm,
                        "profile": profiles,
                        "total_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -7,7 +7,8 @@ port's ``KGEModel`` and back (:func:`kge_model_from_jax`,
 :func:`kge_model_to_jax`), so both packages can start from the same
 weights. An int8 table in the reference's ``{"codes", "scales"}`` form
 crosses both ways bit for bit (:func:`quantized_table_from_jax`,
-:func:`quantized_table_to_jax`).
+:func:`quantized_table_to_jax`), and so does an LM parameter tree
+(:func:`lm_params_from_jax`, :func:`lm_params_to_jax`).
 """
 from __future__ import annotations
 
@@ -147,3 +148,41 @@ def quantized_table_to_jax(codes: torch.Tensor, scales: torch.Tensor
     ``{"codes", "scales"}`` dict with numpy leaves."""
     return {"codes": codes.detach().cpu().numpy().copy(),
             "scales": scales.detach().cpu().numpy().copy()}
+
+
+def _map_leaves(tree, fn, prefix: str = ""):
+    """``tree`` (dicts and lists) with each leaf replaced by
+    ``fn(dotted name, leaf)``."""
+    if isinstance(tree, Mapping):
+        return {k: _map_leaves(v, fn, f"{prefix}{k}.")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(v, fn, f"{prefix}{i}.")
+                for i, v in enumerate(tree)]
+    return fn(prefix[:-1], tree)
+
+
+def lm_params_from_jax(tree: Mapping, cfg, *, device=None) -> Dict:
+    """The reference's LM ``init_params`` tree for ``cfg`` (float32 leaves,
+    numpy or ``np.asarray``-able; scanned groups stacked ``(L, ...)``) →
+    the port's tree (``repro_torch.nn.init_params``' layout, the same
+    nesting) on ``device`` (default ``cuda``). Every name and shape must
+    match the port's for ``cfg``; values are copied bit for bit."""
+    from repro_torch.nn.transformer import init_params, leaves
+    dev = resolve_device(device)
+    flat = flatten_tree(tree)
+    want = {n: tuple(t.shape) for n, t in
+            leaves(init_params(cfg, generator=None, device="meta"))}
+    got = {n: tuple(a.shape) for n, a in flat.items()}
+    if got != want:
+        raise ValueError(f"parameter tree does not match {cfg.name}: "
+                         f"expected {want}, got {got}")
+    return _map_leaves(tree, lambda name, _: torch.tensor(
+        _f32_array(name, flat[name]), device=dev))
+
+
+def lm_params_to_jax(params: Mapping) -> Dict:
+    """Inverse of :func:`lm_params_from_jax`: the same nesting with numpy
+    leaves, bit for bit."""
+    return _map_leaves(params,
+                       lambda _, t: t.detach().cpu().numpy().copy())

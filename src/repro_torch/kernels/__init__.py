@@ -19,6 +19,9 @@ version:
 * ``segment_sum`` — the RGCN masked segment sum with degree counts,
   deterministic without float atomics (replaces
   ``repro/kernels/rgcn_message.py::segment_sum_onehot``).
+* ``wkv_chunked`` — the chunked RWKV-6 WKV, the state resident in shared
+  memory across a row's chunks (replaces
+  ``repro/kernels/wkv_chunk.py::wkv_chunked``).
 
 ``ops`` holds the public wrappers, ``ref`` the references under the JAX
 package's names, ``_build`` the ``nvcc`` build and ``ctypes`` loader. A
@@ -32,6 +35,7 @@ from repro_torch.kernels.ops import (
     dequant_sharded_gather, flat_gather_plan, fused_sharded_gather,
     gather_rows, kge_score_padded, masked_take, merge_topk,
     quantized_sharded_gather, rgcn_message_basis, topk_padded,
+    wkv_chunked_op,
 )
 from repro_torch.kernels.rgcn_message import (
     basis_message, basis_message_plain, segment_sum, segment_sum_plain,
@@ -41,6 +45,7 @@ from repro_torch.kernels.sharded_gather import (
     fused_gather_plain, scatter_add_onehot, scatter_add_onehot_plain,
 )
 from repro_torch.kernels.topk import topk_plain, topk_scores
+from repro_torch.kernels.wkv_chunk import wkv_chunked, wkv_chunked_plain
 
 # every kernel wrapper of the port; each counts its launches in
 # ``wrapper.launches``
@@ -49,7 +54,8 @@ KERNELS = {"kge_score": kge_score, "topk": topk_scores,
            "fused_dequant_gather": fused_dequant_gather,
            "basis_message": basis_message,
            "segment_sum": segment_sum,
-           "scatter_add_onehot": scatter_add_onehot}
+           "scatter_add_onehot": scatter_add_onehot,
+           "wkv_chunked": wkv_chunked}
 
 __all__ = ["ops", "ref", "EPILOGUES", "NORM_EPS", "KERNELS",
            "apply_epilogue", "kge_score", "kge_score_plain",
@@ -61,4 +67,5 @@ __all__ = ["ops", "ref", "EPILOGUES", "NORM_EPS", "KERNELS",
            "masked_take", "scatter_add_onehot", "scatter_add_onehot_plain",
            "basis_message",
            "basis_message_plain", "segment_sum", "segment_sum_plain",
-           "rgcn_message_basis"]
+           "rgcn_message_basis", "wkv_chunked", "wkv_chunked_plain",
+           "wkv_chunked_op"]

@@ -1,11 +1,12 @@
 """Public wrappers around the kernels (port of ``repro/kernels/ops.py``):
 the fused RGCN message layer, the row gather with a deterministic
 backward, the int8 table's gathers, optional arguments, k checks, the
-shard merge and the flat-index gather plan.
+shard merge, the flat-index gather plan and the chunked WKV.
 
-The TPU wrappers padded E, V, B and C to the kernels' 128-row tiles; the
-CUDA kernels take ragged shapes, so nothing is padded here and the results
-are the TPU wrappers' sliced results.
+The TPU wrappers padded E, V, B and C to the kernels' 128-row tiles, and
+BH to 8 and S to the chunk for the WKV; the CUDA kernels take ragged
+shapes, so nothing is padded here and the results are the TPU wrappers'
+sliced results.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from repro_torch.kernels.sharded_gather import (
     fused_dequant_gather, fused_gather, scatter_add_onehot,
 )
 from repro_torch.kernels.topk import topk_scores
+from repro_torch.kernels.wkv_chunk import wkv_chunked
+from repro_torch.roadmap import not_ported
 from repro_torch.sharding.embedding import quantize_rows
 
 
@@ -236,3 +239,21 @@ def quantized_sharded_gather(table: torch.Tensor, local_ids: torch.Tensor,
     return _QuantizedGatherRows.apply(table.reshape(s * rows, d),
                                       flat.to(table.device),
                                       any_owned.to(table.device), check)
+
+
+def wkv_chunked_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   log_decay: torch.Tensor, u: torch.Tensor,
+                   chunk: int = 64) -> torch.Tensor:
+    """Chunked WKV: ``(BH, S, hd)`` ``r, k, v, log_decay`` and ``(BH, hd)``
+    bonus ``u`` → ``(BH, S, hd)`` fp32, through :func:`wkv_chunked` (the
+    kernel on the card). Any BH and S: the kernel runs a short last chunk
+    where the reference pads S to ``chunk`` and BH to 8 with zeros, which
+    gives the same outputs on the real rows.
+
+    Forward only. The reference differentiates through the sequential
+    recurrence (``ops.py:405-413``); that pairing comes with LM training,
+    so an input that requires a gradient raises."""
+    args = (r, k, v, log_decay, u)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        raise not_ported("the gradient of wkv_chunked_op", "lm_train")
+    return wkv_chunked(*(t.float().contiguous() for t in args), chunk=chunk)

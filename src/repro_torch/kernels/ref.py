@@ -5,7 +5,8 @@ Each kernel's plain version sits beside it in its own module; this module
 gives them the reference signatures (optional biases), keeps the original
 take → mask → sum exchange chain that the fused gather replaces, and holds
 the int8 table's independent oracles (quantization by search over every
-fp32 power of two, dequantize-then-gather).
+fp32 power of two, dequantize-then-gather) and the sequential WKV
+recurrence that the chunked WKV refactors.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.kernels.topk import topk_plain as topk_ref
 __all__ = ["basis_message_ref", "segment_mean_ref", "rgcn_message_ref",
            "kge_score_ref", "topk_ref", "sharded_gather_ref",
            "sharded_scatter_add_ref", "quantize_rows_ref",
-           "dequantize_rows_ref", "dequant_gather_ref"]
+           "dequantize_rows_ref", "dequant_gather_ref", "wkv_chunk_ref"]
 
 
 def segment_mean_ref(msg: torch.Tensor, seg: torch.Tensor,
@@ -143,3 +144,30 @@ def dequant_gather_ref(codes: torch.Tensor, scales: torch.Tensor,
     ``ops.dequant_sharded_gather``, which must match it bitwise."""
     return sharded_gather_ref(dequantize_rows_ref(codes, scales),
                               local_ids.long(), owned)
+
+
+def wkv_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  log_decay: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The sequential WKV recurrence (the RWKV-6 time-mix core) over
+    ``(BH, S, hd)`` inputs with ``(BH, hd)`` bonus ``u``, one step at a
+    time::
+
+        out_t = r_t · (S_{t-1} + diag(u) k_t^T v_t)
+        S_t   = diag(w_t) S_{t-1} + k_t^T v_t,   w_t = exp(log_decay_t)
+
+    The oracle of ``wkv_chunk.wkv_chunked`` and the plain version of its
+    chunked form."""
+    bh, s, hd = r.shape
+    r, k, v = r.float(), k.float(), v.float()
+    w = torch.exp(log_decay.float())
+    u = u.float()
+    state = torch.zeros((bh, hd, hd), dtype=torch.float32, device=r.device)
+    outs = []
+    for t in range(s):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        outs.append(torch.einsum("bk,bkv->bv", r[:, t],
+                                 state + u[..., None] * kv))
+        state = w[:, t, :, None] * state + kv
+    if not outs:
+        return torch.zeros_like(r)
+    return torch.stack(outs, dim=1)

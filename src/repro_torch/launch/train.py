@@ -104,7 +104,7 @@ def run(args: argparse.Namespace) -> Dict:
         raise not_ported("--arch rgcn-citation2 (feature-mode edge "
                          "mini-batches)", "citation2")
     if args.arch != "rgcn-fb15k237":
-        raise not_ported(f"--arch {args.arch}", "lm")
+        raise not_ported(f"--arch {args.arch} (LM training)", "lm_train")
 
     from repro_torch.configs import RGCN_FB15K237
     from repro_torch.data import load_or_synthesize

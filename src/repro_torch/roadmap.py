@@ -14,7 +14,16 @@ ITEMS = {
     "citation2": "ROADMAP Queue 1 item 4: feature-mode mini-batch training "
                  "(--arch rgcn-citation2) and the ogbl candidate-list "
                  "ranking protocol",
-    "lm": "ROADMAP Queue 1 item 7: the LM substrate",
+    "lm_train": "ROADMAP Queue 1 item 7a: LM training (loss_fn, "
+                "make_train_step, train_lm, TokenStream and the WKV "
+                "backward)",
+    "rglru": "ROADMAP Queue 1 item 7b: the RG-LRU and recurrentgemma",
+    "attention": "ROADMAP Queue 1 item 7c: attention and the dense "
+                 "decoder architectures",
+    "moe": "ROADMAP Queue 1 item 7d: mixture-of-experts layers",
+    "multimodal": "ROADMAP Queue 1 item 7e: whisper and qwen2-vl",
+    "dryrun": "ROADMAP Queue 1 item 7f: launch/dryrun.py as a meta-device "
+              "dry run",
 }
 
 

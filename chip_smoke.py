@@ -11,7 +11,10 @@ Phases, each of which fails the run on error:
    version on the card, with its time, its plain version's time, one
    PyTorch library call's time (where one computes the function) and the
    least time the card could take:
-   kge_score, topk and fused_gather at the serving shapes;
+   kge_score, topk and fused_gather at the serving shapes, kge_score also
+   at the mini-batch ranking shape (B = 256) and, register-tiled, bitwise
+   the first kernel (kge_score_v1, timed beside it) there and at edge
+   shapes (ragged B and C, d = 1, d = MAX_DIM, B = 1, C below one tile);
    fused_dequant_gather at the serving shapes over tables quantized on the
    card, and at the 4-shard mini-batch table gather (V = 17,200 into
    14,544 x 75 int8): bitwise the plain version, unowned slots exactly 0,
@@ -29,7 +32,10 @@ Phases, each of which fails the run on error:
    slots unowned, one row hit by every slot, R not a multiple of 128,
    V = 0): within 2 gamma_n sum|g| of the plain version, rows no owned
    slot hits exactly 0, two runs bitwise equal, the 4-shard table gradient
-   bitwise the dense one; wkv_chunked at the rwkv6-3b prefill shape
+   bitwise the dense one; at the training shapes scatter_add_onehot and
+   segment_sum given the plan built on the host (as the pipelines build
+   it) bitwise the unplanned calls, timed with and without it;
+   wkv_chunked at the rwkv6-3b prefill shape
    (BH = 4 x 40 heads, S = 2,048, hd = chunk = 64) and at edge cases
    (S ragged, BH = 1, S < chunk, chunk = 16, hd = 8, 16, 32) against the
    plain chunked form and the sequential oracle: finite, two runs bitwise
@@ -54,7 +60,9 @@ Phases, each of which fails the run on error:
    same per-epoch losses within rtol=1e-3, atol=1e-4, and the kernel and
    plain encoders the same embeddings of the trained model. Two runs of
    one full-graph step from the same state give bitwise-equal losses and
-   parameters.
+   parameters, on the kernel path and on the default path (no
+   --use-kernel); the kernel path's steady t_device_step (epochs 2-3) is
+   no larger than the plain path's.
 6b. Training, edge mini-batches at full width: --batch-size 4096
    --table-shards 4 --pipeline async --use-kernel, one epoch (24 steps of
    4 trainers), then the filtered test evaluation with 4-shard ranking;
@@ -63,9 +71,18 @@ Phases, each of which fails the run on error:
    one epoch each with --table-shards 1, --pipeline serial and
    --gather-dedup must give bitwise-equal per-step losses and final
    parameters, and one without --use-kernel per-step losses within
-   rtol=1e-3, atol=1e-4; the 4-shard ranking metrics == the dense ranking
-   from the same embeddings; two runs of one mini-batch step from the same
-   state give bitwise-equal losses and parameters.
+   rtol=1e-3, atol=1e-4; on the serial pipeline the kernel path's epoch
+   t_device_step no larger than the plain path's; the default path at
+   --table-shards 1 and on the serial pipeline bitwise the default path
+   at 4 shards, async; the 4-shard
+   ranking metrics == the dense ranking from the same embeddings; two runs
+   of one mini-batch step from the same state give bitwise-equal losses
+   and parameters, kernel and default path; the scatter plans a step
+   builds on the card: their count, bytes and device time; then, on the
+   default and the kernel path, async epochs with the plans built in the
+   step (the port's), on the card with the copy and on the host (numpy,
+   held bitwise against the card's on one batch), alternated: four
+   epochs each, the host's two.
 6c. Training, edge mini-batches with the int8 table at full width: phase
    6b's main run with --table-dtype int8; launch counts of that path
    (fused_dequant_gather, scatter_add_onehot, basis_message, segment_sum
@@ -80,9 +97,11 @@ Phases, each of which fails the run on error:
    of each serving
    configuration (int8 at 4 shards included), one steady full-graph step
    (kernel and plain encoder), one evaluation encode and one steady
-   mini-batch step each of the fp32 and int8 tables: host time per step,
-   the card's busy time, the idle share and the device operations that
-   took the most time; and the async pipeline's exposed wait and overlap
+   mini-batch step each of the fp32 (kernel and plain encoder) and int8
+   tables: host time per step, the card's busy time, the idle share, the
+   sort kernels' time (the plans a step builds: a mini-batch step's all,
+   a full-graph step's those of the triplet gathers) and
+   the device operations that took the most time; and the async pipeline's exposed wait and overlap
    fraction over the mini-batch epoch.
 8. LM serving, rwkv6-3b at full width (run before phase 7's profiles):
    fp32 weights from a CUDA generator, TF32 off. (a) ``make_prefill_step``
@@ -92,8 +111,14 @@ Phases, each of which fails the run on error:
    last logits, and a steady decode step's time against reading the
    weights; (c) ``ServeEngine(slots=4, max_seq=64)`` answers 8 greedy
    requests, all done and none truncated; (d) wkv_chunked launched 32
-   times per prefill forward and never while decoding. Cut against the
-   reference's ``prefill_32k`` shape: B = 4 (not 32), S = 2,048 (not
+   times per prefill forward and never while decoding; (e) the same weights
+   rounded to bf16, the reference's default dtype: the bf16 kernel prefill
+   within the reference's own bf16 error (its plain chunked bf16 prefill's
+   largest |bf16 - fp32| logit) of the plain bf16 prefill, so within twice
+   it of the fp32 run, and the 64-token prompt through a bf16 decode_step
+   likewise against the bf16 prefill of that prompt; the bf16 prefill's
+   time and model-FLOP rate against 989 TFLOP/s, a bf16 decode step's
+   time. Cut against the reference's ``prefill_32k`` shape: B = 4 (not 32), S = 2,048 (not
    32,768); the model's depth and widths are whole.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` name and power
@@ -135,6 +160,8 @@ MB_GATES = {   # runs held against the main one: bitwise, or within LOSS_TOL
                "--use-kernel"],
     "dedup": MB_MAIN + ["--gather-dedup"],
     "plain": ["--table-shards", "4", "--pipeline", "async"],
+    "plain_S1": ["--table-shards", "1", "--pipeline", "async"],
+    "plain_serial": ["--table-shards", "4", "--pipeline", "serial"],
 }
 INT8 = ["--table-dtype", "int8"]
 MB_INT8_GATES = {   # int8 runs held bitwise against the int8 main run
@@ -144,6 +171,10 @@ MB_INT8_GATES = {   # int8 runs held bitwise against the int8 main run
 # |MRR(int8) - MRR(fp32)| on the same embeddings; the reference's bound,
 # QUANT_MRR_DRIFT_LIMIT in benchmarks/pipeline_bench.py:203
 QUANT_MRR_DRIFT_LIMIT = 0.02
+# phase 6b: where an async epoch's scatter plans are built (plan_placements)
+PLACEMENT = {"step": "in the step, at first use (the port's)",
+             "copy": "on the card with the copy, on the copy stream",
+             "host": "on the host (numpy, in the collator)"}
 LOSS_TOL = dict(rtol=1e-3, atol=1e-4)   # kernel vs plain per-epoch losses
 EMB_TOL = dict(rtol=1e-4, atol=1e-5)    # kernel vs plain encoder outputs
 
@@ -309,10 +340,12 @@ def step_profile(fn, steps: int = 1, top: int = 8):
     window of device activity."""
     w = profiled(fn, steps, host=False)
     names = sorted(w["by_name"].items(), key=lambda kv: -kv[1])[:top]
+    sort_us = sum(t for n, t in w["by_name"].items() if "sort" in n.lower())
     return dict(step_ms=w["wall_us"] / steps / 1e3,
                 device_ms_per_step=w["busy_us"] / steps / 1e3,
                 idle_share=1.0 - w["busy_us"] / w["wall_us"],
                 device_events=w["count"],
+                sort_ms_per_step=sort_us / steps / 1e3,
                 top_device_ms_per_step={n: t / steps / 1e3
                                         for n, t in names})
 
@@ -386,35 +419,93 @@ def report(name, shape, st, library):
         f"bound {st['bound_ms']:.6f} ms ({st['bound_by']})")
 
 
+def score_inputs(dev, rng, b, c, d):
+    """Queries, candidates (the first rows equal to the queries:
+    zero-distance pairs, the sqrt's worst case) and a bias of 0 / -1e9 /
+    -inf."""
+    import torch
+    u = torch.from_numpy(rng.normal(0, .1, (b, d)).astype(np.float32)
+                         ).to(dev)
+    cand = torch.from_numpy(rng.normal(0, .1, (c, d)).astype(np.float32)
+                            ).to(dev)
+    n = min(b, c)
+    cand[:n] = u[:n]
+    choice = rng.choice(3, size=(b, c), p=[.8, .1, .1])
+    bias = torch.from_numpy(np.choose(choice, [
+        np.float32(0), np.float32(-1e9), np.float32(-np.inf)]).astype(
+            np.float32)).to(dev)
+    return u, cand, bias
+
+
+def score_operands(u, cand, epilogue):
+    """``(q, q_bias, c_bias)`` of the epilogue's query form (TransE's norm
+    expansion for neg_l2)."""
+    import torch
+    if epilogue == "neg_l2":
+        return -2.0 * u, (u * u).sum(1), (cand * cand).sum(1)
+    return (u, torch.zeros(u.shape[0], device=u.device),
+            torch.zeros(cand.shape[0], device=u.device))
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def check_kge_score_v1(dev, rng):
+    """The register-tiled kge_score against the first kernel
+    (``kge_score_v1``) bit for bit at the edge shapes: ragged B and C,
+    d = 1, d = MAX_DIM, B = 1, C below one tile, both tile shapes (B <= 8
+    and B > 8, with an odd and an even ceil(B / 8)), both epilogues.
+    Returns the shapes checked."""
+    from repro_torch.kernels.kge_score import (
+        MAX_DIM, kge_score, kge_score_v1,
+    )
+    cases = [(13, 1001, 75), (1, 3636, 75), (8, 5, 75), (300, 77, 1),
+             (9, 700, MAX_DIM), (256, 50, MAX_DIM), (65, 129, 33),
+             (3, 64, 32), (8, 14541, 75), (100, 1, 17),
+             # an odd ceil(B / 8) (ragged last eval batches, 20 slots)
+             (17, 1001, 75), (20, 3636, 75), (24, 129, 75), (40, 700, 33),
+             (50, 5, 75)]
+    for b, c, d in cases:
+        u, cand, bias = score_inputs(dev, rng, b, c, d)
+        for epilogue in ("bilinear", "neg_l2"):
+            q, qb, cb = score_operands(u, cand, epilogue)
+            got = kge_score(q, cand, bias, qb, cb, epilogue=epilogue)
+            want = kge_score_v1(q, cand, bias, qb, cb, epilogue=epilogue)
+            if not same_bits(got, want):
+                raise AssertionError(f"kge_score B={b} C={c} d={d} "
+                                     f"{epilogue}: tiled != first kernel")
+    log(f"[phase 2] kge_score: the tiled kernel == the first kernel bit for "
+        f"bit at (B, C, d) {cases}, both epilogues")
+    return cases
+
+
 def check_kge_score(dev, rng, widths):
     """Both epilogues, a bias of 0 / -1e9 / -inf, at each width's
-    (C, d[, B]) (B: the serving slots unless given); returns (max |err|
-    over finite scores, per-width times)."""
+    (C, d[, B]) (B: the serving slots unless given); the tiled kernel
+    within the stated bound of the plain version and bitwise the first
+    kernel (``kge_score_v1``), whose time is taken beside it. Returns (max
+    |err| over finite scores, per-width times)."""
     import torch
-    from repro_torch.kernels.kge_score import kge_score, kge_score_plain
+    from repro_torch.kernels.kge_score import (
+        kge_score, kge_score_plain, kge_score_v1,
+    )
     torch.backends.cuda.matmul.allow_tf32 = False
     max_err, stats = 0.0, {}
     for label, c, d, *batch in widths:
         b = batch[0] if batch else SLOTS
-        u = torch.from_numpy(rng.normal(0, .1, (b, d)).astype(np.float32)
-                             ).to(dev)
-        cand = torch.from_numpy(rng.normal(0, .1, (c, d)).astype(np.float32)
-                                ).to(dev)
-        cand[:b] = u            # zero-distance pairs: the sqrt's worst case
-        choice = rng.choice(3, size=(b, c), p=[.8, .1, .1])
-        bias = torch.from_numpy(np.choose(choice, [
-            np.float32(0), np.float32(-1e9), np.float32(-np.inf)]).astype(
-                np.float32)).to(dev)
+        u, cand, bias = score_inputs(dev, rng, b, c, d)
         for epilogue in ("bilinear", "neg_l2"):
-            if epilogue == "neg_l2":   # TransE's norm-expansion query form
-                q, qb = -2.0 * u, (u * u).sum(1)
-                cb = (cand * cand).sum(1)
-            else:
-                q, qb, cb = u, torch.zeros(b, device=dev), \
-                    torch.zeros(c, device=dev)
+            q, qb, cb = score_operands(u, cand, epilogue)
             got = kge_score(q, cand, bias, qb, cb, epilogue=epilogue)
             want = kge_score_plain(q, cand, bias, qb, cb, epilogue=epilogue)
+            first = kge_score_v1(q, cand, bias, qb, cb, epilogue=epilogue)
             torch.cuda.synchronize()
+            if not same_bits(got, first):
+                raise AssertionError(f"kge_score {label} {epilogue}: tiled "
+                                     f"kernel != first kernel")
             x_plain = q @ cand.T + qb[:, None] + cb[None, :]
             fin = torch.isfinite(want)
             if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(
@@ -433,14 +524,18 @@ def check_kge_score(dev, rng, widths):
             max_err = max(max_err, float(err[fin].max()))
         # times: the neg_l2 epilogue (TransE), these inputs
         nbytes = 4 * (b * d + c * d + b + c + 2 * b * c)
-        stats[label] = dict(B=b, C=c, d=d, **timings(
+        st = stats[label] = dict(B=b, C=c, d=d, **timings(
             lambda: kge_score(q, cand, bias, qb, cb, epilogue="neg_l2"),
             lambda: kge_score_plain(q, cand, bias, qb, cb,
                                     epilogue="neg_l2"),
             lambda: torch.matmul(q, cand.T),
             *bound_ms(nbytes, 2 * b * c * d)))
-        report("kge_score", f"{label} (B={b}, C={c}, d={d})",
-               stats[label], "matmul")
+        st["first_kernel_ms"], _ = timed(
+            lambda: kge_score_v1(q, cand, bias, qb, cb, epilogue="neg_l2"))
+        report("kge_score", f"{label} (B={b}, C={c}, d={d})", st, "matmul")
+        log(f"[phase 2] kge_score {label}: the first kernel "
+            f"{st['first_kernel_ms']:.4f} ms, the tiled one {st['ms']:.4f} "
+            f"ms ({st['first_kernel_ms'] / st['ms']:.2f}x); bitwise equal")
     return max_err, stats
 
 
@@ -800,8 +895,8 @@ def check_segment_sum(dev, rng, part, mbs):
     orders), and two runs bitwise equal. Returns (max |err|, times)."""
     import torch
     from repro_torch.kernels.rgcn_message import (
-        segment_key, segment_plan, segment_sum, segment_sum_plain,
-        segment_sum_planned,
+        SegmentPlan, segment_key, segment_plan, segment_plan_host,
+        segment_sum, segment_sum_plain, segment_sum_planned,
     )
     v, e = part["V"], part["E"]
     cases = [("train", e, v, 75, part["src"], part["mask"]),
@@ -847,25 +942,40 @@ def check_segment_sum(dev, rng, part, mbs):
             f"segment {int(deg.max())}): max err {float(err.max()):.3g}, "
             f"deg ==, two runs bitwise equal")
         if label in ("train", "minibatch"):
-            plan = segment_plan(seg_t, m, nv)
+            # the main paths hand the call the plan built on the host with
+            # the batch: planned == unplanned, bit for bit
+            t0 = time.perf_counter()
+            packed = segment_plan_host(np.asarray(seg, np.int64),
+                                       np.asarray(mask, bool), nv)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            plan = SegmentPlan.unpack(torch.from_numpy(packed).to(dev), nv)
+            pagg, pdeg = segment_sum(msg, seg_t, m, nv, plan=plan)
+            if not (same_bits(pagg, agg) and torch.equal(pdeg, deg)):
+                raise AssertionError(f"segment_sum {label}: planned != "
+                                     f"unplanned")
             n_on = int(m.sum())
             nbytes = 4 * n_on * d + 5 * ne + 4 * nv * d + 4 * nv
             st = dict(E=ne, V=nv, d=d, longest_segment=int(deg.max()),
                       **timings(
-                          lambda: segment_sum(msg, seg_t, m, nv),
+                          lambda: segment_sum(msg, seg_t, m, nv, plan=plan),
                           lambda: segment_sum_plain(msg, seg_t, m, nv),
                           lambda: torch.zeros((nv + 1, d), device=dev)
                           .index_add_(0, key, msg),
                           *bound_ms(nbytes, n_on * d)))
             st["kernel_ms"], _ = timed(
                 lambda: segment_sum_planned(msg, *plan, nv))
+            st["unplanned_ms"], _ = timed(
+                lambda: segment_sum(msg, seg_t, m, nv))
             st["plan_ms"], _ = timed(lambda: segment_plan(seg_t, m, nv))
+            st["host_plan_ms"] = host_ms
             stats[label] = st
             report("segment_sum", f"{label} (E={ne}, V={nv}, d={d})", st,
                    "index_add_")
-            log(f"[phase 2] segment_sum {label}: kernels alone "
-                f"{st['kernel_ms']:.4f} ms, the sort plan (argsort, "
-                f"index_add_ counts, cumsum) {st['plan_ms']:.4f} ms")
+            log(f"[phase 2] segment_sum {label}: planned == unplanned "
+                f"bitwise; kernels alone {st['kernel_ms']:.4f} ms, with the "
+                f"plan built on the card {st['unplanned_ms']:.4f} ms (the "
+                f"plan {st['plan_ms']:.4f} ms); the host plan {host_ms:.2f} "
+                f"ms of host time")
     return max_err, stats
 
 
@@ -907,7 +1017,9 @@ def check_scatter_add(dev, rng, mbs):
     per-shape times)."""
     import torch
     from repro_torch.kernels.ops import flat_gather_plan
-    from repro_torch.kernels.rgcn_message import segment_key, segment_plan
+    from repro_torch.kernels.rgcn_message import (
+        SegmentPlan, segment_key, segment_plan, segment_plan_host,
+    )
     from repro_torch.kernels.sharded_gather import (
         scatter_add_onehot, scatter_add_onehot_plain, scatter_add_planned,
     )
@@ -975,25 +1087,39 @@ def check_scatter_add(dev, rng, mbs):
             log("[phase 2] scatter_add_onehot: 4-shard table gradient "
                 "bitwise the dense gather's")
         if label in ("table_grad", "h_dst", "coeffs_rel"):
+            # the main paths hand the call the plan built on the host with
+            # the batch: planned == unplanned, bit for bit
+            t0 = time.perf_counter()
+            packed = segment_plan_host(np.asarray(flat, np.int64), owned, r)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            plan = SegmentPlan.unpack(torch.from_numpy(packed).to(dev), r)
+            if not same_bits(scatter_add_onehot(g, flat_t, own_t, r,
+                                                plan=plan), got):
+                raise AssertionError(f"scatter_add_onehot {label}: planned "
+                                     f"!= unplanned")
             n_own = int(hits.sum())
             nbytes = 4 * n_own * d + 8 * v + (v if owned is not None else 0) \
                 + 4 * r * d
-            plan = segment_plan(flat_t, own_t, r)
             st = dict(V=v, R=r, d=d, longest_row=longest, **timings(
-                lambda: scatter_add_onehot(g, flat_t, own_t, r),
+                lambda: scatter_add_onehot(g, flat_t, own_t, r, plan=plan),
                 lambda: scatter_add_onehot_plain(g, flat_t, own_t, r),
                 lambda: torch.zeros((r + 1, d), device=dev)
                 .index_add_(0, key, g),
                 *bound_ms(nbytes, n_own * d)))
             st["kernel_ms"], _ = timed(
                 lambda: scatter_add_planned(g, *plan, r))
+            st["unplanned_ms"], _ = timed(
+                lambda: scatter_add_onehot(g, flat_t, own_t, r))
             st["plan_ms"], _ = timed(lambda: segment_plan(flat_t, own_t, r))
+            st["host_plan_ms"] = host_ms
             stats[label] = st
             report("scatter_add_onehot", f"{label} (V={v}, R={r}, d={d})",
                    st, "index_add_")
-            log(f"[phase 2] scatter_add_onehot {label}: kernels alone "
-                f"{st['kernel_ms']:.4f} ms, the sort plan "
-                f"{st['plan_ms']:.4f} ms")
+            log(f"[phase 2] scatter_add_onehot {label}: planned == unplanned "
+                f"bitwise; kernels alone {st['kernel_ms']:.4f} ms, with the "
+                f"plan built on the card {st['unplanned_ms']:.4f} ms (the "
+                f"plan {st['plan_ms']:.4f} ms); the host plan {host_ms:.2f} "
+                f"ms of host time")
     return max_err, stats
 
 
@@ -1141,7 +1267,7 @@ def run_lm(dev, rng):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = T.init_params(cfg, generator=torch.Generator(device=dev)
-                           .manual_seed(0), device=dev)
+                           .manual_seed(0), device=dev, dtype=torch.float32)
     torch.cuda.synchronize()
     res = dict(init_s=time.perf_counter() - t0,
                params=T.count_params(params),
@@ -1198,7 +1324,8 @@ def run_lm(dev, rng):
         want = prefill_k(params, {"tokens": tok_b})
         torch.cuda.synchronize()
         windows["prefill_b"] = launch_counts()
-        cache = T.init_decode_cache(cfg, LM_B, device=dev)
+        cache = T.init_decode_cache(cfg, LM_B, device=dev,
+                                    dtype=torch.float32)
         reset_counts()
         for t in range(n):
             logits, cache = T.decode_step(params, cfg, tok_b[:, t:t + 1],
@@ -1221,6 +1348,11 @@ def run_lm(dev, rng):
             f"{res['decode_argmax_agree']} of {LM_B}); a steady decode step "
             f"{res['decode_step_ms']:.3f} ms against the "
             f"{res['decode_floor_ms']:.3f} ms of reading the weights")
+        # (e) bf16, the reference's default dtype: the same weights rounded
+        bf16, params16 = run_lm_bf16(params, cfg, prefill_k, prefill_p,
+                                     batch, lk, tok_b, want, step_batch,
+                                     windows)
+        res.update(bf16)
     # (c) greedy serving through the engine (its own inference mode)
     reqs = lm_requests(rng, cfg.vocab_size)
     engine = ServeEngine(cfg, params, slots=LM_SERVE["slots"],
@@ -1244,8 +1376,8 @@ def run_lm(dev, rng):
         f"truncated, {LM_SERVE['new_tokens']} tokens each, in "
         f"{res['serve_s']:.2f} s; request 0 -> {reqs[0].output}")
     # (d) the launch counts of the path
-    for label, forwards in (("prefill", 1), ("prefill_b", 1), ("decode", 0),
-                            ("serve", 0)):
+    for label, forwards in (("prefill", 1), ("prefill_b", 1),
+                            ("prefill_bf16", 1), ("decode", 0), ("serve", 0)):
         got = windows[label]
         want_n = cfg.num_layers * forwards
         others = {k: v for k, v in got.items() if k != "wkv_chunked" and v}
@@ -1257,29 +1389,140 @@ def run_lm(dev, rng):
         f" in the S={LM_S} prefill, {windows['prefill_b']['wkv_chunked']} in "
         f"the S={n} prefill, {windows['decode']['wkv_chunked']} in {n} decode "
         f"steps, {windows['serve']['wkv_chunked']} in the engine's run")
-    state = dict(params=params, batch=batch, prefill=prefill_k,
-                 serve_step=serve_step, cache=cache, step_batch=step_batch)
+    state = dict(params=params, params16=params16, batch=batch,
+                 prefill=prefill_k, serve_step=serve_step, cache=cache,
+                 step_batch=step_batch)
     return res, state
 
 
+def tree_to(tree, dtype):
+    """The LM parameter tree with every leaf cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def run_lm_bf16(params, cfg, prefill_k, prefill_p, batch, lk, tok_b, want,
+                step_batch, windows):
+    """Phase 8e: the fp32 weights rounded to bf16 (what
+    ``init_params(dtype=torch.bfloat16)`` draws from the same generator),
+    the WKV core fp32 inside, as in the reference. The gate is the one of
+    tests/test_torch_lm.py::test_bf16_forward_logits_allclose_jax_bf16:
+    the port's bf16 logits against a reference bf16 evaluation within that
+    reference's own bf16 error at these inputs, its largest |bf16 - fp32|
+    logit. Prefill: the kernel against the plain chunked form in bf16,
+    within e = max|plain bf16 - fp32 kernel|, and so within 2 e of the fp32
+    run's last logits. Decode: the prompt through decode_step in bf16
+    against the bf16 kernel prefill of the same prompt, within e_b =
+    max|bf16 prefill - fp32 prefill| of that prompt, and so within 2 e_b
+    of the fp32 prefill. Times: the bf16 prefill (CUDA events, 3 calls
+    after 1 warm-up) and its model-FLOP rate against 989 TFLOP/s, a steady
+    bf16 decode step against reading 6.15 GB of weights. Returns (results,
+    the bf16 weights for phase 7)."""
+    import torch
+    from repro_torch.launch.specs import InputShape, model_flops
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.nn import transformer as T
+    dev = lk.device
+    p16 = tree_to(params, torch.bfloat16)
+    res = dict(bf16_param_bytes=sum(t.numel() * t.element_size()
+                                    for _, t in T.leaves(p16)))
+    reset_counts()
+    lk16 = prefill_k(p16, batch)
+    torch.cuda.synchronize()
+    windows["prefill_bf16"] = launch_counts()
+    lp16 = prefill_p(p16, batch)
+    torch.cuda.synchronize()
+    for name, x in (("kernel", lk16), ("plain", lp16)):
+        if x.dtype != torch.bfloat16 or tuple(x.shape) != tuple(lk.shape) \
+                or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"bf16 {name} prefill logits: {x.dtype} "
+                                 f"{tuple(x.shape)} or not finite")
+    e_ref = max_abs_diff(lp16.float(), lk)
+    res.update(bf16_prefill_ref_err=e_ref,
+               bf16_prefill_vs_plain=max_abs_diff(lk16.float(), lp16.float()),
+               bf16_prefill_vs_fp32=max_abs_diff(lk16.float(), lk),
+               bf16_prefill_argmax_agree=int(
+                   (lk16.argmax(-1) == lk.argmax(-1)).sum()))
+    if not (res["bf16_prefill_vs_plain"] <= e_ref and
+            res["bf16_prefill_vs_fp32"] <= 2 * e_ref):
+        raise AssertionError(f"bf16 prefill: |kernel - plain| "
+                             f"{res['bf16_prefill_vs_plain']}, |kernel - "
+                             f"fp32| {res['bf16_prefill_vs_fp32']}, the "
+                             f"reference's bf16 error {e_ref}")
+    res["bf16_prefill_ms"] = time_ms(lambda: prefill_k(p16, batch), reps=3,
+                                     warmup=1)
+    flop = model_flops(cfg, InputShape("prefill", LM_S, LM_B, "prefill"))
+    res["bf16_prefill_tflops"] = flop / res["bf16_prefill_ms"] / 1e9
+    log(f"[phase 8e] bf16 prefill B={LM_B}, S={LM_S}: kernel vs plain "
+        f"chunked bf16 {res['bf16_prefill_vs_plain']:.4g} <= the reference's "
+        f"bf16 error {e_ref:.4g}; vs the fp32 run "
+        f"{res['bf16_prefill_vs_fp32']:.4g} <= {2 * e_ref:.4g}; argmax "
+        f"agrees with fp32 in {res['bf16_prefill_argmax_agree']} of {LM_B}; "
+        f"{res['bf16_prefill_ms']:.1f} ms = {res['bf16_prefill_tflops']:.2f} "
+        f"TFLOP/s of model FLOPs, {res['bf16_prefill_tflops'] / 989:.3f} of "
+        f"the 989 TFLOP/s bf16 dense peak")
+    del lp16
+    want16 = prefill_k(p16, {"tokens": tok_b})
+    e_b = max_abs_diff(want16.float(), want)
+    cache = T.init_decode_cache(cfg, LM_B, device=dev, dtype=torch.bfloat16)
+    for t in range(tok_b.shape[1]):
+        logits, cache = T.decode_step(p16, cfg, tok_b[:, t:t + 1], cache)
+    torch.cuda.synchronize()
+    got = logits[:, 0]
+    res.update(bf16_decode_ref_err=e_b,
+               bf16_decode_vs_prefill=max_abs_diff(got.float(),
+                                                   want16.float()),
+               bf16_decode_vs_fp32=max_abs_diff(got.float(), want),
+               bf16_decode_argmax_agree=int(
+                   (got.argmax(-1) == want.argmax(-1)).sum()))
+    if not (got.dtype == torch.bfloat16 and
+            res["bf16_decode_vs_prefill"] <= e_b and
+            res["bf16_decode_vs_fp32"] <= 2 * e_b):
+        raise AssertionError(f"bf16 decode: {got.dtype}, |decode - bf16 "
+                             f"prefill| {res['bf16_decode_vs_prefill']}, "
+                             f"|decode - fp32| {res['bf16_decode_vs_fp32']}, "
+                             f"the prefill's bf16 error {e_b}")
+    serve_step = make_serve_step(cfg)
+    res["bf16_decode_step_ms"] = time_ms(
+        lambda: serve_step(p16, cache, step_batch), reps=10, warmup=2)
+    res["bf16_decode_floor_ms"] = (res["bf16_param_bytes"] / HBM_BYTES_PER_S
+                                   * 1e3)
+    log(f"[phase 8e] bf16: {tok_b.shape[1]} tokens through decode_step vs "
+        f"the bf16 kernel prefill {res['bf16_decode_vs_prefill']:.4g} <= its "
+        f"bf16 error {e_b:.4g}; vs the fp32 prefill "
+        f"{res['bf16_decode_vs_fp32']:.4g} <= {2 * e_b:.4g}; argmax agrees "
+        f"with fp32 in {res['bf16_decode_argmax_agree']} of {LM_B}; a steady "
+        f"bf16 decode step {res['bf16_decode_step_ms']:.3f} ms against the "
+        f"{res['bf16_decode_floor_ms']:.3f} ms of reading "
+        f"{res['bf16_param_bytes'] / 1e9:.2f} GB of weights")
+    return res, p16
+
+
 def profile_lm(state):
-    """Phase 7 for the LM path: one kernel prefill and one steady decode
-    step — host time, the card's busy time, the idle share, the top device
-    operations and the WKV kernel's share of the prefill."""
+    """Phase 7 for the LM path: one kernel prefill (fp32 and bf16) and one
+    steady decode step — host time, the card's busy time, the idle share,
+    the top device operations and the WKV kernel's share of the
+    prefill."""
     import torch
     out = {}
     with torch.inference_mode():
-        w = profiled(lambda: state["prefill"](state["params"], state["batch"]),
-                     1, host=False)
-        wkv_us = sum(t for n, t in w["by_name"].items()
-                     if n.startswith("wkv_chunk"))
-        top = sorted(w["by_name"].items(), key=lambda kv: -kv[1])[:8]
-        out["lm_prefill"] = dict(
-            step_ms=w["wall_us"] / 1e3, device_ms_per_step=w["busy_us"] / 1e3,
-            idle_share=1.0 - w["busy_us"] / w["wall_us"],
-            device_events=w["count"], wkv_ms=wkv_us / 1e3,
-            wkv_share=wkv_us / w["busy_us"],
-            top_device_ms_per_step={n: t / 1e3 for n, t in top})
+        for label, key in (("lm_prefill", "params"),
+                           ("lm_prefill_bf16", "params16")):
+            w = profiled(lambda: state["prefill"](state[key], state["batch"]),
+                         1, host=False)
+            wkv_us = sum(t for n, t in w["by_name"].items()
+                         if n.startswith("wkv_chunk"))
+            top = sorted(w["by_name"].items(), key=lambda kv: -kv[1])[:8]
+            out[label] = dict(
+                step_ms=w["wall_us"] / 1e3,
+                device_ms_per_step=w["busy_us"] / 1e3,
+                idle_share=1.0 - w["busy_us"] / w["wall_us"],
+                device_events=w["count"], wkv_ms=wkv_us / 1e3,
+                wkv_share=wkv_us / w["busy_us"],
+                top_device_ms_per_step={n: t / 1e3 for n, t in top})
         out["lm_decode_step"] = step_profile(
             lambda: state["serve_step"](state["params"], state["cache"],
                                         state["step_batch"]))
@@ -1382,6 +1625,131 @@ def int8_grads_equal_fp32_on_dequant(trainer, batch):
                              f"losses {loss8.item()!r} {loss32.item()!r}, "
                              f"gradients differ in {bad}")
     return loss8.item()
+
+
+def step_plans(batch, num_relations, layout):
+    """Every trainer's packed scatter plans of a stacked mini-batch, built
+    where the batch lies from its own ids (``segment_plan``): the
+    comp-graph edges' and the sharded table gradient's (flat ``S·rows``
+    rows). A step builds these at first use; the placements below also
+    ship them with the batch."""
+    import torch
+    from repro_torch.kernels.ops import flat_gather_plan
+    from repro_torch.kernels.rgcn_message import segment_plan
+    per = []
+    v = batch["gather_global"].shape[1]
+    for i in range(batch["comp_src"].shape[0]):
+        flat, own = flat_gather_plan(batch["shard_local_ids"][i],
+                                     batch["shard_owned"][i],
+                                     layout.rows_per_shard)
+        per.append({
+            "plan_src": segment_plan(batch["comp_src"][i],
+                                     batch["comp_mask"][i], v),
+            "plan_dst": segment_plan(batch["comp_dst"][i], None, v),
+            "plan_rel": segment_plan(batch["comp_rel"][i], None,
+                                     num_relations),
+            "plan_table": segment_plan(flat, own, layout.padded_rows)})
+    return {k: torch.stack([p[k].pack() for p in per]) for k in per[0]}
+
+
+def plan_cost(trainer, batch):
+    """The scatter plans one mini-batch step builds on the card at first
+    use (every trainer's edge arrays and table gradient): their count,
+    bytes and device time per step."""
+    lay, r = trainer.pipeline.table_layout, trainer.train_kg.num_relations
+    plans = step_plans(batch, r, lay)
+    return dict(plans=sum(p.shape[0] for p in plans.values()),
+                bytes=sum(p.numel() * 8 for p in plans.values()),
+                device_ms=device_ms(lambda: step_plans(batch, r, lay),
+                                    reps=4))
+
+
+def plan_placements(trainer, rounds=4):
+    """The async mini-batch epoch with the step's scatter plans built in
+    three places, alternated on one trainer (parameters carry on from
+    epoch to epoch): ``step``, the port's own (the pipeline ships none and
+    the step builds each on the card at first use); ``copy``, on the card
+    with the batch's copy, on the copy stream; ``host``, numpy
+    (``segment_plan_host``) in the collator, copied with the batch.
+    ``rounds`` epochs each of the first two, two of the third. First the
+    host plans of one batch are held bitwise against the card's. Returns
+    each placement's epochs: t_epoch, t_device_step, host build and wall
+    s."""
+    import types
+    import torch
+    from repro_torch.data import pipeline as P
+    from repro_torch.kernels.ops import flat_gather_plan
+    from repro_torch.kernels.rgcn_message import segment_plan_host
+    pipe = trainer.pipeline
+    lay, r = pipe.table_layout, trainer.train_kg.num_relations
+    if lay is None or pipe.dedup_gather:
+        raise AssertionError("plan_placements takes a sharded table's "
+                             "gather without dedup")
+
+    def host_plans(h):
+        per = []
+        for i in range(h["comp_src"].shape[0]):
+            p = P.edge_plans_host(h["comp_src"][i], h["comp_rel"][i],
+                                  h["comp_dst"][i], h["comp_mask"][i],
+                                  h["gather_global"].shape[1], r)
+            flat, own = flat_gather_plan(
+                torch.from_numpy(h["shard_local_ids"][i]),
+                torch.from_numpy(h["shard_owned"][i]), lay.rows_per_shard)
+            p["plan_table"] = segment_plan_host(flat.numpy(), own.numpy(),
+                                                lay.padded_rows)
+            per.append(p)
+        return {k: np.stack([p[k] for p in per]) for k in per[0]}
+
+    def host_batch_planned(self, mb):
+        h = P.host_batch(mb, lay, False)
+        h.update(host_plans(h))
+        return h
+
+    base = P.BatchTransfer
+
+    class PlanningTransfer(base):
+        def put(self, arrays):
+            tensors, event = super().put(arrays)
+            if self.stream is None:      # the CPU
+                tensors.update(step_plans(tensors, r, lay))
+                return tensors, event
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self.stream):
+                tensors.update(step_plans(tensors, r, lay))
+                event.record(self.stream)
+            return tensors, event
+
+    def use(name):
+        pipe.__dict__.pop("_host_batch", None)
+        P.BatchTransfer = PlanningTransfer if name == "copy" else base
+        if name == "host":
+            pipe._host_batch = types.MethodType(host_batch_planned, pipe)
+
+    it = pipe.epoch_batches(1)
+    mb0 = next(iter(it))
+    it.close()
+    dev = P.to_device_batch(mb0, pipe.device, lay)
+    want = step_plans(dev, r, lay)
+    got = host_plans(P.host_batch(mb0, lay, False))
+    bad = [k for k, v in got.items()
+           if not np.array_equal(v, want[k].cpu().numpy())]
+    if sorted(got) != sorted(want) or bad:
+        raise AssertionError(f"host plans != card plans: {bad}")
+    order = (["step", "host", "copy", "copy", "host", "step"]
+             + ["step", "copy", "copy", "step"] * (rounds // 2 - 1))
+    out = {k: [] for k in ("step", "copy", "host")}
+    try:
+        for name in order:
+            use(name)
+            t0 = time.perf_counter()
+            rec = trainer.train_epoch()
+            out[name].append(dict(t_epoch=rec["t_epoch"],
+                                  t_device_step=rec["t_device_step"],
+                                  t_host_build=rec["t_host_build"],
+                                  wall_s=time.perf_counter() - t0))
+    finally:
+        use("step")
+    return out
 
 
 def first_batch(trainer, epoch):
@@ -1531,6 +1899,7 @@ def main() -> int:
               ("rank_S4", rank_rows, d, 256)]
     gather_widths = [("fb15k237", n, d),
                      ("citation2", CITATION2["entities"], CITATION2["dim"])]
+    kge_v1_cases = check_kge_score_v1(dev, rng)
     phase2 = {"kge_score": check_kge_score(dev, rng, widths),
               "topk": check_topk(dev, rng, widths[:3]),
               "fused_gather": check_fused_gather(dev, rng, gather_widths,
@@ -1651,6 +2020,24 @@ def main() -> int:
                                                                0))
     log(f"[phase 6] two runs of one full-graph step (kernel encoder): "
         f"loss {fg_loss!r} and every parameter bitwise equal")
+    plain_tr = train["plain"]["trainer"]
+    fg_plain_loss = two_runs_bitwise(
+        plain_tr, first_batch(plain_tr, epochs + 1),
+        lambda: plain_tr.step_generators(epochs + 1, 0))
+    log(f"[phase 6] two runs of one full-graph step (default path, no "
+        f"--use-kernel): loss {fg_plain_loss!r} and every parameter bitwise "
+        f"equal")
+    # the kernel path's steady step is no slower than the plain path's
+    fg_step = {k: float(np.mean([h["t_device_step"]
+                                 for h in r["history"][1:]]))
+               for k, r in train.items()}
+    log(f"[phase 6] steady full-graph t_device_step (epochs 2-{epochs}): "
+        f"kernel {1e3 * fg_step['kernel']:.2f} ms, plain "
+        f"{1e3 * fg_step['plain']:.2f} ms")
+    if fg_step["kernel"] > fg_step["plain"]:
+        raise AssertionError(f"full-graph: the kernel path's step "
+                             f"{fg_step['kernel']} s > the plain path's "
+                             f"{fg_step['plain']} s")
 
     # phase 6b: the mini-batch path; counts reset and read inside train_once
     mb = {"main": train_once(MB_ARGV + MB_MAIN)}
@@ -1685,6 +2072,32 @@ def main() -> int:
     log("[phase 6b] per-step losses and final parameters bitwise equal for "
         "--table-shards 1 and 4, --pipeline serial and async, with and "
         f"without --gather-dedup; kernel vs plain encoder within {LOSS_TOL}")
+    # the default path (no --use-kernel): 1 shard == 4 shards and serial
+    # == async, bitwise
+    plain_losses = mb["plain"]["history"][0]["losses"]
+    for label in ("plain_S1", "plain_serial"):
+        got = mb[label]["history"][0]["losses"]
+        bad = bitwise_mismatch(mb["plain"]["trainer"], mb[label]["trainer"])
+        if got != plain_losses or bad:
+            raise AssertionError(f"mini-batch default path {label} != "
+                                 f"plain: losses {got} vs {plain_losses}, "
+                                 f"params {bad}")
+    log("[phase 6b] default path (no --use-kernel): per-step losses and "
+        "final parameters bitwise equal for --table-shards 1 and 4, "
+        "--pipeline serial and async")
+    # the kernel path's epoch device step against the plain path's, both
+    # on the serial pipeline (on the async one both steps wait on the
+    # host, whose threads build the next batches: its pair is printed)
+    mb_step = {k: mb[k]["history"][0]["t_device_step"]
+               for k in ("serial", "plain_serial", "main", "plain")}
+    log(f"[phase 6b] mini-batch epoch t_device_step, serial pipeline: "
+        f"kernel {mb_step['serial']:.3f} s, plain "
+        f"{mb_step['plain_serial']:.3f} s; async pipeline: kernel "
+        f"{mb_step['main']:.3f} s, plain {mb_step['plain']:.3f} s")
+    if mb_step["serial"] > mb_step["plain_serial"]:
+        raise AssertionError(f"mini-batch: the kernel path's epoch device "
+                             f"step {mb_step['serial']} s > the plain "
+                             f"path's {mb_step['plain_serial']} s")
     from repro_torch.eval.ranking import evaluate_both_directions
     emb_mb = main_tr.encode_all_entities()
     if emb_mb.shape != (FB15K["entities"], FB15K["dim"]) or \
@@ -1707,6 +2120,30 @@ def main() -> int:
                                lambda: main_tr.step_generators(2, 0))
     log(f"[phase 6b] two runs of one mini-batch step: loss {mb_loss!r} and "
         f"every parameter bitwise equal")
+    plain_mb = mb["plain"]["trainer"]
+    mb_plain_loss = two_runs_bitwise(plain_mb, first_batch(plain_mb, 2),
+                                     lambda: plain_mb.step_generators(2, 0))
+    log(f"[phase 6b] two runs of one mini-batch step (default path): loss "
+        f"{mb_plain_loss!r} and every parameter bitwise equal")
+    plans = plan_cost(main_tr, mb_batch)
+    log(f"[phase 6b] scatter plans of one mini-batch step "
+        f"({plans['plans']} id arrays, {plans['bytes'] / 1e6:.2f} MB), "
+        f"built by the step on the card at first use: "
+        f"{plans['device_ms']:.4f} ms of device time per step")
+    # where the plans are built, on the default path and the kernel path:
+    # the async epoch with each placement, alternated
+    placements = {}
+    for label, tr in (("plain", mb["plain"]["trainer"]), ("kernel", main_tr)):
+        placements[label] = plan_placements(tr)
+        for name, runs in placements[label].items():
+            log(f"[phase 6b] {label} path, async epoch with the plans built "
+                f"{PLACEMENT[name]}: t_epoch "
+                f"{[round(x['t_epoch'], 3) for x in runs]} s, device step "
+                f"{[round(x['t_device_step'], 3) for x in runs]} s, host "
+                f"build {[round(x['t_host_build'], 3) for x in runs]} s, "
+                f"wall {[round(x['wall_s'], 3) for x in runs]} s")
+    log("[phase 6b] host-built plans == card-built plans, bitwise, on one "
+        "batch of each path")
 
     # phase 6c: the int8 mini-batch path; counts reset and read inside
     # train_once
@@ -1813,7 +2250,9 @@ def main() -> int:
         profiles[f"train_step_{label}"] = p
         log(f"[phase 7] train step ({label} encoder): {p['step_ms']:.3f} ms, "
             f"device busy {p['device_ms_per_step']:.3f} ms, idle share "
-            f"{p['idle_share']:.3f}; top {p['top_device_ms_per_step']}")
+            f"{p['idle_share']:.3f}, sort kernels "
+            f"{p['sort_ms_per_step']:.4f} ms; top "
+            f"{p['top_device_ms_per_step']}")
     p = step_profile(trainer.encode_all_entities)
     profiles["eval_encode_kernel"] = p
     log(f"[phase 7] eval encode (kernel encoder): {p['step_ms']:.3f} ms, "
@@ -1823,6 +2262,15 @@ def main() -> int:
     p = step_profile(lambda: main_tr.step(mb_batch, gens))
     profiles["minibatch_step_kernel"] = p
     log(f"[phase 7] mini-batch step (4-shard table, kernel encoder): "
+        f"{p['step_ms']:.3f} ms, device busy {p['device_ms_per_step']:.3f} "
+        f"ms, idle share {p['idle_share']:.3f}, sort kernels "
+        f"{p['sort_ms_per_step']:.4f} ms (every plan of the step); top "
+        f"{p['top_device_ms_per_step']}")
+    plain_mb = mb["plain"]["trainer"]
+    gens_p = plain_mb.step_generators(2, 0)
+    p = step_profile(lambda: plain_mb.step(mb_batch, gens_p))
+    profiles["minibatch_step_plain"] = p
+    log(f"[phase 7] mini-batch step (4-shard table, plain encoder): "
         f"{p['step_ms']:.3f} ms, device busy {p['device_ms_per_step']:.3f} "
         f"ms, idle share {p['idle_share']:.3f}; top "
         f"{p['top_device_ms_per_step']}")
@@ -1891,7 +2339,14 @@ def main() -> int:
                        "int8_ranking": {"S4": int8_s4, "S1": int8_s1,
                                         "fp32": fp32_m, "mrr_drift": drift},
                        "fullgraph_two_run_loss": fg_loss,
+                       "fullgraph_plain_two_run_loss": fg_plain_loss,
                        "minibatch_two_run_loss": mb_loss,
+                       "minibatch_plain_two_run_loss": mb_plain_loss,
+                       "fullgraph_steady_step_s": fg_step,
+                       "minibatch_epoch_device_step_s": mb_step,
+                       "minibatch_plans": plans,
+                       "minibatch_plan_placements": placements,
+                       "kge_score_first_kernel_cases": kge_v1_cases,
                        "minibatch_int8_two_run_loss": mb8_loss,
                        "embedding_max_abs_diff": emb_err,
                        "lm": lm,

@@ -53,6 +53,7 @@ from repro_torch.core.minibatch import (
     BatchBudget, EdgeMiniBatch, _PartitionCSR, iterate_edge_minibatches,
     stack_minibatches,
 )
+from repro_torch.kernels.rgcn_message import segment_plan_host
 from repro_torch.sharding.embedding import (
     ShardedGatherPlan, ShardedTableLayout,
 )
@@ -488,14 +489,52 @@ def make_input_pipeline(
 # ====================================================================== #
 # Full-graph pipeline (the paper's FB15k-237 configuration)
 # ====================================================================== #
+@dataclasses.dataclass(frozen=True)
+class PlanSizes:
+    """What the resident batch's scatter plans are sized by: the relations
+    (rows of a layer's relation table) and the rows of a dense entity
+    table (``None``: a feature-mode model or a row-sharded table, whose
+    gather the encoder plans in-graph)."""
+
+    num_relations: int
+    table_rows: Optional[int] = None
+
+
+def edge_plans_host(src: np.ndarray, rel: np.ndarray, dst: np.ndarray,
+                    edge_mask: np.ndarray, num_vertices: int,
+                    num_relations: int) -> Dict[str, np.ndarray]:
+    """The packed segment plans of one partition's edges, built on the
+    host: the encoder's ``EdgePlans``, ``plan_src`` (heads, masked edges
+    left out: the segment sum), ``plan_dst`` and ``plan_rel`` (every edge:
+    the scatter-adds of the gathered rows' cotangents)."""
+    return {"plan_src": segment_plan_host(src, edge_mask, num_vertices),
+            "plan_dst": segment_plan_host(dst, None, num_vertices),
+            "plan_rel": segment_plan_host(rel, None, num_relations)}
+
+
 class FullGraphPipeline:
     """One full-edge batch per epoch, resident on ``device``. With a
     row-sharded table the encoder plans the gather in-graph (the plan of
-    ``local_to_global`` is the same every epoch)."""
+    ``local_to_global`` is the same every epoch). The resident batch also
+    carries every partition's edge plans (:func:`edge_plans_host`) and a
+    dense table's gradient plan, built once on the host: the edges never
+    change, so no step plans them. (A mini-batch's step builds its own, on
+    the card: built on the host, the plans slowed the async epoch.)"""
 
-    def __init__(self, padded: PaddedPartitionBatch, device: torch.device):
+    def __init__(self, padded: PaddedPartitionBatch, device: torch.device,
+                 plan_sizes: PlanSizes):
         self.device = torch.device(device)
-        self._host = padded_fields(padded)
+        h = self._host = padded_fields(padded)
+        plans = [edge_plans_host(h["src"][i], h["rel"][i], h["dst"][i],
+                                 h["edge_mask"][i],
+                                 h["local_to_global"].shape[1],
+                                 plan_sizes.num_relations)
+                 for i in range(h["src"].shape[0])]
+        h.update({k: np.stack([p[k] for p in plans]) for k in plans[0]})
+        if plan_sizes.table_rows is not None:
+            h["plan_table"] = np.stack([
+                segment_plan_host(g, None, plan_sizes.table_rows)
+                for g in h["local_to_global"]])
         self._device: Optional[Dict[str, torch.Tensor]] = None
         self._stats = PipelineStats()
 

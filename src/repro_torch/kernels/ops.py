@@ -10,12 +10,14 @@ sliced results.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.kge_score import kge_score
-from repro_torch.kernels.rgcn_message import basis_message, segment_sum
+from repro_torch.kernels.rgcn_message import (
+    SegmentPlan, basis_message, segment_plan, segment_sum,
+)
 from repro_torch.kernels.sharded_gather import (
     fused_dequant_gather, fused_gather, scatter_add_onehot,
 )
@@ -28,14 +30,16 @@ from repro_torch.sharding.embedding import quantize_rows
 class _GatherRows(torch.autograd.Function):
     """``table[ids]`` over the leading axis, masked to zero rows where
     ``owned`` is false; its backward scatters the cotangents of the owned
-    slots back with :func:`scatter_add_onehot`, whose sum order is fixed
-    by the data (no float atomics), so gradients are the same bits on
-    every run. Forward: ``index_select`` without a mask, the
-    ``fused_gather`` kernel (the plain version on the CPU) with one."""
+    slots back with :func:`scatter_add_onehot` (over ``plan`` when one is
+    given), whose sum order is fixed by the data (no float atomics), so
+    gradients are the same bits on every run. Forward: ``index_select``
+    without a mask, the ``fused_gather`` kernel (the plain version on the
+    CPU) with one."""
 
     @staticmethod
-    def forward(ctx, table, ids, owned, check):
+    def forward(ctx, table, ids, owned, check, plan):
         ctx.table_shape = table.shape
+        ctx.plan = plan
         ctx.save_for_backward(ids, owned)
         rows = table.reshape(table.shape[0], -1)
         if owned is None:
@@ -49,8 +53,8 @@ class _GatherRows(torch.autograd.Function):
         ids, owned = ctx.saved_tensors
         shape = ctx.table_shape
         dt = scatter_add_onehot(g.reshape(ids.shape[0], -1).contiguous(),
-                                ids, owned, shape[0])
-        return dt.reshape(shape), None, None, None
+                                ids, owned, shape[0], plan=ctx.plan)
+        return dt.reshape(shape), None, None, None, None
 
 
 class _QuantizedGatherRows(_GatherRows):
@@ -61,60 +65,195 @@ class _QuantizedGatherRows(_GatherRows):
     ``rint``), the reference's ``_fsg_bwd``."""
 
     @staticmethod
-    def forward(ctx, table, ids, owned, check):
+    def forward(ctx, table, ids, owned, check, plan):
         ctx.table_shape = table.shape
+        ctx.plan = plan
         ctx.save_for_backward(ids, owned)
         codes, scales = quantize_rows(table)
         return fused_dequant_gather(codes, scales, ids, owned, check=check)
 
 
-def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, ids: torch.Tensor,
+                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """``table[ids]`` for ``(V,)`` ids over the leading axis of ``table``
     (any trailing shape), with the deterministic
     :func:`scatter_add_onehot` backward — the row gather of every training
-    path (entity table, vertex states, relation tables)."""
-    return _GatherRows.apply(table, ids.long(), None, True)
+    path (entity table, vertex states, relation tables). ``plan``: the
+    ``segment_plan`` of ``ids`` (no mask) into ``table``'s rows, when the
+    caller has it."""
+    return _GatherRows.apply(table, ids.long(), None, True, plan)
+
+
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd will differentiate through an op on ``tensors``:
+    a plan for its backward is then worth having."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class EdgePlans:
+    """The segment plans of one graph's edge arrays, shared by every layer
+    of an encode and by forward and backward: ``src`` (the heads, masked
+    edges left out: the segment sum), ``dst`` and ``rel`` (every edge: the
+    scatter-adds of the tail-state and relation-row cotangents). Each is
+    taken from ``given`` (the resident full-graph batch's, built once on
+    the host) or built on the card at first use and kept (a mini-batch
+    step's). On the CPU, whose plain versions take no plan, a plan not
+    given stays ``None``."""
+
+    def __init__(self, src: torch.Tensor, rel: torch.Tensor,
+                 dst: torch.Tensor, edge_mask: torch.Tensor,
+                 num_vertices: int, num_relations: int,
+                 given: Optional[Dict[str, SegmentPlan]] = None):
+        self.ids = {"src": (src, edge_mask, num_vertices),
+                    "dst": (dst, None, num_vertices),
+                    "rel": (rel, None, num_relations)}
+        self._plans = {k: v for k, v in (given or {}).items()
+                       if v is not None}
+
+    @classmethod
+    def from_batch(cls, batch: Mapping[str, torch.Tensor],
+                   src: torch.Tensor, rel: torch.Tensor, dst: torch.Tensor,
+                   edge_mask: torch.Tensor, num_vertices: int,
+                   num_relations: int) -> "EdgePlans":
+        """Plans over these arrays, with the packed ``plan_src``,
+        ``plan_dst`` and ``plan_rel`` entries of ``batch`` where it has
+        them."""
+        sizes = {"src": num_vertices, "dst": num_vertices,
+                 "rel": num_relations}
+        given = {k: SegmentPlan.unpack(batch[f"plan_{k}"], n)
+                 for k, n in sizes.items() if f"plan_{k}" in batch}
+        return cls(src, rel, dst, edge_mask, num_vertices, num_relations,
+                   given)
+
+    def __getitem__(self, name: str) -> Optional[SegmentPlan]:
+        plan = self._plans.get(name)
+        if plan is None:
+            ids, mask, n = self.ids[name]
+            if ids.device.type == "cpu":
+                return None
+            plan = self._plans[name] = segment_plan(ids, mask, n)
+        return plan
+
+
+class _SegmentSum(torch.autograd.Function):
+    """The masked segment sum of the plain RGCN path: forward
+    :func:`segment_sum` (the deterministic kernel on the card, the plain
+    ``index_add_`` on the CPU); backward the transposed gather
+    ``mask[e] · g[seg[e]]``, deterministic by construction. ``deg``
+    carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, msg, seg, edge_mask, num_segments, plan):
+        agg, deg = segment_sum(msg, seg, edge_mask, num_segments, plan=plan)
+        ctx.save_for_backward(seg, edge_mask)
+        ctx.mark_non_differentiable(deg)
+        return agg, deg
+
+    @staticmethod
+    def backward(ctx, g, _):
+        seg, edge_mask = ctx.saved_tensors
+        return _segment_gather(g, seg, edge_mask), None, None, None, None
+
+
+def _segment_gather(g: torch.Tensor, seg: torch.Tensor,
+                    edge_mask: torch.Tensor) -> torch.Tensor:
+    """``mask[e] · g[seg[e]]``: the transpose of the masked segment sum
+    (a masked edge's id is not read)."""
+    idx = torch.where(edge_mask, seg.long(), 0)
+    rows = torch.index_select(g, 0, idx)
+    return torch.where(edge_mask[:, None], rows, torch.zeros_like(rows))
+
+
+def segment_sum_op(msg: torch.Tensor, seg: torch.Tensor,
+                   edge_mask: torch.Tensor, num_segments: int,
+                   plan: Optional[SegmentPlan] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(agg (V, d), deg (V,))`` of the masked segment sum, differentiable
+    in ``msg`` with a deterministic backward. ``plan``: the
+    ``segment_plan`` of ``seg`` and ``edge_mask``, when the caller has
+    it."""
+    return _SegmentSum.apply(msg, seg, edge_mask, num_segments, plan)
 
 
 class _RGCNMessageBasis(torch.autograd.Function):
-    """Forward through the two kernels; backward through the plain formula
-    ``ref.rgcn_message_ref``, recomputed and differentiated (the reference's
-    ``_rgcn_bwd``), whose gathers scatter their gradients back through
-    ``scatter_add_onehot``."""
+    """Forward through the two kernels; backward written out by hand (the
+    reference differentiates the plain formula, ``_rgcn_bwd``, and XLA
+    drops the recomputed forward the gradient never reads; eager PyTorch
+    would run it). With ``h_t = h[dst]``, ``c = coeffs[rel]`` and the
+    forward's degrees::
+
+        dmsg[e]    = mask[e] · g[src[e]] / max(deg[src[e]], 1)
+        t[e, b]    = dmsg[e] @ bases[b]^T
+        dh_t[e]    = Σ_b c[e, b] · t[e, b]
+        dcoef[e,b] = h_t[e] · t[e, b]      (= (h_t[e] @ bases[b]) · dmsg[e])
+        dbases[b]  = h_t^T @ (c[:, b] · dmsg)
+        dh         = scatter_add_onehot(dh_t, dst)
+        dcoeffs    = scatter_add_onehot(dcoef, rel)
+
+    The dense products are the ones XLA runs outside any Pallas kernel in
+    the reference's VJP (``torch.matmul``); the two scatters are the
+    deterministic ``scatter_add_onehot`` over the step's shared plans."""
 
     @staticmethod
-    def forward(ctx, h, src, rel, dst, edge_mask, bases, coeffs):
-        ctx.save_for_backward(h, src, rel, dst, edge_mask, bases, coeffs)
+    def forward(ctx, h, src, rel, dst, edge_mask, bases, coeffs, plans):
         # the gathers stay outside the kernels, as XLA held them in JAX
-        msg = basis_message(torch.index_select(h, 0, dst),
-                            torch.index_select(coeffs, 0, rel),
-                            bases.contiguous(), edge_mask)
-        agg, deg = segment_sum(msg, src, edge_mask, h.shape[0])
+        h_t = torch.index_select(h, 0, dst)
+        c = torch.index_select(coeffs, 0, rel)
+        msg = basis_message(h_t, c, bases.contiguous(), edge_mask)
+        agg, deg = segment_sum(msg, src, edge_mask, h.shape[0],
+                               plan=None if plans is None else plans["src"])
+        ctx.save_for_backward(h_t, c, src, rel, dst, edge_mask, bases, deg)
+        ctx.plans = plans
+        ctx.sizes = (h.shape[0], coeffs.shape[0])
         return agg / torch.clamp_min(deg, 1.0)[:, None]
 
     @staticmethod
     def backward(ctx, g):
-        h, src, rel, dst, edge_mask, bases, coeffs = ctx.saved_tensors
-        from repro_torch.kernels import ref
-        with torch.enable_grad():
-            inputs = [x.detach().requires_grad_()
-                      for x in (h, bases, coeffs)]
-            out = ref.rgcn_message_ref(inputs[0], src, rel, dst, edge_mask,
-                                       inputs[1], inputs[2])
-            dh, dbases, dcoeffs = torch.autograd.grad(out, inputs, g)
-        return dh, None, None, None, None, dbases, dcoeffs
+        h_t, c, src, rel, dst, edge_mask, bases, deg = ctx.saved_tensors
+        num_v, num_r = ctx.sizes
+        plans = ctx.plans
+        nb, d_in, d_out = bases.shape
+        e = h_t.shape[0]
+        dmsg = _segment_gather(g / torch.clamp_min(deg, 1.0)[:, None], src,
+                               edge_mask)
+        need_h, need_bases, need_coeffs = (ctx.needs_input_grad[0],
+                                           ctx.needs_input_grad[5],
+                                           ctx.needs_input_grad[6])
+        dh = dbases = dcoeffs = None
+        if need_h or need_coeffs:
+            # t[e, b, i] = Σ_o dmsg[e, o] · bases[b, i, o]: one product
+            t = (dmsg @ bases.permute(2, 0, 1).reshape(d_out, nb * d_in)
+                 ).reshape(e, nb, d_in)
+        if need_h:
+            dh_t = (t * c[:, :, None]).sum(dim=1)
+            dh = scatter_add_onehot(
+                dh_t, dst.long(), None, num_v,
+                plan=None if plans is None else plans["dst"])
+        if need_coeffs:
+            dcoef = (t * h_t[:, None, :]).sum(dim=2)
+            dcoeffs = scatter_add_onehot(
+                dcoef, rel.long(), None, num_r,
+                plan=None if plans is None else plans["rel"])
+        if need_bases:
+            # dbases[b] = h_t^T @ (c[:, b] · dmsg): one product for all b
+            cm = (c[:, :, None] * dmsg[:, None, :]).reshape(e, nb * d_out)
+            dbases = (h_t.T @ cm).reshape(d_in, nb, d_out).permute(1, 0, 2)
+        return dh, None, None, None, None, dbases, dcoeffs, None
 
 
 def rgcn_message_basis(h: torch.Tensor, src: torch.Tensor, rel: torch.Tensor,
                        dst: torch.Tensor, edge_mask: torch.Tensor,
-                       bases: torch.Tensor, coeffs: torch.Tensor
-                       ) -> torch.Tensor:
+                       bases: torch.Tensor, coeffs: torch.Tensor,
+                       plans: Optional[EdgePlans] = None) -> torch.Tensor:
     """Fused RGCN message layer: gather → ``basis_message`` →
     ``segment_sum`` → mean, for ``(V, d_in)`` states ``h``, ``(E,)`` heads
     ``src`` (segments), relations ``rel``, tails ``dst`` and bool
     ``edge_mask``, ``(B, d_in, d_out)`` bases and ``(R, B)`` coefficients →
-    ``(V, d_out)``. Differentiable in ``h``, ``bases`` and ``coeffs``."""
-    return _RGCNMessageBasis.apply(h, src, rel, dst, edge_mask, bases, coeffs)
+    ``(V, d_out)``. Differentiable in ``h``, ``bases`` and ``coeffs``.
+    ``plans``: the :class:`EdgePlans` of these edge arrays, shared with
+    the other layers of the encode."""
+    return _RGCNMessageBasis.apply(h, src, rel, dst, edge_mask, bases, coeffs,
+                                   plans)
 
 
 def kge_score_padded(q: torch.Tensor, candidates: torch.Tensor,
@@ -177,7 +316,8 @@ def flat_gather_plan(local_ids: torch.Tensor, owned: torch.Tensor,
 
 
 def fused_sharded_gather(table: torch.Tensor, local_ids: torch.Tensor,
-                         owned: torch.Tensor, *, check: bool = True
+                         owned: torch.Tensor, *, check: bool = True,
+                         plan: Optional[SegmentPlan] = None
                          ) -> torch.Tensor:
     """``(V, d)`` rows of an ``(S, rows, d)`` row-sharded stack from an
     ``(S, V)`` per-shard plan: the take → mask → sum exchange as one masked
@@ -191,12 +331,13 @@ def fused_sharded_gather(table: torch.Tensor, local_ids: torch.Tensor,
     flat row of a slot is its global id under the row-block layout, so the
     gradient is bitwise the dense gather's (:func:`gather_rows`). ``check``
     as in ``fused_gather``: serving checks every call, training once per
-    step."""
+    step. ``plan``: the ``segment_plan`` of the flat rows and ownership
+    into the ``S·rows`` stacked rows, when the caller has it."""
     s, rows, d = table.shape
     flat, any_owned = flat_gather_plan(local_ids, owned, rows)
     return _GatherRows.apply(table.reshape(s * rows, d),
                              flat.to(table.device),
-                             any_owned.to(table.device), check)
+                             any_owned.to(table.device), check, plan)
 
 
 def masked_take(table: torch.Tensor, local_ids: torch.Tensor,
@@ -206,7 +347,7 @@ def masked_take(table: torch.Tensor, local_ids: torch.Tensor,
     backward scatters only the owned slots' cotangents into the shard (an
     unowned slot's masked cotangent is zero, so leaving it out changes no
     value, and each row's sum stays the one the fused gather forms)."""
-    return _GatherRows.apply(table, local_ids.long(), owned, check)
+    return _GatherRows.apply(table, local_ids.long(), owned, check, None)
 
 
 def dequant_sharded_gather(codes: torch.Tensor, scales: torch.Tensor,
@@ -225,20 +366,22 @@ def dequant_sharded_gather(codes: torch.Tensor, scales: torch.Tensor,
 
 
 def quantized_sharded_gather(table: torch.Tensor, local_ids: torch.Tensor,
-                             owned: torch.Tensor, *, check: bool = True
+                             owned: torch.Tensor, *, check: bool = True,
+                             plan: Optional[SegmentPlan] = None
                              ) -> torch.Tensor:
     """The int8 training gather: ``(V, d)`` rows of the fp32 master stack
     ``(S, rows, d)``, quantized row-wise in the step and gathered through
     ``fused_dequant_gather``. Differentiable in ``table`` with the
     straight-through backward, the same scatter-add as
     :func:`fused_sharded_gather`'s, so master gradients are bitwise the
-    fp32 path's on the dequantized master. ``check`` as in
-    ``fused_gather``."""
+    fp32 path's on the dequantized master. ``check`` and ``plan`` as in
+    :func:`fused_sharded_gather`."""
     s, rows, d = table.shape
     flat, any_owned = flat_gather_plan(local_ids, owned, rows)
     return _QuantizedGatherRows.apply(table.reshape(s * rows, d),
                                       flat.to(table.device),
-                                      any_owned.to(table.device), check)
+                                      any_owned.to(table.device), check,
+                                      plan)
 
 
 def wkv_chunked_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -42,8 +42,8 @@ def rgcn_message_ref(h: torch.Tensor, src: torch.Tensor, rel: torch.Tensor,
                      bases: torch.Tensor, coeffs: torch.Tensor
                      ) -> torch.Tensor:
     """The fused op's formula: gather → basis message → segment MEAN. The
-    gathers are ``gather_rows``, so the gradient of the recompute in
-    ``ops.rgcn_message_basis``'s backward is deterministic on the card."""
+    gathers are ``gather_rows``, so its gradient is deterministic on the
+    card."""
     msg = basis_message_ref(gather_rows(h, dst), gather_rows(coeffs, rel),
                             bases, edge_mask)
     agg, deg = segment_mean_ref(msg, src, edge_mask, h.shape[0])

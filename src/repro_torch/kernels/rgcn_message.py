@@ -14,14 +14,21 @@ E and V padded to 128; these take any E and V.
 bits: :func:`segment_plan` sorts the edges stably by segment (masked edges
 last) and cuts each segment into chunks of ``CHUNK`` edges; the kernel adds
 each chunk's rows in ascending edge order, then each segment's chunk sums
-in chunk order. The plan is index bookkeeping done with PyTorch calls (the
-TPU kernel has no counterpart of it).
+in chunk order. The plan is index bookkeeping (the TPU kernel has no
+counterpart of it) and a value of its own, :class:`SegmentPlan`: it
+depends on the ids alone, so one plan serves every segment sum and
+``scatter_add_onehot`` over the same ids in a step: a mini-batch step
+builds each on the card at first use, sorting the keys in the narrowest
+integer type that holds them, and the resident full-graph batch carries
+its plans, built once on the host (:func:`segment_plan_host`, the same
+arrays).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -107,7 +114,7 @@ basis_message.launches = 0
 
 
 # ---------------------------------------------------------------------- #
-# segment_sum
+# segment_sum and its plan
 # ---------------------------------------------------------------------- #
 def segment_key(seg: torch.Tensor, edge_mask: Optional[torch.Tensor],
                 num_segments: int) -> torch.Tensor:
@@ -142,22 +149,103 @@ def segment_sum_plain(msg: torch.Tensor, seg: torch.Tensor,
     return agg[:num_segments], deg
 
 
+class SegmentPlan(NamedTuple):
+    """The sort plan of one id array: ``perm`` (E,) the stable sort of the
+    slots by id (masked slots last, under the sentinel), ``offsets`` (V+1,)
+    each id's span ``offsets[v] .. offsets[v+1]`` of ``perm`` and
+    ``chunk_ptr`` (V+1,) its chunks of ``CHUNK`` sorted slots; all int64.
+
+    A plan depends only on the ids, the mask and V, so one plan serves
+    every segment sum and scatter-add over the same ids in a step (both
+    RGCN layers, forward and backward). A stable sort of the same keys is
+    unique, so a plan built on the host (:func:`segment_plan_host`) is the
+    card's (:func:`segment_plan`) array for array."""
+
+    perm: torch.Tensor
+    offsets: torch.Tensor
+    chunk_ptr: torch.Tensor
+
+    @property
+    def num_segments(self) -> int:
+        return self.offsets.shape[0] - 1
+
+    def pack(self) -> torch.Tensor:
+        """One int64 array ``offsets ‖ chunk_ptr ‖ perm``: a plan travels in
+        a batch dict as one tensor."""
+        return torch.cat([self.offsets, self.chunk_ptr, self.perm])
+
+    @classmethod
+    def unpack(cls, packed: torch.Tensor, num_segments: int
+               ) -> "SegmentPlan":
+        """Views into a :meth:`pack`-ed plan of ``num_segments`` ids."""
+        n = num_segments + 1
+        return cls(packed[2 * n:], packed[:n], packed[n:2 * n])
+
+
+def _narrow_key(key: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The keys in the narrowest signed type that holds the sentinel: a
+    radix sort of 16 or 32 bits takes 2 or 4 passes where int64 takes 8,
+    and gives the same stable permutation."""
+    if num_segments < 2 ** 15:
+        return key.to(torch.int16)
+    if num_segments < 2 ** 31:
+        return key.to(torch.int32)
+    return key
+
+
 def segment_plan(seg: torch.Tensor, edge_mask: Optional[torch.Tensor],
-                 num_segments: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(perm, offsets, chunk_ptr)``: the stable sort of the edges by
-    segment (masked edges last), each segment's span ``offsets[v] ..
-    offsets[v+1]`` of ``perm``, and its chunks ``chunk_ptr[v] ..
-    chunk_ptr[v+1]`` of ``CHUNK`` sorted edges. All int64, on ``seg``'s
-    device, with no host synchronisation."""
+                 num_segments: int) -> SegmentPlan:
+    """The :class:`SegmentPlan` of ``seg`` (masked edges last), on
+    ``seg``'s device, with no host synchronisation."""
     key = segment_key(seg, edge_mask, num_segments)
-    perm = torch.argsort(key, stable=True)
+    perm = torch.argsort(_narrow_key(key, num_segments), stable=True)
     counts = segment_counts(key, num_segments)
     zero = torch.zeros(1, dtype=torch.long, device=seg.device)
     offsets = torch.cat([zero, torch.cumsum(counts, 0)])
     chunk_ptr = torch.cat([zero, torch.cumsum((counts + CHUNK - 1) // CHUNK,
                                               0)])
-    return perm, offsets, chunk_ptr
+    return SegmentPlan(perm, offsets, chunk_ptr)
+
+
+def segment_plan_host(seg: np.ndarray, edge_mask: Optional[np.ndarray],
+                      num_segments: int) -> np.ndarray:
+    """:func:`segment_plan` in numpy, packed (:meth:`SegmentPlan.pack`):
+    the plans the resident full-graph batch carries, built once on the
+    host. Keys below 2**16 sort as ``uint16`` (numpy's stable sort is a
+    radix sort there), the same permutation as any stable sort."""
+    n = num_segments + 1
+    key = np.asarray(seg)
+    if edge_mask is not None:
+        key = np.where(edge_mask, key, num_segments)
+    key = key.astype(np.uint16 if num_segments < 2 ** 16 else np.int64,
+                     copy=False)
+    out = np.empty(2 * n + key.shape[0], np.int64)
+    counts = np.bincount(key, minlength=n)[:num_segments]
+    out[0] = out[n] = 0
+    np.cumsum(counts, out=out[1:n])
+    np.cumsum((counts + CHUNK - 1) // CHUNK, out=out[n + 1:2 * n])
+    out[2 * n:] = np.argsort(key, kind="stable")
+    return out
+
+
+def check_plan(kernel: str, plan: SegmentPlan, seg: torch.Tensor,
+               edge_mask: Optional[torch.Tensor], num_segments: int) -> None:
+    """Raise unless ``plan`` is the plan of these ids: on the CUDA path the
+    shapes (the plan is trusted), on the CPU path the arrays themselves
+    (the plain version takes no plan, so the CPU tests prove that each
+    caller hands every call the plan of its own ids)."""
+    e = seg.shape[0]
+    n = num_segments + 1
+    if (tuple(plan.perm.shape) != (e,) or tuple(plan.offsets.shape) != (n,)
+            or tuple(plan.chunk_ptr.shape) != (n,)):
+        raise ValueError(f"{kernel}: a plan of {plan.perm.shape[0]} slots "
+                         f"and {plan.num_segments} segments for {e} slots "
+                         f"and {num_segments} segments")
+    if seg.device.type != "cpu":
+        return
+    want = segment_plan(seg, edge_mask, num_segments)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(plan, want)):
+        raise ValueError(f"{kernel}: the plan is not the plan of these ids")
 
 
 def segment_sum_planned(msg: torch.Tensor, perm: torch.Tensor,
@@ -196,19 +284,25 @@ def segment_sum_planned(msg: torch.Tensor, perm: torch.Tensor,
 
 
 def segment_sum(msg: torch.Tensor, seg: torch.Tensor,
-                edge_mask: torch.Tensor, num_segments: int
+                edge_mask: torch.Tensor, num_segments: int,
+                plan: Optional[SegmentPlan] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(agg (V, d), deg (V,))`` of the masked segment sum — the plan and
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-    ``seg`` must lie in ``[0, V)`` on unmasked edges."""
+    """``(agg (V, d), deg (V,))`` of the masked segment sum — the CUDA
+    kernel for CUDA tensors (over ``plan``, the :func:`segment_plan` of
+    ``seg`` and ``edge_mask``, built here when not given), the plain
+    version for CPU tensors. ``seg`` must lie in ``[0, V)`` on unmasked
+    edges."""
+    if plan is not None:
+        check_plan("segment_sum", plan, seg, edge_mask, num_segments)
     if _build.on_cpu("segment_sum", msg, seg, edge_mask):
         return segment_sum_plain(msg, seg, edge_mask, num_segments)
     if msg.dim() != 2 or seg.shape != (msg.shape[0],) or \
             edge_mask.shape != seg.shape or edge_mask.dtype != torch.bool:
         raise ValueError("segment_sum: msg must be (E, d), seg (E,) and "
                          "edge_mask (E,) bool")
-    perm, offsets, chunk_ptr = segment_plan(seg, edge_mask, num_segments)
-    return segment_sum_planned(msg, perm, offsets, chunk_ptr, num_segments)
+    if plan is None:
+        plan = segment_plan(seg, edge_mask, num_segments)
+    return segment_sum_planned(msg, *plan, num_segments)
 
 
 segment_sum.launches = 0

@@ -37,7 +37,9 @@ CUDA tensors and runs its plain version for CPU tensors.
   a sentinel row) and each row's slots are added in slot order, in chunks,
   by the two passes the RGCN segment sum uses. So two runs give the same
   bits, and a row's sum depends only on which slots hit it and in what
-  order.
+  order. The plan is a value of its own: a caller that scatters over the
+  same ids more than once in a step (or holds the plan with a resident
+  batch) passes it in, and the call is then the two kernels alone.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.rgcn_message import (
-    CHUNK, segment_key, segment_plan,
+    CHUNK, SegmentPlan, check_plan, segment_key, segment_plan,
 )
 
 _SIGNATURES = {
@@ -228,13 +230,17 @@ def scatter_add_onehot_plain(g: torch.Tensor, flat_ids: torch.Tensor,
 
 
 def scatter_add_onehot(g: torch.Tensor, flat_ids: torch.Tensor,
-                       owned: Optional[torch.Tensor],
-                       num_rows: int) -> torch.Tensor:
+                       owned: Optional[torch.Tensor], num_rows: int,
+                       plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """``out[r] = Σ_v [flat_ids[v] == r ∧ owned[v]] · g[v]`` over ``(V, d)``
-    fp32 cotangents into ``(R, d)`` — the sort plan and the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors. ``owned=None`` owns
-    every slot; owned slots' ``flat_ids`` must lie in ``[0, R)``."""
+    fp32 cotangents into ``(R, d)`` — the CUDA kernel for CUDA tensors
+    (over ``plan``, the ``segment_plan`` of ``flat_ids`` and ``owned``,
+    built here when not given), the plain version for CPU tensors.
+    ``owned=None`` owns every slot; owned slots' ``flat_ids`` must lie in
+    ``[0, R)``."""
     tensors = (g, flat_ids) + (() if owned is None else (owned,))
+    if plan is not None:
+        check_plan("scatter_add_onehot", plan, flat_ids, owned, num_rows)
     if _build.on_cpu("scatter_add_onehot", *tensors):
         return scatter_add_onehot_plain(g, flat_ids, owned, num_rows)
     if g.dim() != 2:
@@ -252,7 +258,9 @@ def scatter_add_onehot(g: torch.Tensor, flat_ids: torch.Tensor,
                          f"R={r} below 2**31")
     if r == 0:
         return torch.empty((0, d), dtype=torch.float32, device=g.device)
-    return scatter_add_planned(g, *segment_plan(flat_ids, owned, r), r)
+    if plan is None:
+        plan = segment_plan(flat_ids, owned, r)
+    return scatter_add_planned(g, *plan, r)
 
 
 def scatter_add_planned(g: torch.Tensor, perm: torch.Tensor,

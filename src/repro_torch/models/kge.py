@@ -31,7 +31,8 @@ from torch import nn
 from repro_torch.core.negative import (
     constraint_based_negatives, global_closed_world_negatives, mix_pos_neg,
 )
-from repro_torch.kernels.ops import gather_rows
+from repro_torch.kernels.ops import EdgePlans, gather_rows
+from repro_torch.kernels.rgcn_message import SegmentPlan
 from repro_torch.models import decoders
 from repro_torch.models.rgcn import (
     RGCNConfig, TreeModule, glorot, init_rgcn_layers, rgcn_encode,
@@ -122,7 +123,8 @@ def vertex_input(params: Mapping, cfg: KGEConfig,
                  features: Optional[torch.Tensor],
                  shard_local_ids: Optional[torch.Tensor] = None,
                  shard_owned: Optional[torch.Tensor] = None,
-                 shard_inverse: Optional[torch.Tensor] = None
+                 shard_inverse: Optional[torch.Tensor] = None,
+                 plans: Optional[Mapping[str, torch.Tensor]] = None
                  ) -> torch.Tensor:
     """The per-vertex model input: learned embedding rows (transductive)
     or precomputed features (ogbl-citation2 style).
@@ -139,7 +141,18 @@ def vertex_input(params: Mapping, cfg: KGEConfig,
     With ``table_dtype="int8"`` every entity-table gather quantizes the
     fp32 master and gathers through the straight-through int8 gather; a
     dense ``(N, d)`` master is gathered as a one-shard stack, so the int8
-    values do not depend on the shard count."""
+    values do not depend on the shard count.
+
+    ``plans`` may hold the packed scatter plan of the table's gradient
+    (``plan_table``: into the table's rows, the flat ``S·rows`` of a
+    stacked one), as the resident full-graph batch carries a dense
+    table's."""
+    plans = plans or {}
+
+    def table_plan(rows):
+        return (SegmentPlan.unpack(plans["plan_table"], rows)
+                if "plan_table" in plans else None)
+
     if cfg.rgcn.feature_dim is None:
         table = params["entity_embedding"]
         table_dtype = cfg.rgcn.table_dtype
@@ -152,8 +165,11 @@ def vertex_input(params: Mapping, cfg: KGEConfig,
             return sharded_gather(table, shard_local_ids, shard_owned,
                                   exchange=cfg.rgcn.gather_exchange,
                                   inverse=shard_inverse, check=False,
-                                  table_dtype=table_dtype)
-        return gather_rows(table, gather_global)
+                                  table_dtype=table_dtype,
+                                  plan=table_plan(table.shape[0] *
+                                                  table.shape[1]))
+        return gather_rows(table, gather_global,
+                           table_plan(table.shape[0]))
     if features is None:
         raise ValueError("a feature-mode model needs features")
     return torch.index_select(features, 0, gather_global)
@@ -169,11 +185,12 @@ def _encode(params: Mapping, cfg: KGEConfig, part: Mapping[str, torch.Tensor],
             ) -> torch.Tensor:
     x = vertex_input(params, cfg, part["local_to_global"], features,
                      part.get("shard_local_ids"), part.get("shard_owned"),
-                     part.get("shard_inverse"))
+                     part.get("shard_inverse"), plans=part)
+    edges = (part["src"], part["rel"], part["dst"], part["edge_mask"])
     return rgcn_encode(params, cfg.rgcn, _masked(x, part["vertex_mask"]),
-                       part["src"], part["rel"],
-                       part["dst"], part["edge_mask"],
-                       dropout_generator=generator, train=train)
+                       *edges, dropout_generator=generator, train=train,
+                       plans=EdgePlans.from_batch(part, *edges, x.shape[0],
+                                                  cfg.rgcn.num_relations))
 
 
 # ====================================================================== #
@@ -186,14 +203,21 @@ def minibatch_loss(params: Mapping, cfg: KGEConfig,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss on one padded ``EdgeMiniBatch`` (fields as tensors; batches
     of a sharded-table pipeline also carry their gather plan). Dropout is
-    drawn from ``generator``; without one the encoder runs without it."""
+    drawn from ``generator``; without one the encoder runs without it.
+    Scatter plans a batch carries (``plan_src``, ``plan_dst``,
+    ``plan_rel``, ``plan_table``) are used; the pipelines ship none, so
+    the step builds each at first use (chip_smoke.py phase 6b times
+    both)."""
     x = vertex_input(params, cfg, batch["gather_global"], features,
                      batch.get("shard_local_ids"), batch.get("shard_owned"),
-                     batch.get("shard_inverse"))
+                     batch.get("shard_inverse"), plans=batch)
+    edges = (batch["comp_src"], batch["comp_rel"], batch["comp_dst"],
+             batch["comp_mask"])
     h = rgcn_encode(params, cfg.rgcn, _masked(x, batch["vertex_mask"]),
-                    batch["comp_src"], batch["comp_rel"], batch["comp_dst"],
-                    batch["comp_mask"], dropout_generator=generator,
-                    train=generator is not None)
+                    *edges, dropout_generator=generator,
+                    train=generator is not None,
+                    plans=EdgePlans.from_batch(batch, *edges, x.shape[0],
+                                               cfg.rgcn.num_relations))
     scores = decoders.score_triplets(params["decoder"], cfg.decoder, h,
                                      batch["triplets"])
     mask = batch["triplet_mask"].to(torch.float32)

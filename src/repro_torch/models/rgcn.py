@@ -15,7 +15,10 @@ reference's tree keys (``bases``, ``coeffs``, ``blocks``, ``rel_weight``,
 ``lp["bases"]``), so the functions below take a layer module or a plain
 dict of tensors alike. With ``use_kernel`` and the basis decomposition the
 edge compute goes through ``kernels.ops.rgcn_message_basis`` (the two CUDA
-kernels on the card); otherwise through :func:`message_passing_ref`.
+kernels on the card, and a backward written out by hand); otherwise
+through :func:`message_passing_ref`. Both are deterministic on the card,
+and both share the segment plans of the edge arrays across the layers
+(``kernels.ops.EdgePlans``).
 """
 from __future__ import annotations
 
@@ -26,7 +29,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.kernels.ops import gather_rows
+from repro_torch.kernels.ops import (
+    EdgePlans, gather_rows, rgcn_message_basis, segment_sum_op, wants_grad,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,34 +154,42 @@ def relation_matrices(lp: Mapping[str, torch.Tensor]) -> torch.Tensor:
 def message_passing_ref(h: torch.Tensor, src: torch.Tensor,
                         rel: torch.Tensor, dst: torch.Tensor,
                         edge_mask: torch.Tensor,
-                        lp: Mapping[str, torch.Tensor]) -> torch.Tensor:
+                        lp: Mapping[str, torch.Tensor],
+                        plans: Optional[EdgePlans] = None) -> torch.Tensor:
     """Plain edge compute + mean aggregation, ``(V, d_out)`` (no self loop
     or activation). An edge ``(s, r, t)`` carries ``W_r h_t`` into ``s``.
 
-    Row gathers are ``kernels.ops.gather_rows``: its backward is the
-    deterministic ``scatter_add_onehot``, where advanced indexing's
-    backward (``indexing_backward_kernel`` on CUDA) serialises over
-    duplicate ids — 474 relation rows gathered for 378k edges — and
-    ``index_add_`` adds with float atomics in no fixed order."""
-    h_t = gather_rows(h, dst)
+    Deterministic on the card, forward and backward, with no float
+    atomics: row gathers are ``kernels.ops.gather_rows``, whose backward
+    is ``scatter_add_onehot`` (advanced indexing's backward serialises
+    over duplicate ids on CUDA — 474 relation rows gathered for 378k
+    edges), and the aggregation is ``kernels.ops.segment_sum_op``, the
+    ``segment_sum`` kernel with a gather for its backward (``index_add_``
+    would add with atomics in no fixed order). ``plans``: the
+    :class:`~repro_torch.kernels.ops.EdgePlans` of these edges, shared by
+    the layers of the encode."""
+    def plan(name, *leaves):
+        return plans[name] if plans is not None and wants_grad(*leaves) \
+            else None
+
+    rel_table = next(lp[k] for k in ("coeffs", "blocks", "rel_weight")
+                     if k in lp)
+    h_t = gather_rows(h, dst, plan("dst", h))
+    rows = gather_rows(rel_table, rel, plan("rel", rel_table))
     if "bases" in lp:
         # B projections once, then the per-edge coefficient mix
         proj = torch.einsum("ed,bdo->ebo", h_t, lp["bases"])
-        msg = torch.einsum("ebo,eb->eo", proj,
-                           gather_rows(lp["coeffs"], rel))
+        msg = torch.einsum("ebo,eb->eo", proj, rows)
     elif "blocks" in lp:
         r, nb, bi, bo = lp["blocks"].shape
         e = h_t.shape[0]
-        w_e = gather_rows(lp["blocks"], rel)              # (E, nb, bi, bo)
         msg = torch.einsum("enb,enbo->eno", h_t.reshape(e, nb, bi),
-                           w_e).reshape(e, nb * bo)
+                           rows).reshape(e, nb * bo)     # rows (E, nb, bi, bo)
     else:
-        msg = torch.einsum("ed,edo->eo", h_t,
-                           gather_rows(lp["rel_weight"], rel))
+        msg = torch.einsum("ed,edo->eo", h_t, rows)
     msg = torch.where(edge_mask[:, None], msg, torch.zeros_like(msg))
-    num_v = h.shape[0]
-    agg = msg.new_zeros((num_v, msg.shape[1])).index_add_(0, src, msg)
-    deg = msg.new_zeros(num_v).index_add_(0, src, edge_mask.to(msg.dtype))
+    agg, deg = segment_sum_op(msg, src, edge_mask, h.shape[0],
+                              None if plans is None else plans["src"])
     return agg / torch.clamp_min(deg, 1.0)[:, None]
 
 
@@ -184,14 +197,13 @@ def rgcn_layer(h: torch.Tensor, src: torch.Tensor, rel: torch.Tensor,
                dst: torch.Tensor, edge_mask: torch.Tensor,
                lp: Mapping[str, torch.Tensor], cfg: RGCNConfig, *,
                activation: Callable = torch.relu,
-               dropout_generator: Optional[torch.Generator] = None
-               ) -> torch.Tensor:
+               dropout_generator: Optional[torch.Generator] = None,
+               plans: Optional[EdgePlans] = None) -> torch.Tensor:
     if cfg.use_kernel and "bases" in lp:
-        from repro_torch.kernels.ops import rgcn_message_basis
         agg = rgcn_message_basis(h, src, rel, dst, edge_mask, lp["bases"],
-                                 lp["coeffs"])
+                                 lp["coeffs"], plans)
     else:
-        agg = message_passing_ref(h, src, rel, dst, edge_mask, lp)
+        agg = message_passing_ref(h, src, rel, dst, edge_mask, lp, plans)
     if cfg.self_loop:
         agg = agg + torch.matmul(h, lp["self_weight"])
     out = activation(agg)
@@ -208,18 +220,23 @@ def rgcn_encode(params: Mapping, cfg: RGCNConfig,
                 src: torch.Tensor, rel: torch.Tensor, dst: torch.Tensor,
                 edge_mask: torch.Tensor, *,
                 dropout_generator: Optional[torch.Generator] = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False,
+                plans: Optional[EdgePlans] = None) -> torch.Tensor:
     """All layers of ``params["layers"]`` on a (padded) computational
     graph. The last layer is linear (scores need signed values); with
     ``train`` and a generator every layer's output goes through dropout,
-    drawn layer by layer."""
+    drawn layer by layer. Every layer shares one set of segment plans of
+    the edge arrays (``plans``, or made here and built at first use)."""
     layers = params["layers"]
     h = vertex_input
     n_layers = len(layers)
     gen = dropout_generator if train else None
+    if plans is None:
+        plans = EdgePlans(src, rel, dst, edge_mask, h.shape[0],
+                          cfg.num_relations)
     for i, lp in enumerate(layers):
         act = torch.relu if i < n_layers - 1 else (lambda x: x)
         h = rgcn_layer(h, src, rel, dst, edge_mask, lp, cfg, activation=act,
-                       dropout_generator=gen)
+                       dropout_generator=gen, plans=plans)
     return h
 

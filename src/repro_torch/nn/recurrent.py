@@ -168,9 +168,11 @@ def rwkv_decode(p: Dict, x: torch.Tensor, state: State, head_dim: int
 
 
 def rwkv_init_state(b: int, d: int, head_dim: int, *, lead: Shape = (),
-                    device="cpu") -> State:
-    """Zero fp32 state, stacked ``lead`` deep."""
+                    device="cpu", dtype=torch.float32) -> State:
+    """Zero state, stacked ``lead`` deep: the fp32 WKV state and the
+    token-shift row in ``dtype`` (the reference's ``rwkv_init_state``)."""
     h = d // head_dim
     return {"wkv": torch.zeros(lead + (b, h, head_dim, head_dim),
                                device=device),
-            "x_prev": torch.zeros(lead + (b, d), device=device)}
+            "x_prev": torch.zeros(lead + (b, d), device=device,
+                                  dtype=dtype)}

@@ -187,11 +187,15 @@ def stack_plan(cfg: ArchConfig) -> List[Tuple[str, int, bool]]:
 
 
 def init_params(cfg: ArchConfig, *, generator: Optional[torch.Generator],
-                device=None, dtype=torch.float32) -> PyTree:
+                device=None, dtype=torch.bfloat16) -> PyTree:
     """The reference's parameter tree for ``cfg`` with its distributions,
     drawn from ``generator`` (a ``torch.Generator`` on ``device``, default
-    ``cuda``). The draws differ from JAX's; parity tests start both sides
-    from the JAX weights (``repro_torch.convert.lm_params_from_jax``). On
+    ``cuda``), in ``dtype``: bfloat16 by default, the reference's default
+    (``repro.nn.transformer.init_params``); the values are drawn in fp32
+    and rounded, so a bf16 tree is the fp32 tree of the same generator
+    rounded to bf16. Pass ``dtype=torch.float32`` for fp32 weights. The
+    draws differ from JAX's; parity tests start both sides from the JAX
+    weights (``repro_torch.convert.lm_params_from_jax``). On
     ``device="meta"`` only the shapes are made (``generator`` may be
     None)."""
     dev = (torch.device("meta") if str(device) == "meta"
@@ -317,23 +321,29 @@ def block_decode(p: Dict, cfg: ArchConfig, h: torch.Tensor,
 
 
 def _block_cache(cfg: ArchConfig, batch: int, *, lead: Shape = (),
-                 device="cpu") -> Dict:
-    """Empty fp32 decode cache of one RWKV block, stacked ``lead`` deep:
-    the WKV state and the two token-shift rows."""
+                 device="cpu", dtype=torch.float32) -> Dict:
+    """Empty decode cache of one RWKV block, stacked ``lead`` deep: the
+    fp32 WKV state and the two token-shift rows in ``dtype``."""
     return {"rec": rec.rwkv_init_state(batch, cfg.d_model,
                                        cfg.rwkv_head_dim, lead=lead,
-                                       device=device),
+                                       device=device, dtype=dtype),
             "cmix_x_prev": torch.zeros(lead + (batch, cfg.d_model),
-                                       device=device)}
+                                       device=device, dtype=dtype)}
 
 
 def init_decode_cache(cfg: ArchConfig, batch: int, *,
-                      device=None) -> PyTree:
+                      device=None, dtype=torch.bfloat16) -> PyTree:
     """The cache tree matching the stack plan, each scanned group's leaves
     stacked ``(L, ...)``; O(1) in the sequence length, so unlike the
-    reference's it takes none. Runs on ``device`` (default ``cuda``)."""
+    reference's it takes none. Runs on ``device`` (default ``cuda``).
+    ``dtype`` is the token-shift rows' type, which must be the weights'
+    (a decode step multiplies them by the weights; the WKV state is fp32
+    whatever the weights, as in the reference): bfloat16 by default, as
+    :func:`init_params`'s weights and the reference's cache; pass
+    ``dtype=torch.float32`` for fp32 weights."""
     dev = resolve_device(device)
-    return {"groups": [_block_cache(cfg, batch, lead=(n,), device=dev)
+    return {"groups": [_block_cache(cfg, batch, lead=(n,), device=dev,
+                                    dtype=dtype)
                        for _, n, _ in stack_plan(cfg)]}
 
 

@@ -52,7 +52,8 @@ class ServeEngine:
 
     def _run_batch(self, reqs: List[Request]) -> None:
         n = self.slots
-        cache = init_decode_cache(self.cfg, n, device=self.device)
+        cache = init_decode_cache(self.cfg, n, device=self.device,
+                                  dtype=self.params["embed"].dtype)
         prompts = [np.asarray(r.prompt) for r in reqs] + \
             [np.zeros(1, np.int64)] * (n - len(reqs))
         plens = np.array([len(p) for p in prompts])

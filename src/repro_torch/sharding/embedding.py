@@ -329,7 +329,7 @@ def sharded_dequant_gather(codes: torch.Tensor, scales: torch.Tensor,
 def sharded_gather(table: torch.Tensor, local_ids, owned, *,
                    exchange: Optional[str] = None,
                    inverse=None, check: bool = True,
-                   table_dtype: str = "fp32") -> torch.Tensor:
+                   table_dtype: str = "fp32", plan=None) -> torch.Tensor:
     """Gather ``(V, d)`` rows from the ``(S, rows, d)`` stack with an
     ``(S, V)`` plan (numpy arrays or tensors), bitwise the dense
     ``table[ids]`` gather, differentiable in ``table``.
@@ -347,7 +347,13 @@ def sharded_gather(table: torch.Tensor, local_ids, owned, *,
     is the fp32 path's scatter-add), so master gradients are bitwise the
     fp32 path's on the dequantized master. Both exchanges coincide for
     int8: a masked-sum chain through the quantizer would have no gradient
-    through ``rint``."""
+    through ``rint``.
+
+    ``plan`` is the backward's scatter plan
+    (``kernels.rgcn_message.SegmentPlan``) when the caller has it: of the
+    flat rows and ownership into the ``S·rows`` stacked rows (the fused
+    exchange and int8; the masked-sum chain plans shard by shard
+    itself)."""
     from repro_torch.kernels.ops import (
         fused_sharded_gather, gather_rows, masked_take,
         quantized_sharded_gather,
@@ -363,9 +369,11 @@ def sharded_gather(table: torch.Tensor, local_ids, owned, *,
     # a plan is resolved where it lies (the host, for numpy plans)
     local_ids, owned = torch.as_tensor(local_ids), torch.as_tensor(owned)
     if table_dtype == "int8":
-        out = quantized_sharded_gather(table, local_ids, owned, check=check)
+        out = quantized_sharded_gather(table, local_ids, owned, check=check,
+                                       plan=plan)
     elif exchange == "fused":
-        out = fused_sharded_gather(table, local_ids, owned, check=check)
+        out = fused_sharded_gather(table, local_ids, owned, check=check,
+                                   plan=plan)
     else:
         local_ids = local_ids.to(table.device)
         owned = owned.to(table.device)

@@ -5,7 +5,9 @@ The trainer composes four seams, as the reference does:
 
 * ``training.preprocessing`` — partition → expand → pad → budgets;
 * ``data.pipeline`` — the resident full-graph batch, copied to the device
-  once, or the serial / async edge mini-batch pipeline;
+  once with its scatter plans (built once on the host, so no full-graph
+  step builds its own), or the serial / async edge mini-batch pipeline
+  (each mini-batch step builds its plans on the card, once per id array);
 * ``training.distributed`` — the simulated data-parallel step (per-trainer
   gradients, their mean, one Adam step);
 * ``training.evaluation`` — streamed encoding + filtered ranking (sharded
@@ -28,7 +30,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import KnowledgeGraph
-from repro_torch.data.pipeline import FullGraphPipeline, make_input_pipeline
+from repro_torch.data.pipeline import (
+    FullGraphPipeline, PlanSizes, make_input_pipeline,
+)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sharded_gather import raise_if_flagged
 from repro_torch.models.kge import (
@@ -169,7 +173,13 @@ class KGETrainer:
             self._fullgraph_loss if self._fullgraph else
             self._minibatch_loss, self.optimizer)
         if self._fullgraph:
-            self.pipeline = FullGraphPipeline(self.pre.padded, self.device)
+            # a sharded table's gather is planned in-graph
+            plan_sizes = PlanSizes(
+                train_kg.num_relations,
+                train_kg.num_entities if feat is None and
+                cfg.num_table_shards <= 1 else None)
+            self.pipeline = FullGraphPipeline(self.pre.padded, self.device,
+                                              plan_sizes)
         else:
             self.pipeline = make_input_pipeline(
                 cfg.pipeline, self.pre.partitions,

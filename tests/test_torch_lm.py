@@ -167,7 +167,7 @@ def test_decode_step_over_24_tokens_allclose_jax(models):
     jcfg, cfg, jp, tp = models
     tok = tokens(cfg, 2, 24, seed=2)
     jc = JT.init_decode_cache(jcfg, 2, 32, dtype=jnp.float32)
-    tc = T.init_decode_cache(cfg, 2, device="cpu")
+    tc = T.init_decode_cache(cfg, 2, device="cpu", dtype=torch.float32)
     j_step = jax.jit(JT.decode_step, static_argnums=1)
     for t in range(24):
         pos = np.full((2,), t)
@@ -191,7 +191,7 @@ def test_decode_of_a_prompt_ends_at_the_kernel_prefill(models):
     tok = torch.from_numpy(tokens(cfg, 2, 20, seed=3))
     kcfg = dataclasses.replace(cfg, rwkv_mode="chunked_kernel")
     want = make_prefill_step(kcfg)(tp, {"tokens": tok})
-    cache = T.init_decode_cache(cfg, 2, device="cpu")
+    cache = T.init_decode_cache(cfg, 2, device="cpu", dtype=torch.float32)
     for t in range(20):
         logits, cache = T.decode_step(tp, cfg, tok[:, t:t + 1], cache)
     torch.testing.assert_close(logits[:, 0], want, **LOGIT_TOL)
@@ -234,7 +234,7 @@ def test_bf16_init_is_the_fp32_draw_rounded():
     same generator and rounds each to bf16."""
     cfg = get_arch("rwkv6-3b").reduced()
     f32 = T.init_params(cfg, generator=torch.Generator().manual_seed(3),
-                        device="cpu")
+                        device="cpu", dtype=torch.float32)
     bf16 = T.init_params(cfg, generator=torch.Generator().manual_seed(3),
                          device="cpu", dtype=torch.bfloat16)
     got, want = T.leaves(bf16), T.leaves(f32)
@@ -242,6 +242,82 @@ def test_bf16_init_is_the_fp32_draw_rounded():
     for (_, b), (_, f) in zip(got, want):
         assert b.dtype == torch.bfloat16
         assert torch.equal(b, f.to(torch.bfloat16))
+
+
+def test_init_params_default_dtype_is_the_references():
+    """The port's init_params defaults to the reference's dtype, bfloat16
+    (repro.nn.transformer.init_params), every leaf of the tree."""
+    cfg = get_arch("rwkv6-3b").reduced()
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    jp = JT.init_params(jax.random.PRNGKey(0), j_get_arch("rwkv6-3b")
+                        .reduced())
+    want = {jnp.dtype(a.dtype) for a in jax.tree_util.tree_leaves(jp)}
+    assert want == {jnp.dtype(jnp.bfloat16)}
+    assert {t.dtype for _, t in T.leaves(params)} == {torch.bfloat16}
+
+
+def test_decode_runs_on_the_default_dtypes(models):
+    """init_params and init_decode_cache with their defaults (both bf16,
+    the reference's) make a cache that decode_step takes: the token-shift
+    rows are the weights' dtype, the WKV state fp32, and the logits are
+    those of the same loop on a cache made in bf16 explicitly."""
+    _, cfg, _, _ = models
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(1),
+                           device="cpu")
+    tok = torch.from_numpy(tokens(cfg, 2, 6, seed=6))
+    cache = T.init_decode_cache(cfg, 2, device="cpu")
+    rows = cache["groups"][0]
+    assert rows["cmix_x_prev"].dtype == rows["rec"]["x_prev"].dtype == \
+        params["embed"].dtype == torch.bfloat16
+    assert rows["rec"]["wkv"].dtype == torch.float32
+    want = T.init_decode_cache(cfg, 2, device="cpu", dtype=torch.bfloat16)
+    for t in range(tok.shape[1]):
+        logits, cache = T.decode_step(params, cfg, tok[:, t:t + 1], cache)
+        ref, want = T.decode_step(params, cfg, tok[:, t:t + 1], want)
+        assert logits.dtype == torch.bfloat16
+        assert bool(torch.isfinite(logits.float()).all())
+        assert torch.equal(logits, ref)
+
+
+@pytest.mark.parametrize("serve", [False, True])
+def test_bf16_decode_tracks_the_bf16_prefill(models, serve):
+    """bf16 weights through decode_step (the cache's token-shift rows in
+    bf16, the WKV state fp32) and through ServeEngine: a prompt's last
+    logits sit within the bf16 error of the kernel-mode bf16 prefill's (the
+    largest |bf16 - fp32| prefill logit at these inputs), the chip smoke
+    run's phase 8b gate at reduced width; the engine's greedy tokens (one
+    slot) are those of a bf16 decode loop of one row."""
+    _, cfg, _, tp = models
+    tb = to_bf16(tp)
+    tok = torch.from_numpy(tokens(cfg, 2, 16, seed=5))
+    kcfg = dataclasses.replace(cfg, rwkv_mode="chunked_kernel")
+    want = make_prefill_step(kcfg)(tb, {"tokens": tok})
+    want32 = make_prefill_step(kcfg)(tp, {"tokens": tok})
+    atol = float((want.float() - want32).abs().max())
+    if not serve:
+        cache = T.init_decode_cache(cfg, 2, device="cpu",
+                                    dtype=torch.bfloat16)
+        for t in range(tok.shape[1]):
+            logits, cache = T.decode_step(tb, cfg, tok[:, t:t + 1], cache)
+        assert logits.dtype == torch.bfloat16
+        assert cache["groups"][0]["rec"]["wkv"].dtype == torch.float32
+        np.testing.assert_allclose(logits[:, 0].float().numpy(),
+                                   want.float().numpy(), rtol=0, atol=atol)
+        return
+    reqs = requests(Request, cfg, 3, new_tokens=4)
+    ServeEngine(cfg, tb, slots=1, max_seq=16).run(reqs)
+    step = make_serve_step(cfg)
+    for r in reqs:
+        cache = T.init_decode_cache(cfg, 1, device="cpu",
+                                    dtype=torch.bfloat16)
+        seq, out = list(r.prompt), []
+        for t in range(len(r.prompt) + r.max_new_tokens - 1):
+            nxt, cache = step(tb, cache, {"tokens": torch.tensor([[seq[t]]])})
+            if t >= len(r.prompt) - 1:
+                out.append(int(nxt[0]))
+                seq.append(out[-1])
+        assert r.done and r.output == out
 
 
 # ---------------------------------------------------------------------- #
@@ -282,10 +358,10 @@ def test_serve_engine_reports_truncation(models):
 
 def test_serve_step_is_greedy_with_first_index_ties(models):
     _, cfg, _, tp = models
-    cache = T.init_decode_cache(cfg, 2, device="cpu")
+    cache = T.init_decode_cache(cfg, 2, device="cpu", dtype=torch.float32)
     tok = torch.tensor([[3], [5]])
-    logits, _ = T.decode_step(tp, cfg, tok,
-                              T.init_decode_cache(cfg, 2, device="cpu"))
+    logits, _ = T.decode_step(tp, cfg, tok, T.init_decode_cache(
+        cfg, 2, device="cpu", dtype=torch.float32))
     nxt, _ = make_serve_step(cfg)(tp, cache, {"tokens": tok})
     assert torch.equal(nxt, logits[:, -1].argmax(-1))
     assert torch.argmax(torch.tensor([1.0, 3.0, 3.0])) == 1
@@ -355,7 +431,7 @@ def test_full_width_shapes_and_count_from_the_meta_device():
 def test_init_moments_follow_the_reference_formulas():
     cfg = get_arch("rwkv6-3b").reduced()
     gen = torch.Generator().manual_seed(0)
-    p = T.init_params(cfg, generator=gen, device="cpu")
+    p = T.init_params(cfg, generator=gen, device="cpu", dtype=torch.float32)
     d, v, ff = cfg.d_model, cfg.vocab_size, cfg.d_ff
     g = p["groups"][0]
 
@@ -380,7 +456,7 @@ def test_init_moments_follow_the_reference_formulas():
                                                   1.0)):
         assert bool((t == value).all())
     again = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
-                          device="cpu")
+                          device="cpu", dtype=torch.float32)
     assert all(torch.equal(a, b) for (_, a), (_, b) in
                zip(T.leaves(p), T.leaves(again)))
 

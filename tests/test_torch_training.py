@@ -35,7 +35,7 @@ from repro.training import TrainConfig as JTrainConfig
 from repro.training.distributed import split_trainer_keys
 from repro_torch import convert
 from repro_torch.core.graph import KnowledgeGraph
-from repro_torch.data import FullGraphPipeline, synthetic_fb15k
+from repro_torch.data import FullGraphPipeline, PlanSizes, synthetic_fb15k
 from repro_torch.eval import ranking
 from repro_torch.launch import train as train_cli
 from repro_torch.models import kge
@@ -296,7 +296,8 @@ def test_trainer_generators_are_reproducible_and_distinct():
 
 
 def test_full_graph_pipeline_copies_the_batch_once(trained):
-    pipe = FullGraphPipeline(trained[0].padded, torch.device("cpu"))
+    pipe = FullGraphPipeline(trained[0].padded, torch.device("cpu"),
+                             PlanSizes(trained[0].train_kg.num_relations))
     first = next(iter(pipe.device_batches(1)))
     second = next(iter(pipe.device_batches(2)))
     assert first is second

@@ -6,15 +6,21 @@
 Phases, each of which fails the run on error:
 
 1. Build: compile the five CUDA sources from ``src/repro_torch/csrc`` with
-   ``nvcc -Xptxas -v`` for ``sm_90a`` (one process per source, all at once).
+   ``nvcc -Xptxas -v`` for ``sm_90a`` (one process per source, all at
+   once); each kernel's registers, shared memory and spills.
 2. Kernel vs plain: each of the eight kernels against its plain PyTorch
    version on the card, with its time, its plain version's time, one
    PyTorch library call's time (where one computes the function) and the
-   least time the card could take:
+   least time the card could take; the three redesigned kernels also
+   bitwise against their first kernels (``*_v1``), timed beside them:
    kge_score, topk and fused_gather at the serving shapes, kge_score also
    at the mini-batch ranking shape (B = 256) and, register-tiled, bitwise
    the first kernel (kge_score_v1, timed beside it) there and at edge
    shapes (ragged B and C, d = 1, d = MAX_DIM, B = 1, C below one tile);
+   fused_gather (a warp per group of rows) bitwise fused_gather_v1 and the
+   plain version at the serving shapes, at the mini-batch table gather
+   (V = 17,200 into 14,544 x 75) and at edge shapes (d from 1 to 1,000,
+   float4 and misaligned rows, V = 1, ragged V);
    fused_dequant_gather at the serving shapes over tables quantized on the
    card, and at the 4-shard mini-batch table gather (V = 17,200 into
    14,544 x 75 int8): bitwise the plain version, unowned slots exactly 0,
@@ -22,10 +28,13 @@ Phases, each of which fails the run on error:
    subnormal and zero scales comes through bitwise; quantize_rows on the
    card bitwise the CPU's (FB15k-237 table, subnormal table); basis_message
    and segment_sum at the full-graph FB15k-237 training shape (one padded
-   partition of 4: E = 377,984 edges, V = 13,760 vertices, d = 75, B = 2)
-   and at edge cases (ragged E, an all-masked tile, empty segments,
-   unsorted segments, d_in != d_out, bases over 48 KB and over the card's
-   shared memory); scatter_add_onehot at the shapes of one mini-batch of
+   partition of 4: E = 377,984 edges, V = 13,760 vertices, d = 75, B = 2),
+   at the mini-batch shape and at edge cases (ragged E, an all-masked
+   tile, empty segments, unsorted segments, d_in != d_out, bases over 48 KB
+   and over the card's shared memory), basis_message (register-tiled)
+   bitwise basis_message_v1 at all six of its cases and timed beside it at
+   the two training shapes, with each case's tile, grid and column split;
+   scatter_add_onehot at the shapes of one mini-batch of
    the mini-batch path (the 4-shard table gradient V = 17,200 into
    R = 14,544, the vertex-state gather backward E = 472,448 into 17,200,
    the relation-coefficient backward into 474 rows) and at edge cases (all
@@ -131,6 +140,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -573,16 +583,67 @@ def check_topk(dev, rng, widths):
     return max_err, stats
 
 
+def check_fused_gather_v1(dev, rng):
+    """The warp-per-rows fused_gather against the first kernel
+    (``fused_gather_v1``) and the plain version bit for bit at edge shapes:
+    d from 1 to past one pass of a warp's loads, float4 rows (d % 4 == 0)
+    and a table 4 bytes off 16-byte alignment (scalar rows), V = 1 and V
+    ragged against the rows per warp, unowned slots. Returns the shapes
+    checked."""
+    import torch
+    from repro_torch.kernels.sharded_gather import (
+        fused_gather, fused_gather_plain, fused_gather_v1,
+    )
+    cases = [(1000, d, v, aligned) for d in (1, 4, 32, 33, 75, 300, 1000)
+             for v in (1, 5, 777) for aligned in (True, False)]
+    for r, d, v, aligned in cases:
+        x = torch.from_numpy(rng.normal(0, .1, r * d + 1).astype(np.float32)
+                             ).to(dev)
+        table = (x[:-1] if aligned else x[1:]).view(r, d)
+        flat = torch.from_numpy(rng.integers(0, r, v).astype(np.int64)
+                                ).to(dev)
+        owned = torch.from_numpy(rng.random(v) < .75).to(dev)
+        got = fused_gather(table, flat, owned)
+        if not (same_bits(got, fused_gather_v1(table, flat, owned))
+                and same_bits(got, fused_gather_plain(table, flat, owned))):
+            raise AssertionError(f"fused_gather R={r} d={d} V={v} aligned="
+                                 f"{aligned}: != first kernel or plain")
+    log(f"[phase 2] fused_gather: the warp-per-rows kernel == the first "
+        f"kernel == plain bit for bit at (R, d, V, 16-byte aligned) {cases}")
+    return cases
+
+
 def check_fused_gather(dev, rng, widths, mbs):
     """Duplicate ids and unowned slots at the serving batch (8) and the
     dedup bucket (64), and the mini-batch path's table gather (``mbs``);
-    the output must be bitwise the plain version's, and a flat id outside
-    the table must raise as in the plain version. Returns (max |kernel -
+    the output must be bitwise the plain version's and the first kernel's
+    (``fused_gather_v1``, timed beside it), and a flat id outside the
+    table must raise as in the plain version. Returns (max |kernel -
     plain|, per-width times)."""
     import torch
     from repro_torch.kernels.sharded_gather import (
-        fused_gather, fused_gather_plain,
+        fused_gather, fused_gather_plain, fused_gather_v1,
     )
+
+    def same_all(label, table, flat_t, owned_t, check=True):
+        got = fused_gather(table, flat_t, owned_t, check=check)
+        want = fused_gather_plain(table, flat_t, owned_t)
+        first = fused_gather_v1(table, flat_t, owned_t, check=check)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            raise AssertionError(f"fused_gather {label}: kernel != plain")
+        if not same_bits(got, first):
+            raise AssertionError(f"fused_gather {label}: kernel != first "
+                                 f"kernel")
+        return max_abs_diff(got, want)
+
+    def first_kernel_time(label, st, fn):
+        st["first_kernel_ms"], _ = timed(fn)
+        log(f"[phase 2] fused_gather {label}: the first kernel "
+            f"{st['first_kernel_ms']:.5f} ms, the warp-per-rows one "
+            f"{st['ms']:.5f} ms ({st['first_kernel_ms'] / st['ms']:.2f}x); "
+            f"bitwise equal")
+
     max_err, stats = 0.0, {}
     for label, c, d in widths:
         table = torch.from_numpy(rng.normal(0, .1, (c, d)).astype(np.float32)
@@ -594,13 +655,8 @@ def check_fused_gather(dev, rng, widths, mbs):
             owned[0] = True
             flat_t = torch.from_numpy(flat.astype(np.int64)).to(dev)
             owned_t = torch.from_numpy(owned).to(dev)
-            got = fused_gather(table, flat_t, owned_t)
-            want = fused_gather_plain(table, flat_t, owned_t)
-            torch.cuda.synchronize()
-            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-                raise AssertionError(f"fused_gather {label} V={v}: "
-                                     f"kernel != plain")
-            max_err = max(max_err, max_abs_diff(got, want))
+            max_err = max(max_err, same_all(f"{label} V={v}", table, flat_t,
+                                            owned_t))
         bad = flat_t.clone()
         bad[3] = c                            # a broken plan: one past the end
         try:
@@ -613,13 +669,15 @@ def check_fused_gather(dev, rng, widths, mbs):
         # times at the serving batch: 8 head rows
         flat_t, owned_t = flat_t[:SLOTS], owned_t[:SLOTS]
         n_own = int(owned_t.sum())
-        stats[label] = dict(V=SLOTS, d=d, **timings(
+        st = stats[label] = dict(V=SLOTS, d=d, **timings(
             lambda: fused_gather(table, flat_t, owned_t),
             lambda: fused_gather_plain(table, flat_t, owned_t),
             lambda: torch.index_select(table, 0, flat_t),
             *bound_ms(4 * n_own * d + 9 * SLOTS + 4 * SLOTS * d, 0)))
-        report("fused_gather", f"{label} (V={SLOTS}, d={d})", stats[label],
+        report("fused_gather", f"{label} (V={SLOTS}, d={d})", st,
                "index_select")
+        first_kernel_time(label, st,
+                          lambda: fused_gather_v1(table, flat_t, owned_t))
     # the mini-batch path: one trainer's 4-shard table gather, unchecked
     from repro_torch.kernels.ops import flat_gather_plan
     lay = mbs["layout"]
@@ -629,19 +687,18 @@ def check_fused_gather(dev, rng, widths, mbs):
                                    torch.from_numpy(mbs["owned"]),
                                    lay.rows_per_shard)
     flat_t, owned_t = flat.to(dev), owned.to(dev)
-    got = fused_gather(table, flat_t, owned_t, check=False)
-    want = fused_gather_plain(table, flat_t, owned_t)
-    torch.cuda.synchronize()
-    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-        raise AssertionError("fused_gather minibatch_S4: kernel != plain")
+    max_err = max(max_err, same_all("minibatch_S4", table, flat_t, owned_t,
+                                    check=False))
     v, n_own = flat.shape[0], int(owned.sum())
-    stats["minibatch_S4"] = dict(V=v, d=75, **timings(
+    st = stats["minibatch_S4"] = dict(V=v, d=75, **timings(
         lambda: fused_gather(table, flat_t, owned_t, check=False),
         lambda: fused_gather_plain(table, flat_t, owned_t),
         lambda: torch.index_select(table, 0, flat_t),
         *bound_ms(4 * n_own * 75 + 9 * v + 4 * v * 75, 0)))
     report("fused_gather", f"minibatch_S4 (V={v}, R={lay.padded_rows}, "
-           f"d=75)", stats["minibatch_S4"], "index_select")
+           f"d=75)", st, "index_select")
+    first_kernel_time("minibatch_S4", st, lambda: fused_gather_v1(
+        table, flat_t, owned_t, check=False))
     return max_err, stats
 
 
@@ -813,16 +870,20 @@ def gamma(n):
 def check_basis_message(dev, rng, part, mbs):
     """The training shapes (one partition's gathers at d=75, B=2, and one
     mini-batch's) and the edge cases; returns (max |err|, per-shape times,
-    edge-case configs).
+    each case's plan).
 
-    Both sides compute sum_b c_b sum_i h_i W_bio in fp32 in different
-    orders (the kernel: fixed fmaf chains; the plain einsums: cuBLAS's
-    blocking), so each is within gamma_{d_in+B} * S of the exact value with
-    S = sum_b |c_b| sum_i |h_i W_bio|; the bound is twice that. Masked
-    edges must be exactly 0 on both."""
+    The kernel must be bitwise the first kernel (``basis_message_v1``,
+    timed beside it at the training shapes): both compute every output by
+    the same fmaf chain. Both sides of the plain comparison compute
+    sum_b c_b sum_i h_i W_bio in fp32 in different orders (the kernel:
+    fixed fmaf chains; the plain einsums: cuBLAS's blocking), so each is
+    within gamma_{d_in+B} * S of the exact value with S = sum_b |c_b|
+    sum_i |h_i W_bio|; the bound is twice that. Masked edges must be
+    exactly 0 on both."""
     import torch
     from repro_torch.kernels.rgcn_message import (
         basis_message, basis_message_config, basis_message_plain,
+        basis_message_v1,
     )
     torch.backends.cuda.matmul.allow_tf32 = False
     v, e, r = part["V"], part["E"], part["R"]
@@ -852,7 +913,11 @@ def check_basis_message(dev, rng, part, mbs):
         m = torch.from_numpy(np.asarray(mask, bool)).to(dev)
         got = basis_message(h_t, coef, w, m)
         want = basis_message_plain(h_t, coef, w, m)
+        first = basis_message_v1(h_t, coef, w, m)
         torch.cuda.synchronize()
+        if not same_bits(got, first):
+            raise AssertionError(f"basis_message {label}: kernel != first "
+                                 f"kernel")
         if not (bool((got[~m] == 0).all()) and bool((want[~m] == 0).all())):
             raise AssertionError(f"basis_message {label}: a masked edge is "
                                  f"not exactly 0")
@@ -865,26 +930,36 @@ def check_basis_message(dev, rng, part, mbs):
                 f"basis_message {label}: {int((err > tol).sum())} outputs "
                 f"outside the bound, worst err {float(err.max())}")
         max_err = max(max_err, float(err.max()))
-        tile, in_smem = basis_message_config(d_in, d_out, nb)
-        configs[label] = dict(E=ne, d_in=d_in, d_out=d_out, B=nb,
-                              edges_per_block=tile, bases_in_smem=in_smem)
+        plan = basis_message_config(d_in, d_out, nb, ne)
+        configs[label] = dict(E=ne, d_in=d_in, d_out=d_out, B=nb, **plan)
         log(f"[phase 2] basis_message {label} (E={ne}, d_in={d_in}, "
-            f"d_out={d_out}, B={nb}; {tile} edges per block, bases in "
-            f"{'shared' if in_smem else 'global'} memory): max err "
+            f"d_out={d_out}, B={nb}; {plan['edges_per_tile']}-edge tiles, "
+            f"{plan['threads']} threads, {plan['column_slices']} column "
+            f"slice(s) of {4 * plan['column_groups_per_slice']}, "
+            f"{plan['blocks_per_slice']} blocks per slice, "
+            f"{plan['blocks_per_sm']} per SM, {plan['smem_bytes']} bytes of "
+            f"shared memory): bitwise the first kernel, max err "
             f"{float(err.max()):.3g}")
         if label in ("train", "minibatch"):
             n_on = int(m.sum())
             nbytes = 4 * (ne * d_in + ne * nb + nb * d_in * d_out
                           + ne * d_out) + ne
             ops = 2 * n_on * nb * d_out * (d_in + 1)
-            stats[label] = dict(E=ne, d=d_in, B=nb, **timings(
+            st = stats[label] = dict(E=ne, d=d_in, B=nb, **timings(
                 lambda: basis_message(h_t, coef, w, m),
                 lambda: basis_message_plain(h_t, coef, w, m),
                 lambda: torch.einsum("ebo,eb->eo", torch.einsum(
                     "ed,bdo->ebo", h_t, w), coef),
                 *bound_ms(nbytes, ops)))
+            st["first_kernel_ms"], _ = timed(
+                lambda: basis_message_v1(h_t, coef, w, m))
             report("basis_message", f"{label} (E={ne}, d={d_in}, B={nb})",
-                   stats[label], "einsum pair")
+                   st, "einsum pair")
+            log(f"[phase 2] basis_message {label}: the first kernel "
+                f"{st['first_kernel_ms']:.4f} ms, the tiled one "
+                f"{st['ms']:.4f} ms ({st['first_kernel_ms'] / st['ms']:.2f}x"
+                f", {st['ms'] / st['bound_ms']:.2f}x its bound); bitwise "
+                f"equal")
     return max_err, stats, configs
 
 
@@ -1840,6 +1915,36 @@ def profile_serving(width, decoder, shards, *, filtered, cache_size,
     return p
 
 
+def kernel_name(symbol: str) -> str:
+    """The last name of a mangled nested symbol (``_ZN...``), with its
+    template arguments as mangled: ``basis_message_kernel``,
+    ``fused_gather_kernelIfLb1EE``."""
+    rest, names = symbol[3:] if symbol.startswith("_ZN") else "", []
+    while rest[:1].isdigit():
+        digits = len(rest) - len(rest.lstrip("0123456789"))
+        n = int(rest[:digits])
+        names.append(rest[digits:digits + n])
+        rest = rest[digits + n:]
+    if not names:
+        return symbol
+    if rest.startswith("I"):
+        return names[-1] + rest[:rest.find("EE") + 2]
+    return names[-1]
+
+
+def ptxas_lines(log_text: str):
+    """``-Xptxas -v``'s registers, shared memory and spills, each line
+    prefixed with the kernel it is about."""
+    out, name = [], "?"
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+        elif "registers" in line or "spill" in line or "smem" in line:
+            out.append(f"{name}: {line.strip()}")
+    return out
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1871,10 +1976,7 @@ def main() -> int:
     logs = _build.build(ptxas_info=True)
     build_s = time.perf_counter() - t0
     log(f"[phase 1] built {sorted(logs)} with nvcc in {build_s:.1f} s")
-    ptxas = {name: [line.strip() for line in text.splitlines()
-                    if "registers" in line or "spill" in line
-                    or "smem" in line]
-             for name, text in logs.items()}
+    ptxas = {name: ptxas_lines(text) for name, text in logs.items()}
     for name, lines in ptxas.items():
         for line in lines:
             log(f"[phase 1] {name}: {line}")
@@ -1900,6 +2002,7 @@ def main() -> int:
     gather_widths = [("fb15k237", n, d),
                      ("citation2", CITATION2["entities"], CITATION2["dim"])]
     kge_v1_cases = check_kge_score_v1(dev, rng)
+    gather_v1_cases = check_fused_gather_v1(dev, rng)
     phase2 = {"kge_score": check_kge_score(dev, rng, widths),
               "topk": check_topk(dev, rng, widths[:3]),
               "fused_gather": check_fused_gather(dev, rng, gather_widths,
@@ -1914,7 +2017,8 @@ def main() -> int:
     phase2["wkv_chunked"] = check_wkv(dev, rng)
     log("[phase 2] kge_score and basis_message within their stated bounds; "
         "topk, fused_gather and fused_dequant_gather bitwise equal to their "
-        "plain versions; "
+        "plain versions; kge_score, fused_gather and basis_message bitwise "
+        "equal to their first kernels; "
         "segment_sum deg == plain, agg within its bound, runs bitwise "
         "equal; scatter_add_onehot within its bound, non-hit rows 0, runs "
         "bitwise equal; wkv_chunked within its bounds of the plain chunked "
@@ -2315,6 +2419,9 @@ def main() -> int:
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             widths=stats))
+        if "first_kernel_ms" in head:   # held bitwise against it in phase 2
+            kernels[-1]["first_kernel"] = dict(
+                name=f"{name}_v1", ms=head["first_kernel_ms"], bitwise=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": card, "build_s": build_s, "ptxas": ptxas,
@@ -2347,6 +2454,7 @@ def main() -> int:
                        "minibatch_plans": plans,
                        "minibatch_plan_placements": placements,
                        "kge_score_first_kernel_cases": kge_v1_cases,
+                       "fused_gather_first_kernel_cases": gather_v1_cases,
                        "minibatch_int8_two_run_loss": mb8_loss,
                        "embedding_max_abs_diff": emb_err,
                        "lm": lm,

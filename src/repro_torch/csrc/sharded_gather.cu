@@ -10,18 +10,44 @@
 // Replaces the Pallas TPU kernel repro/kernels/sharded_gather.py::
 // fused_gather (pallas_call at sharded_gather.py:87).
 //
-// What bounds it on an H100: at serving sizes (a batch of 8 to 64 head rows
-// of 75 floats) the bytes are a few KB, so the launch itself is the cost. A
-// row is a plain copy, so the output is bitwise the table row (or +0.0).
+// What bounds it on an H100: bytes, and the latency of two dependent trips
+// to device memory (the slot's flat id, then its row). At the mini-batch
+// shape (17,200 slots of d = 75 from the 4-shard table) a call moves about
+// 10.5 MB, 3.1 us at 3.35 TB/s; at serving sizes (8 to 64 head rows) the
+// launch itself is the cost. A row is a plain copy, so the output is
+// bitwise the table row (or +0.0).
 //
-// Design: one block per output row; its threads copy the row's d floats
-// with consecutive threads on consecutive addresses. An unowned slot never
-// reads the table. A slot whose flat id lies outside the table is a broken
-// plan (the host plan never produces one; the plain version raises an
-// index error on it): the kernel writes zeros for it instead of reading out
-// of bounds, and stores the slot (plus one) in a flag in pinned host
-// memory. The serving wrapper reads it after every gather and raises; the
-// training path reads it once per step, after the loss.
+// Design (fused_gather_f32): a warp per group of rows. A warp loads its
+// group's flat ids and ownership with one coalesced load, one slot per
+// lane (both loads at once), and shares each slot's source row with
+// __shfl_sync. It then issues the loads of the whole group, FG_UNITS per
+// lane, before it stores any: the group's rows lie back to back in the
+// output, so lane l copies units l, l + 32, ... of the group, and several
+// independent rows are in flight per warp for one id round trip. A unit is
+// a float4 when d % 4 == 0 and the table and output are 16-byte aligned
+// (ogbl-citation2, d = 32), else a float (FB15k-237, d = 75: 300-byte
+// rows). A group is as many rows as 32 * FG_UNITS units hold (3 at d = 75,
+// 32 at d = 32; one row, in passes, when a row is longer), but no more
+// than spreads V over FG_SPREAD warps: a serving batch gets a row per
+// warp, and that path is compiled on its own (ONE_ROW: every lane reads
+// the id, no shuffle, the group a constant), because at 8 rows the call is
+// all latency and each instruction on the chain shows. FG_UNITS = 8 and
+// FG_WARPS = 4 were chosen by trial on the card (2 to 24 units, 1 to 16
+// warps, at the mini-batch and serving shapes).
+//
+// What held the first kernel back (fused_gather_f32_v1, one block per row):
+// 17,200 blocks of 96 threads, 75 of them busy, each a dependent chain of
+// id load, row load and store of one 4-byte word a thread; at the SM's 32
+// resident blocks about 6 KB in flight per SM, where saturating the memory
+// takes about three times that. It is kept so that the chip smoke run can
+// hold the new kernel against it bit for bit.
+//
+// An unowned slot never reads the table. A slot whose flat id lies outside
+// the table is a broken plan (the host plan never produces one; the plain
+// version raises an index error on it): both kernels write zeros for it
+// instead of reading out of bounds, and store the slot (plus one) in a flag
+// in pinned host memory. The serving wrapper reads it after every gather
+// and raises; the training path reads it once per step, after the loss.
 //
 // 2. fused_dequant_gather: the int8 table's twin of fused_gather,
 //
@@ -35,8 +61,8 @@
 // slots, d = 75) about 6.7 MB, 2 us at 3.35 TB/s. Serving batches (8 to 64
 // heads) are launch-bound.
 //
-// Design: fused_gather's, one block per output row with consecutive
-// threads on consecutive columns. The row's scale is read once; codes are
+// Design: fused_gather's first kernel, one block per output row with
+// consecutive threads on consecutive columns. The row's scale is read once; codes are
 // read as bytes (a d = 75 row is not 4-byte aligned). The product is
 // __fmul_rn, which no contraction or fast-math flag can change: it is exact
 // (an int8 times a power of two, subnormal scales included, since the
@@ -72,11 +98,108 @@
 
 namespace {
 
-__global__ void fused_gather_kernel(const float* __restrict__ table,
-                                    const int64_t* __restrict__ flat,
-                                    const uint8_t* __restrict__ owned,
-                                    float* __restrict__ out, int64_t rows,
-                                    int d, int64_t* __restrict__ bad_slot) {
+constexpr int FG_WARPS = 4;        // warps per fused_gather block
+constexpr int FG_UNITS = 8;        // loads in flight per lane
+constexpr int64_t FG_SPREAD = 1024;  // warps a small gather spreads over
+
+template <typename T>
+__device__ __forceinline__ T zero_unit();
+template <>
+__device__ __forceinline__ float zero_unit<float>() {
+  return 0.0f;
+}
+template <>
+__device__ __forceinline__ float4 zero_unit<float4>() {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// Rows of `w` units (floats or float4s); each warp copies `group` rows.
+// 32 units are dr rows and dc units (32 / w and 32 % w). ONE_ROW (group
+// == 1, a small V): every lane reads the slot's id itself (a broadcast)
+// and takes columns lane, lane + 32, ...: no shuffle, and less code for
+// each SM to fetch on a launch that is all latency.
+template <typename T, bool ONE_ROW>
+__global__ void __launch_bounds__(FG_WARPS * 32)
+fused_gather_kernel(const T* __restrict__ table,
+                    const int64_t* __restrict__ flat,
+                    const uint8_t* __restrict__ owned, T* __restrict__ out,
+                    int64_t rows, int64_t v, int w, int group, int dr, int dc,
+                    int64_t* __restrict__ bad_slot) {
+  const int g = ONE_ROW ? 1 : group;  // a constant on the one-row path
+  const int lane = threadIdx.x & 31;
+  const int64_t v0 =
+      (static_cast<int64_t>(blockIdx.x) * FG_WARPS + threadIdx.x / 32) * g;
+  if (v0 >= v) return;  // the whole warp
+  const int nrows = static_cast<int>(v - v0 < g ? v - v0 : g);
+  // slot v0 + r's table row (null: write zeros), in lane r < nrows
+  const int slot = ONE_ROW ? 0 : lane;
+  const T* src = nullptr;
+  if (slot < nrows) {
+    const int64_t f = flat[v0 + slot];
+    const bool own = owned[v0 + slot] != 0;  // loaded beside the id
+    const bool in_table = f >= 0 && f < rows;
+    if (!in_table) *bad_slot = v0 + slot + 1;
+    if (in_table && own) src = table + f * w;
+  }
+  const int n = nrows * w;
+  T* dst = out + v0 * w;
+  // unit u = lane + 32 k of the group lies in row r, column c; both step by
+  // 32 units without a division
+  int r = 0, c = lane;
+  if (!ONE_ROW && lane >= w) {
+    r = lane / w;
+    c = lane - r * w;
+  }
+  for (int base = 0; base < n; base += 32 * FG_UNITS) {
+    T val[FG_UNITS];
+#pragma unroll
+    for (int k = 0; k < FG_UNITS; ++k) {
+      const int u = base + lane + 32 * k;
+      if (base + 32 * k < n) {  // the same for the whole warp
+        const T* row = src;
+        if (!ONE_ROW) {
+          row = reinterpret_cast<const T*>(__shfl_sync(
+              0xffffffffu, reinterpret_cast<unsigned long long>(src), r));
+          r += dr;
+        }
+        val[k] = u < n && row ? row[ONE_ROW ? u : c] : zero_unit<T>();
+        if (!ONE_ROW) {
+          c += dc;
+          if (c >= w) {
+            c -= w;
+            ++r;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < FG_UNITS; ++k) {
+      const int u = base + lane + 32 * k;
+      if (u < n) dst[u] = val[k];
+    }
+  }
+}
+
+template <typename T>
+void launch_gather(unsigned blocks, cudaStream_t s, const void* table,
+                   const int64_t* flat, const uint8_t* owned, void* out,
+                   int64_t rows, int64_t v, int w, int group,
+                   int64_t* bad) {
+  const T* t = static_cast<const T*>(table);
+  T* o = static_cast<T*>(out);
+  if (group == 1)
+    fused_gather_kernel<T, true><<<blocks, FG_WARPS * 32, 0, s>>>(
+        t, flat, owned, o, rows, v, w, 1, 32 / w, 32 % w, bad);
+  else
+    fused_gather_kernel<T, false><<<blocks, FG_WARPS * 32, 0, s>>>(
+        t, flat, owned, o, rows, v, w, group, 32 / w, 32 % w, bad);
+}
+
+__global__ void fused_gather_kernel_v1(const float* __restrict__ table,
+                                       const int64_t* __restrict__ flat,
+                                       const uint8_t* __restrict__ owned,
+                                       float* __restrict__ out, int64_t rows,
+                                       int d, int64_t* __restrict__ bad_slot) {
   const int64_t v = blockIdx.x;
   const int64_t f = flat[v];
   const bool in_table = f >= 0 && f < rows;
@@ -125,8 +248,42 @@ extern "C" int fused_gather_f32(const void* table, const void* flat,
   void* bad_slot = nullptr;
   cudaError_t err = cudaHostGetDevicePointer(&bad_slot, bad_slot_host, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_gather_kernel<<<static_cast<unsigned>(v), row_threads(d), 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  const bool vec = d % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(table) |
+                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  const int w = vec ? d / 4 : d;
+  // rows per warp: as many as fill its loads, fewer when V is small so
+  // that the rows spread over up to FG_SPREAD warps
+  int64_t group = 32 * FG_UNITS / w;
+  const int64_t spread = (v + FG_SPREAD - 1) / FG_SPREAD;
+  if (spread < group) group = spread;
+  group = group < 1 ? 1 : group > 32 ? 32 : group;
+  const int64_t warps = (v + group - 1) / group;
+  const unsigned blocks =
+      static_cast<unsigned>((warps + FG_WARPS - 1) / FG_WARPS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t* f = static_cast<const int64_t*>(flat);
+  const uint8_t* o = static_cast<const uint8_t*>(owned);
+  int64_t* bad = static_cast<int64_t*>(bad_slot);
+  if (vec)
+    launch_gather<float4>(blocks, s, table, f, o, out, rows, v, w,
+                          static_cast<int>(group), bad);
+  else
+    launch_gather<float>(blocks, s, table, f, o, out, rows, v, w,
+                         static_cast<int>(group), bad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fused_gather_f32_v1(const void* table, const void* flat,
+                                   const void* owned, void* out, int64_t rows,
+                                   int64_t v, int d, void* bad_slot_host,
+                                   void* stream) {
+  if (v <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
+  void* bad_slot = nullptr;
+  cudaError_t err = cudaHostGetDevicePointer(&bad_slot, bad_slot_host, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_gather_kernel_v1<<<static_cast<unsigned>(v), row_threads(d), 0,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(table), static_cast<const int64_t*>(flat),
       static_cast<const uint8_t*>(owned), static_cast<float*>(out), rows, d,
       static_cast<int64_t*>(bad_slot));

@@ -10,6 +10,10 @@ Each launches its CUDA kernel from ``csrc/rgcn_message.cu`` for CUDA tensors
 and runs its plain PyTorch version for CPU tensors. The TPU kernels needed
 E and V padded to 128; these take any E and V.
 
+``basis_message`` launches the register-tiled kernel; every output is one
+fixed chain of ``fmaf`` operations, the same in :func:`basis_message_v1`,
+the first kernel, so the two give the same bits.
+
 ``segment_sum`` sums without float atomics, so two runs give the same
 bits: :func:`segment_plan` sorts the edges stably by segment (masked edges
 last) and cuts each segment into chunks of ``CHUNK`` edges; the kernel adds
@@ -35,12 +39,13 @@ from repro_torch.kernels import _build
 
 CHUNK = 32          # sorted edges per chunk (one warp); csrc's CHUNK
 
+_BASIS_ARGTYPES = [ctypes.c_void_p] * 5 + [
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _SIGNATURES = {
-    "basis_message_plan": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.POINTER(ctypes.c_int)],
-    "basis_message_f32": [ctypes.c_void_p] * 5 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p],
+    "basis_message_plan": [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p],
+    "basis_message_f32": _BASIS_ARGTYPES,
+    "basis_message_f32_v1": _BASIS_ARGTYPES,
     "segment_sum_f32": [ctypes.c_void_p] * 7 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
 }
@@ -66,23 +71,28 @@ def basis_message_plain(h_t: torch.Tensor, coef: torch.Tensor,
     return torch.where(edge_mask[:, None], msg, torch.zeros_like(msg))
 
 
-def basis_message_config(d_in: int, d_out: int,
-                         num_bases: int) -> Tuple[int, bool]:
-    """``(edges per block, bases in shared memory)`` the kernel takes for
-    these widths on the current card (the tile is 0 when nothing fits)."""
-    flag = ctypes.c_int(0)
-    tile = _library().basis_message_plan(d_in, d_out, num_bases,
-                                         ctypes.byref(flag))
-    return int(tile), bool(flag.value)
+_PLAN_FIELDS = ("edges_per_tile", "threads", "column_slices",
+                "column_groups_per_slice", "blocks_per_slice",
+                "blocks_per_sm", "smem_bytes")
 
 
-def basis_message(h_t: torch.Tensor, coef: torch.Tensor, bases: torch.Tensor,
-                  edge_mask: torch.Tensor) -> torch.Tensor:
-    """``mask[e] · Σ_b coef[e, b] · (h_t[e] @ bases[b])`` — the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors. Forward only: the
-    RGCN layer differentiates the plain formula (``ops.rgcn_message_basis``)."""
-    if _build.on_cpu("basis_message", h_t, coef, bases, edge_mask):
-        return basis_message_plain(h_t, coef, bases, edge_mask)
+def basis_message_config(d_in: int, d_out: int, num_bases: int,
+                         num_edges: int) -> dict:
+    """The plan :func:`basis_message` launches for these widths and
+    ``num_edges`` edges on the current card: its edge tile, threads per
+    block, how the output columns split over blocks (each block holds its
+    slice of the bases in shared memory), the persistent grid and the
+    shared memory per block."""
+    plan = (ctypes.c_int64 * len(_PLAN_FIELDS))()
+    code = _library().basis_message_plan(num_edges, d_in, d_out, num_bases,
+                                         plan)
+    _build.check_launch("basis_message_plan", code)
+    return dict(zip(_PLAN_FIELDS, (int(x) for x in plan)))
+
+
+def _launch_basis(entry: str, h_t, coef, bases, edge_mask):
+    """Check the operands and launch the C entry point ``entry``; returns
+    ``(out, launched)``."""
     if h_t.dim() != 2 or bases.dim() != 3:
         raise ValueError("basis_message: h_t must be (E, d_in) and bases "
                          "(B, d_in, d_out)")
@@ -98,19 +108,46 @@ def basis_message(h_t: torch.Tensor, coef: torch.Tensor, bases: torch.Tensor,
                          f"B={nb} must be positive")
     out = torch.empty((e, d_out), dtype=f32, device=h_t.device)
     if e == 0:
-        return out
+        return out, False
     lib = _library()
     with torch.cuda.device(h_t.device):
-        code = lib.basis_message_f32(
+        code = getattr(lib, entry)(
             h_t.data_ptr(), coef.data_ptr(), bases.data_ptr(),
             edge_mask.data_ptr(), out.data_ptr(), e, d_in, d_out, nb,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch("basis_message", code)
-    basis_message.launches += 1
+    return out, True
+
+
+def basis_message(h_t: torch.Tensor, coef: torch.Tensor, bases: torch.Tensor,
+                  edge_mask: torch.Tensor) -> torch.Tensor:
+    """``mask[e] · Σ_b coef[e, b] · (h_t[e] @ bases[b])`` — the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors. Forward only: the
+    RGCN layer's backward is written out in ``ops.rgcn_message_basis``."""
+    if _build.on_cpu("basis_message", h_t, coef, bases, edge_mask):
+        return basis_message_plain(h_t, coef, bases, edge_mask)
+    out, launched = _launch_basis("basis_message_f32", h_t, coef, bases,
+                                  edge_mask)
+    if launched:
+        basis_message.launches += 1
     return out
 
 
 basis_message.launches = 0
+
+
+def basis_message_v1(h_t: torch.Tensor, coef: torch.Tensor,
+                     bases: torch.Tensor,
+                     edge_mask: torch.Tensor) -> torch.Tensor:
+    """The first port's kernel (a thread per output column and 4 edges of a
+    128-edge tile) on CUDA tensors, kept as the bitwise yardstick of
+    :func:`basis_message`: both compute every output by the same ``fmaf``
+    chain. Not on any path of the port; it counts no launches."""
+    if _build.on_cpu("basis_message", h_t, coef, bases, edge_mask):
+        raise ValueError("basis_message_v1: CUDA tensors only (the plain "
+                         "version is basis_message_plain)")
+    return _launch_basis("basis_message_f32_v1", h_t, coef, bases,
+                         edge_mask)[0]
 
 
 # ---------------------------------------------------------------------- #

@@ -24,6 +24,8 @@ path (``ops.gather_rows``).
 
 Each wrapper launches its CUDA kernel from ``csrc/sharded_gather.cu`` for
 CUDA tensors and runs its plain version for CPU tensors.
+:func:`fused_gather_v1` launches the first ``fused_gather`` kernel (a
+block per row), kept as the bitwise yardstick of the warp-per-rows one.
 
 * :func:`fused_gather` and :func:`fused_dequant_gather`. A flat id outside
   the table is a broken plan: the plain version raises an ``IndexError``
@@ -53,11 +55,13 @@ from repro_torch.kernels.rgcn_message import (
     CHUNK, SegmentPlan, check_plan, segment_key, segment_plan,
 )
 
+_GATHER_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p]
 _SIGNATURES = {
-    "fused_gather_f32": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p],
+    "fused_gather_f32": _GATHER_ARGTYPES,
+    "fused_gather_f32_v1": _GATHER_ARGTYPES,
     "fused_dequant_gather_i8": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
@@ -122,15 +126,11 @@ def raise_if_flagged(device: torch.device) -> None:
                          f"outside the table")
 
 
-def fused_gather(table_flat: torch.Tensor, flat_ids: torch.Tensor,
-                 any_owned: torch.Tensor, *, check: bool = True
-                 ) -> torch.Tensor:
-    """``out[v] = any_owned[v] ? table_flat[flat_ids[v]] : 0`` — the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors. ``check``:
-    wait for the gather and raise on a flat id outside the table (else
-    see :func:`raise_if_flagged`)."""
-    if _build.on_cpu("fused_gather", table_flat, flat_ids, any_owned):
-        return fused_gather_plain(table_flat, flat_ids, any_owned)
+def _gather(entry: str, counter, table_flat: torch.Tensor,
+            flat_ids: torch.Tensor, any_owned: torch.Tensor,
+            check: bool) -> torch.Tensor:
+    """Check the operands and launch the C entry point ``entry`` on CUDA
+    tensors, adding one to ``counter.launches`` when given."""
     if table_flat.dim() != 2 or flat_ids.dim() != 1:
         raise ValueError("fused_gather: table_flat must be 2-D and flat_ids "
                          "1-D")
@@ -147,11 +147,12 @@ def fused_gather(table_flat: torch.Tensor, flat_ids: torch.Tensor,
     with torch.cuda.device(table_flat.device):
         bad = _bad_slot_flag(table_flat.device)
         stream = torch.cuda.current_stream()
-        code = lib.fused_gather_f32(
+        code = getattr(lib, entry)(
             table_flat.data_ptr(), flat_ids.data_ptr(), any_owned.data_ptr(),
             out.data_ptr(), r, v, d, bad.data_ptr(), stream.cuda_stream)
         _build.check_launch("fused_gather", code)
-        fused_gather.launches += 1
+        if counter is not None:
+            counter.launches += 1
         if not check:
             return out
         stream.synchronize()
@@ -159,7 +160,33 @@ def fused_gather(table_flat: torch.Tensor, flat_ids: torch.Tensor,
     return out
 
 
+def fused_gather(table_flat: torch.Tensor, flat_ids: torch.Tensor,
+                 any_owned: torch.Tensor, *, check: bool = True
+                 ) -> torch.Tensor:
+    """``out[v] = any_owned[v] ? table_flat[flat_ids[v]] : 0`` — the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors. ``check``:
+    wait for the gather and raise on a flat id outside the table (else
+    see :func:`raise_if_flagged`)."""
+    if _build.on_cpu("fused_gather", table_flat, flat_ids, any_owned):
+        return fused_gather_plain(table_flat, flat_ids, any_owned)
+    return _gather("fused_gather_f32", fused_gather, table_flat, flat_ids,
+                   any_owned, check)
+
+
 fused_gather.launches = 0
+
+
+def fused_gather_v1(table_flat: torch.Tensor, flat_ids: torch.Tensor,
+                    any_owned: torch.Tensor, *, check: bool = True
+                    ) -> torch.Tensor:
+    """The first port's kernel (one block per row) on CUDA tensors, kept as
+    the bitwise yardstick of :func:`fused_gather`: both copy each row.
+    Not on any path of the port; it counts no launches."""
+    if _build.on_cpu("fused_gather", table_flat, flat_ids, any_owned):
+        raise ValueError("fused_gather_v1: CUDA tensors only (the plain "
+                         "version is fused_gather_plain)")
+    return _gather("fused_gather_f32_v1", None, table_flat, flat_ids,
+                   any_owned, check)
 
 
 def fused_dequant_gather_plain(codes_flat: torch.Tensor,

@@ -26,6 +26,9 @@ from repro.kernels.sharded_gather import fused_gather as jax_fused_gather
 from repro_torch.kernels import (
     fused_gather, kge_score, ops, ref, topk_plain, topk_scores,
 )
+from repro_torch.kernels.kge_score import kge_score_v1
+from repro_torch.kernels.rgcn_message import basis_message_v1
+from repro_torch.kernels.sharded_gather import fused_gather_v1
 
 U32 = 2.0 ** -24
 
@@ -166,6 +169,30 @@ def test_kge_score_rejects_unknown_epilogue_and_devices():
         fused_gather(torch.zeros(4, 2), torch.zeros(1, dtype=torch.int64,
                                                      device="meta"),
                      torch.ones(1, dtype=torch.bool))
+
+
+def v1_operands(name):
+    """Small CPU operands of each first kernel's wrapper."""
+    if name == "kge_score_v1":
+        return (torch.zeros(2, 4), torch.zeros(3, 4), torch.zeros(2, 3),
+                torch.zeros(2), torch.zeros(3))
+    if name == "fused_gather_v1":
+        return (torch.zeros(4, 2), torch.zeros(3, dtype=torch.int64),
+                torch.ones(3, dtype=torch.bool))
+    return (torch.zeros(5, 3), torch.zeros(5, 2), torch.zeros(2, 3, 4),
+            torch.ones(5, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("wrapper", [kge_score_v1, fused_gather_v1,
+                                     basis_message_v1],
+                         ids=lambda w: w.__name__)
+def test_first_kernels_refuse_cpu_tensors(wrapper):
+    """The first kernels, kept as the redesigned kernels' bitwise
+    yardsticks on the card, launch on CUDA tensors only: on CPU tensors
+    they raise instead of running the plain version, so a comparison
+    against them can never compare the plain version with itself."""
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        wrapper(*v1_operands(wrapper.__name__))
 
 
 # ---------------------------------------------------------------------- #

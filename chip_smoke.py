@@ -11,7 +11,7 @@ Phases, each of which fails the run on error:
 2. Kernel vs plain: each of the eight kernels against its plain PyTorch
    version on the card, with its time, its plain version's time, one
    PyTorch library call's time (where one computes the function) and the
-   least time the card could take; the three redesigned kernels also
+   least time the card could take; the five redesigned kernels also
    bitwise against their first kernels (``*_v1``), timed beside them:
    kge_score, topk and fused_gather at the serving shapes, kge_score also
    at the mini-batch ranking shape (B = 256) and, register-tiled, bitwise
@@ -37,18 +37,25 @@ Phases, each of which fails the run on error:
    scatter_add_onehot at the shapes of one mini-batch of
    the mini-batch path (the 4-shard table gradient V = 17,200 into
    R = 14,544, the vertex-state gather backward E = 472,448 into 17,200,
-   the relation-coefficient backward into 474 rows) and at edge cases (all
-   slots unowned, one row hit by every slot, R not a multiple of 128,
-   V = 0): within 2 gamma_n sum|g| of the plain version, rows no owned
+   the relation-coefficient backward into 474 rows, the decoder's
+   relation-diagonal, head and tail backwards) and at edge cases (all
+   slots unowned, one row hit by every slot, a row of 100,000 hits, R not
+   a multiple of 128, V not a multiple of 32, d = 1, 4, 128, V = 0):
+   bitwise scatter_add_onehot_v1 (timed beside it, each pass's time at
+   the vertex-state gradient), within 2 gamma_n sum|g| of the plain
+   version, rows no owned
    slot hits exactly 0, two runs bitwise equal, the 4-shard table gradient
    bitwise the dense one; at the training shapes scatter_add_onehot and
    segment_sum given the plan built on the host (as the pipelines build
    it) bitwise the unplanned calls, timed with and without it;
    wkv_chunked at the rwkv6-3b prefill shape
    (BH = 4 x 40 heads, S = 2,048, hd = chunk = 64) and at edge cases
-   (S ragged, BH = 1, S < chunk, chunk = 16, hd = 8, 16, 32) against the
-   plain chunked form and the sequential oracle: finite, two runs bitwise
-   equal, and a block above the card's shared memory refused.
+   (S ragged, BH = 1, S < chunk, chunk = 16, hd = 8, 16, 32) bitwise
+   wkv_chunked_v1 (timed beside it, each pass's time at the prefill shape)
+   and against the plain chunked form and the sequential oracle: finite,
+   two runs bitwise equal; hd = 128, which the first kernel refuses,
+   against the plain form and the oracle; and a block above the card's
+   shared memory (hd = 256) refused.
 3. Serving, FB15k-237 width (N=14,541, R=474, d=75): 200 Zipf(1.3) requests
    through ``repro_torch.launch.serve`` with distmult and transe at 1 and 4
    table shards, filtered, cache 256, 8 slots, k=10; sharded == dense.
@@ -1074,7 +1081,8 @@ def minibatch_arrays():
                 local=hb["shard_local_ids"][0], owned=hb["shard_owned"][0],
                 src=mb.comp_src[0], dst=mb.comp_dst[0], rel=mb.comp_rel[0],
                 mask=mb.comp_mask[0],
-                trip_rel=mb.triplets[0][:, 1], N=kg.num_entities,
+                trip_head=mb.triplets[0][:, 0], trip_rel=mb.triplets[0][:, 1],
+                trip_tail=mb.triplets[0][:, 2], N=kg.num_entities,
                 R=kg.num_relations, layout=pre.table_layout,
                 V=pre.budget.max_vertices, E=pre.budget.max_edges,
                 T=pre.budget.max_triplets,
@@ -1082,12 +1090,17 @@ def minibatch_arrays():
 
 
 def check_scatter_add(dev, rng, mbs):
-    """scatter_add_onehot at the mini-batch path's shapes and the edge
-    cases. Both sides add each row's owned hits in fp32, in other orders
-    (the kernel: chunks of 32 in slot order, then the chunk sums; the
-    plain index_add_: atomics), so each is within gamma_n sum|g| of the
-    exact sum (n = the row's hits) and the bound is twice that. Rows no
-    owned slot hits must be exactly 0, two runs bitwise equal, and the
+    """scatter_add_onehot at the mini-batch path's shapes (the table
+    gradient, the vertex-state gradient h_dst, the relation coefficients,
+    and the decoder's three: the relation diagonals and the head and tail
+    gathers from V) and the edge cases. The kernel must be bitwise the
+    first kernel (``scatter_add_onehot_v1``, timed beside it, with each
+    pass's device time at h_dst): both add in the same order. Both sides
+    of the plain comparison add each row's owned hits in fp32, in other
+    orders (the kernel: chunks of 32 in slot order, then the chunk sums;
+    the plain index_add_: atomics), so each is within gamma_n sum|g| of
+    the exact sum (n = the row's hits) and the bound is twice that. Rows
+    no owned slot hits must be exactly 0, two runs bitwise equal, and the
     4-shard table gradient bitwise the dense one. Returns (max |err|,
     per-shape times)."""
     import torch
@@ -1096,22 +1109,33 @@ def check_scatter_add(dev, rng, mbs):
         SegmentPlan, segment_key, segment_plan, segment_plan_host,
     )
     from repro_torch.kernels.sharded_gather import (
-        scatter_add_onehot, scatter_add_onehot_plain, scatter_add_planned,
+        scatter_add_onehot, scatter_add_onehot_plain, scatter_add_onehot_v1,
+        scatter_add_planned,
     )
     lay = mbs["layout"]
     flat_s, own_s = flat_gather_plan(torch.from_numpy(mbs["local"]),
                                      torch.from_numpy(mbs["owned"]),
                                      lay.rows_per_shard)
     ragged_owned = rng.random(5000) < .7
+    timed_cases = ("table_grad", "h_dst", "coeffs_rel", "rel_diag",
+                   "trip_head", "trip_tail")
     cases = [
         ("table_grad", flat_s.numpy(), own_s.numpy(), lay.padded_rows, 75),
         ("h_dst", mbs["dst"], None, mbs["V"], 75),
         ("coeffs_rel", mbs["rel"], None, mbs["R"], 2),
         ("rel_diag", mbs["trip_rel"], None, mbs["R"], 75),
+        ("trip_head", mbs["trip_head"], None, mbs["V"], 75),
+        ("trip_tail", mbs["trip_tail"], None, mbs["V"], 75),
         ("all unowned", rng.integers(0, 1000, 1000), np.zeros(1000, bool),
          1000, 75),
         ("one row", np.full(40000, 5), None, 300, 75),
+        ("one row of 100,000", np.full(100000, 3), None, 10, 75),
         ("ragged R", rng.integers(0, 1001, 5000), ragged_owned, 1001, 33),
+        ("V%32 != 0", rng.integers(0, 500, 4001), rng.random(4001) < .8,
+         500, 75),
+        ("d=1", rng.integers(0, 300, 9000), None, 300, 1),
+        ("d=4", rng.integers(0, 300, 9000), None, 300, 4),
+        ("d=128", rng.integers(0, 300, 9000), None, 300, 128),
         ("V=0", np.zeros(0, np.int64), np.zeros(0, bool), 1000, 75),
     ]
     max_err, stats = 0.0, {}
@@ -1119,13 +1143,18 @@ def check_scatter_add(dev, rng, mbs):
         v = flat.shape[0]
         g = torch.from_numpy(rng.normal(0, 1, (v, d)).astype(np.float32)
                              ).to(dev)
+        g[::7] = -0.0          # rows of -0.0: the sum order shows in signs
         flat_t = torch.from_numpy(np.asarray(flat, np.int64)).to(dev)
         own_t = None if owned is None else torch.from_numpy(
             np.asarray(owned, bool)).to(dev)
         got = scatter_add_onehot(g, flat_t, own_t, r)
         got2 = scatter_add_onehot(g, flat_t, own_t, r)
+        first = scatter_add_onehot_v1(g, flat_t, own_t, r)
         want = scatter_add_onehot_plain(g, flat_t, own_t, r)
         torch.cuda.synchronize()
+        if not same_bits(got, first):
+            raise AssertionError(f"scatter_add_onehot {label}: kernel != "
+                                 f"first kernel")
         if not torch.equal(got.view(torch.int32), got2.view(torch.int32)):
             raise AssertionError(f"scatter_add_onehot {label}: two runs "
                                  f"differ")
@@ -1149,8 +1178,8 @@ def check_scatter_add(dev, rng, mbs):
         max_err = max(max_err, e_max)
         longest = int(hits.max()) if hits.numel() else 0
         log(f"[phase 2] scatter_add_onehot {label} (V={v}, R={r}, d={d}, "
-            f"longest row {longest}): max err {e_max:.3g}, non-hit rows 0, "
-            f"two runs bitwise equal")
+            f"longest row {longest}): bitwise the first kernel, max err "
+            f"{e_max:.3g}, non-hit rows 0, two runs bitwise equal")
         if label == "table_grad":
             dense = scatter_add_onehot(
                 g, torch.from_numpy(mbs["gather_global"].astype(np.int64)
@@ -1161,7 +1190,7 @@ def check_scatter_add(dev, rng, mbs):
                                      "gradient != the dense one")
             log("[phase 2] scatter_add_onehot: 4-shard table gradient "
                 "bitwise the dense gather's")
-        if label in ("table_grad", "h_dst", "coeffs_rel"):
+        if label in timed_cases:
             # the main paths hand the call the plan built on the host with
             # the batch: planned == unplanned, bit for bit
             t0 = time.perf_counter()
@@ -1183,6 +1212,9 @@ def check_scatter_add(dev, rng, mbs):
                 *bound_ms(nbytes, n_own * d)))
             st["kernel_ms"], _ = timed(
                 lambda: scatter_add_planned(g, *plan, r))
+            st["first_kernel_ms"], _ = timed(
+                lambda: scatter_add_onehot_v1(g, flat_t, own_t, r,
+                                              plan=plan))
             st["unplanned_ms"], _ = timed(
                 lambda: scatter_add_onehot(g, flat_t, own_t, r))
             st["plan_ms"], _ = timed(lambda: segment_plan(flat_t, own_t, r))
@@ -1191,10 +1223,29 @@ def check_scatter_add(dev, rng, mbs):
             report("scatter_add_onehot", f"{label} (V={v}, R={r}, d={d})",
                    st, "index_add_")
             log(f"[phase 2] scatter_add_onehot {label}: planned == unplanned "
-                f"bitwise; kernels alone {st['kernel_ms']:.4f} ms, with the "
-                f"plan built on the card {st['unplanned_ms']:.4f} ms (the "
+                f"bitwise; kernels alone {st['kernel_ms']:.4f} ms, the first "
+                f"kernel {st['first_kernel_ms']:.4f} ms "
+                f"({st['first_kernel_ms'] / st['kernel_ms']:.2f}x, "
+                f"{st['kernel_ms'] / st['bound_ms']:.2f}x the bound), with "
+                f"the plan built on the card {st['unplanned_ms']:.4f} ms (the "
                 f"plan {st['plan_ms']:.4f} ms); the host plan {host_ms:.2f} "
                 f"ms of host time")
+            if label == "h_dst":
+                # each pass's device time, the new passes and the first's
+                reps = 10
+                for key_, fn in (
+                        ("passes_ms", lambda: scatter_add_planned(
+                            g, *plan, r)),
+                        ("first_kernel_passes_ms",
+                         lambda: scatter_add_onehot_v1(
+                             g, flat_t, own_t, r, plan=plan))):
+                    fn()
+                    w = profiled(fn, reps)
+                    st[key_] = {n: us / reps / 1e3
+                                for n, us in w["by_name"].items()}
+                log(f"[phase 2] scatter_add_onehot h_dst by pass, ms: "
+                    f"{st['passes_ms']}; the first kernel's "
+                    f"{st['first_kernel_passes_ms']}")
     return max_err, stats
 
 
@@ -1223,23 +1274,31 @@ def check_wkv(dev, rng):
     """wkv_chunked at the rwkv6-3b prefill shape (BH = 4 batch rows x 40
     heads, S = 2,048, hd = chunk = 64) and at edge cases (S ragged, BH = 1,
     S shorter than the chunk, chunk = 16, hd = 8, 16, 32). Every output
-    finite; two runs bitwise equal; within the reference's gate of the
+    finite; bitwise the first kernel (``wkv_chunked_v1``, timed beside it
+    at the prefill shape): both compute every output by the same fp32
+    chain; two runs bitwise equal; within the reference's gate of the
     sequential oracle ``ref.wkv_chunk_ref``; and within
     WKV_ULPS_PER_STEP * chunk ulps of each row's largest output of the
     plain chunked form (the same factorization: each output is a sum of
     at most chunk + 2 hd + 1 terms in another order, and the state's
-    rounding decays with it). A block above the card's shared memory
-    (hd = 128, chunk = 64) raises ValueError. Returns (max |kernel - plain
-    chunked|, per-case errors with the times at the prefill shape)."""
+    rounding decays with it). hd = 128, chunk = 64, which the first
+    kernel's whole state does not let into a block's shared memory (it
+    raises ValueError), the chunk-parallel kernels take: it is held against
+    the plain chunked form and the oracle alone. A block above the card's
+    shared memory (hd = 256, chunk = 64) raises ValueError. Returns (max
+    |kernel - plain chunked|, per-case errors with the times at the
+    prefill shape, each pass's device time among them)."""
     import torch
     from repro_torch.kernels.ref import wkv_chunk_ref
-    from repro_torch.kernels.wkv_chunk import wkv_chunked, wkv_chunked_plain
+    from repro_torch.kernels.wkv_chunk import (
+        wkv_chunked, wkv_chunked_plain, wkv_chunked_v1,
+    )
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = [("prefill", LM_B * 40, LM_S, 64, 64),
              ("S ragged", 7, 1000, 64, 64), ("BH=1", 1, 300, 64, 64),
              ("S<chunk", 4, 10, 64, 64), ("chunk=16", 12, 200, 64, 16),
              ("hd=8", 5, 77, 8, 16), ("hd=16", 9, 130, 16, 32),
-             ("hd=32", 3, 96, 32, 64)]
+             ("hd=32", 3, 96, 32, 64), ("hd=128", 6, 300, 128, 64)]
     max_err, stats = 0.0, {}
     for label, bh, s, hd, chunk in cases:
         x = wkv_inputs(dev, rng, bh, s, hd)
@@ -1248,6 +1307,21 @@ def check_wkv(dev, rng):
         plain = wkv_chunked_plain(*x, chunk=chunk)
         seq = wkv_chunk_ref(*x)
         torch.cuda.synchronize()
+        if label == "hd=128":
+            try:
+                wkv_chunked_v1(*x, chunk=chunk)
+            except ValueError as e:
+                log(f"[phase 2] wkv_chunked_v1 hd=128, chunk=64 refused: "
+                    f"{e}")
+            else:
+                raise AssertionError("wkv_chunked_v1: hd=128, chunk=64 did "
+                                     "not raise")
+            versus = "the first kernel refuses it"
+        else:
+            if not same_bits(got, wkv_chunked_v1(*x, chunk=chunk)):
+                raise AssertionError(f"wkv_chunked {label}: kernel != first "
+                                     f"kernel")
+            versus = "bitwise the first kernel"
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"wkv_chunked {label}: non-finite output")
         if not torch.equal(got.view(torch.int32), got2.view(torch.int32)):
@@ -1268,7 +1342,7 @@ def check_wkv(dev, rng):
                             bound_share=float((err / tol).max()),
                             max_abs_err_vs_sequential=seq_err)
         log(f"[phase 2] wkv_chunked {label} (BH={bh}, S={s}, hd={hd}, "
-            f"chunk={chunk}): max |kernel - plain chunked| "
+            f"chunk={chunk}): {versus}; max |kernel - plain chunked| "
             f"{float(err.max()):.3g} (largest share of its bound "
             f"{float((err / tol).max()):.3f}), max |kernel - sequential| "
             f"{seq_err:.3g}; finite, two runs bitwise equal")
@@ -1276,27 +1350,34 @@ def check_wkv(dev, rng):
             nbytes = 4 * (5 * bh * s * hd + bh * hd)
             b_ms, b_by = bound_ms(nbytes, wkv_ops(bh, s, hd, chunk))
             ms, call_ms = timed(lambda: wkv_chunked(*x, chunk=chunk))
+            v1_ms, _ = timed(lambda: wkv_chunked_v1(*x, chunk=chunk))
             plain_ms, plain_call_ms = timed(
                 lambda: wkv_chunked_plain(*x, chunk=chunk))
             # the oracle's 2,048 steps are some 14,000 device operations a
             # call, too many for the profiler's windows: CUDA events only
             seq_call_ms = time_ms(lambda: wkv_chunk_ref(*x), reps=3,
                                   warmup=1)
+            reps = 5
+            passes = profiled(lambda: wkv_chunked(*x, chunk=chunk), reps)
+            stats[label]["passes_ms"] = {
+                n: us / reps / 1e3 for n, us in passes["by_name"].items()}
             stats[label].update(
-                ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                plain_call_ms=plain_call_ms, sequential_call_ms=seq_call_ms,
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                ms=ms, call_ms=call_ms, first_kernel_ms=v1_ms,
+                plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+                sequential_call_ms=seq_call_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
             log(f"[phase 2] wkv_chunked {label}: {ms:.4f} ms ({call_ms:.4f} "
-                f"ms per call), plain chunked {plain_ms:.4f} ms, sequential "
-                f"{seq_call_ms:.1f} ms per call, no single library call; "
-                f"bound "
-                f"{b_ms:.6f} ms ({b_by})")
+                f"ms per call), the first kernel {v1_ms:.4f} ms "
+                f"({v1_ms / ms:.2f}x, {ms / b_ms:.2f}x its bound), plain "
+                f"chunked {plain_ms:.4f} ms, sequential {seq_call_ms:.1f} "
+                f"ms per call, no single library call; bound {b_ms:.6f} ms "
+                f"({b_by}); by pass, ms: {stats[label]['passes_ms']}")
         del x, got, got2, plain, seq
-    x = wkv_inputs(dev, rng, 2, 64, 128)
+    x = wkv_inputs(dev, rng, 2, 64, 256)
     try:
         wkv_chunked(*x, chunk=64)
     except ValueError as e:
-        log(f"[phase 2] wkv_chunked hd=128, chunk=64 refused: {e}")
+        log(f"[phase 2] wkv_chunked hd=256, chunk=64 refused: {e}")
     else:
         raise AssertionError("wkv_chunked: a block above the card's shared "
                              "memory did not raise")
@@ -1588,8 +1669,9 @@ def profile_lm(state):
                            ("lm_prefill_bf16", "params16")):
             w = profiled(lambda: state["prefill"](state[key], state["batch"]),
                          1, host=False)
-            wkv_us = sum(t for n, t in w["by_name"].items()
-                         if n.startswith("wkv_chunk"))
+            # the WKV kernels' passes: wkv_local_kernel, wkv_scan_kernel,
+            # wkv_cross_kernel (template kernels' names start "void ")
+            wkv_us = sum(t for n, t in w["by_name"].items() if "wkv_" in n)
             top = sorted(w["by_name"].items(), key=lambda kv: -kv[1])[:8]
             out[label] = dict(
                 step_ms=w["wall_us"] / 1e3,
@@ -2017,8 +2099,9 @@ def main() -> int:
     phase2["wkv_chunked"] = check_wkv(dev, rng)
     log("[phase 2] kge_score and basis_message within their stated bounds; "
         "topk, fused_gather and fused_dequant_gather bitwise equal to their "
-        "plain versions; kge_score, fused_gather and basis_message bitwise "
-        "equal to their first kernels; "
+        "plain versions; kge_score, fused_gather, basis_message, "
+        "scatter_add_onehot and wkv_chunked bitwise equal to their first "
+        "kernels; "
         "segment_sum deg == plain, agg within its bound, runs bitwise "
         "equal; scatter_add_onehot within its bound, non-hit rows 0, runs "
         "bitwise equal; wkv_chunked within its bounds of the plain chunked "
@@ -2402,7 +2485,7 @@ def main() -> int:
              "fused_gather": "minibatch_S4",
              "fused_dequant_gather": "minibatch_S4",
              "basis_message": "minibatch", "segment_sum": "minibatch",
-             "scatter_add_onehot": "table_grad", "wkv_chunked": "prefill"}
+             "scatter_add_onehot": "h_dst", "wkv_chunked": "prefill"}
     for name, head_shape in heads.items():
         max_err, stats = phase2[name]
         head = stats[head_shape]

@@ -85,12 +85,22 @@
 // Design: no float atomics, so the sum order is fixed by the data alone and
 // two runs give the same bits. The caller sorts the slots stably by flat row
 // (unowned slots go to a sentinel row past the table, so they cannot shift a
-// real row's chunks) and the two passes of segment_sum.cuh add each row's
-// slots in slot order, in chunks of 32, then the chunk sums in chunk order.
-// A row's sum depends only on which slots hit it and in what order: a dense
-// gather and a row-sharded one (whose flat row is the global id under the
-// row-block layout) get the same bits, and so do a deduplicated plan and a
-// plain one. Rows no owned slot hits, layout padding included, are 0.
+// real row's chunks) and segment_sum.cuh's passes add each row's slots in
+// slot order, in chunks of 32, then the chunk sums in runs (its header has
+// the exact order). A row's sum depends only on which slots hit it and in
+// what order: a dense gather and a row-sharded one (whose flat row is the
+// global id under the row-block layout) get the same bits, and so do a
+// deduplicated plan and a plain one. Rows no owned slot hits, layout
+// padding included, are 0. scatter_add_f32 runs segsum::launch_scatter.
+//
+// What held the first kernel back (scatter_add_f32_v1, segsum::launch, the
+// RGCN segment sum's passes): at the vertex-state gradient (472,448 slots
+// into 17,200 rows, one of them hit by 147,696 padded slots) its combine
+// pass took most of the time: a 512-thread block for each of the 17,200
+// rows, most of which return at once, and the hub's 16 runs of 289 partial
+// rows each walked with 8 loads in flight, serialised on memory latency.
+// Its chunk pass searched chunk_ptr 15 dependent loads deep per warp and
+// had a lane walk its columns in passes of 32.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -308,11 +318,28 @@ extern "C" int fused_dequant_gather_i8(const void* codes, const void* scales,
 }
 
 // `max_chunks` bounds the chunk count (the caller passes V / CHUNK + R); the
-// partial buffer holds max_chunks rows of d.
+// partial buffer holds max_chunks rows of d and long_rows R + 1 int64s.
+// scatter_add_f32 runs segsum::launch_scatter; scatter_add_f32_v1, the
+// first kernel, runs segsum::launch (the RGCN segment sum's passes) and is
+// kept so that the chip smoke run can hold the new passes against it bit
+// for bit.
 extern "C" int scatter_add_f32(const void* g, const void* perm,
                                const void* offsets, const void* chunk_ptr,
-                               void* out, void* partial, int R, int d,
-                               int64_t max_chunks, void* stream) {
+                               void* out, void* partial, void* long_rows,
+                               int R, int d, int64_t max_chunks,
+                               void* stream) {
+  return static_cast<int>(segsum::launch_scatter(
+      static_cast<const float*>(g), static_cast<const int64_t*>(perm),
+      static_cast<const int64_t*>(offsets),
+      static_cast<const int64_t*>(chunk_ptr), static_cast<float*>(out),
+      static_cast<float*>(partial), static_cast<int64_t*>(long_rows), R, d,
+      max_chunks, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int scatter_add_f32_v1(const void* g, const void* perm,
+                                  const void* offsets, const void* chunk_ptr,
+                                  void* out, void* partial, int R, int d,
+                                  int64_t max_chunks, void* stream) {
   return static_cast<int>(segsum::launch(
       static_cast<const float*>(g), static_cast<const int64_t*>(perm),
       static_cast<const int64_t*>(offsets),

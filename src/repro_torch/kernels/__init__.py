@@ -19,8 +19,8 @@ version:
 * ``segment_sum`` — the RGCN masked segment sum with degree counts,
   deterministic without float atomics (replaces
   ``repro/kernels/rgcn_message.py::segment_sum_onehot``).
-* ``wkv_chunked`` — the chunked RWKV-6 WKV, the state resident in shared
-  memory across a row's chunks (replaces
+* ``wkv_chunked`` — the chunked RWKV-6 WKV: every chunk's local terms at
+  once, then a scan of the states, then the cross term (replaces
   ``repro/kernels/wkv_chunk.py::wkv_chunked``).
 
 ``ops`` holds the public wrappers, ``ref`` the references under the JAX

@@ -25,7 +25,9 @@ path (``ops.gather_rows``).
 Each wrapper launches its CUDA kernel from ``csrc/sharded_gather.cu`` for
 CUDA tensors and runs its plain version for CPU tensors.
 :func:`fused_gather_v1` launches the first ``fused_gather`` kernel (a
-block per row), kept as the bitwise yardstick of the warp-per-rows one.
+block per row), kept as the bitwise yardstick of the warp-per-rows one;
+:func:`scatter_add_onehot_v1` the first scatter-add passes (the RGCN
+segment sum's), the yardstick of ``segment_sum.cuh``'s scatter passes.
 
 * :func:`fused_gather` and :func:`fused_dequant_gather`. A flat id outside
   the table is a broken plan: the plain version raises an ``IndexError``
@@ -37,9 +39,9 @@ block per row), kept as the bitwise yardstick of the warp-per-rows one.
 * :func:`scatter_add_onehot` sums without float atomics: the slots are
   sorted stably by row (``rgcn_message.segment_plan``, unowned slots under
   a sentinel row) and each row's slots are added in slot order, in chunks,
-  by the two passes the RGCN segment sum uses. So two runs give the same
-  bits, and a row's sum depends only on which slots hit it and in what
-  order. The plan is a value of its own: a caller that scatters over the
+  by two passes in the RGCN segment sum's order. So two runs give the
+  same bits, and a row's sum depends only on which slots hit it and in
+  what order. The plan is a value of its own: a caller that scatters over the
   same ids more than once in a step (or holds the plan with a resident
   batch) passes it in, and the call is then the two kernels alone.
 """
@@ -59,6 +61,7 @@ _GATHER_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
     ctypes.c_void_p]
+_SCATTER_TAIL = [ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
 _SIGNATURES = {
     "fused_gather_f32": _GATHER_ARGTYPES,
     "fused_gather_f32_v1": _GATHER_ARGTYPES,
@@ -66,8 +69,8 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p],
-    "scatter_add_f32": [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
+    "scatter_add_f32": [ctypes.c_void_p] * 7 + _SCATTER_TAIL,
+    "scatter_add_f32_v1": [ctypes.c_void_p] * 6 + _SCATTER_TAIL,
 }
 
 # per CUDA device: a pinned host int64 the kernel sets to (slot + 1) when a
@@ -256,6 +259,25 @@ def scatter_add_onehot_plain(g: torch.Tensor, flat_ids: torch.Tensor,
     return out[:num_rows]
 
 
+def _scatter_operands(g: torch.Tensor, flat_ids: torch.Tensor,
+                      owned: Optional[torch.Tensor], num_rows: int) -> int:
+    """Check a CUDA scatter-add's operands; returns R."""
+    if g.dim() != 2:
+        raise ValueError("scatter_add_onehot: g must be (V, d)")
+    v, d = g.shape
+    r = int(num_rows)
+    _build.require("scatter_add_onehot", "g", g, torch.float32, (v, d))
+    _build.require("scatter_add_onehot", "flat_ids", flat_ids, torch.int64,
+                   (v,))
+    if owned is not None:
+        _build.require("scatter_add_onehot", "owned", owned, torch.bool,
+                       (v,))
+    if d < 1 or r >= 2 ** 31:
+        raise ValueError(f"scatter_add_onehot: d={d} must be positive and "
+                         f"R={r} below 2**31")
+    return r
+
+
 def scatter_add_onehot(g: torch.Tensor, flat_ids: torch.Tensor,
                        owned: Optional[torch.Tensor], num_rows: int,
                        plan: Optional[SegmentPlan] = None) -> torch.Tensor:
@@ -270,24 +292,36 @@ def scatter_add_onehot(g: torch.Tensor, flat_ids: torch.Tensor,
         check_plan("scatter_add_onehot", plan, flat_ids, owned, num_rows)
     if _build.on_cpu("scatter_add_onehot", *tensors):
         return scatter_add_onehot_plain(g, flat_ids, owned, num_rows)
-    if g.dim() != 2:
-        raise ValueError("scatter_add_onehot: g must be (V, d)")
-    v, d = g.shape
-    r = int(num_rows)
-    _build.require("scatter_add_onehot", "g", g, torch.float32, (v, d))
-    _build.require("scatter_add_onehot", "flat_ids", flat_ids, torch.int64,
-                   (v,))
-    if owned is not None:
-        _build.require("scatter_add_onehot", "owned", owned, torch.bool,
-                       (v,))
-    if d < 1 or r >= 2 ** 31:
-        raise ValueError(f"scatter_add_onehot: d={d} must be positive and "
-                         f"R={r} below 2**31")
+    r = _scatter_operands(g, flat_ids, owned, num_rows)
     if r == 0:
-        return torch.empty((0, d), dtype=torch.float32, device=g.device)
+        return torch.empty((0, g.shape[1]), dtype=torch.float32,
+                           device=g.device)
     if plan is None:
         plan = segment_plan(flat_ids, owned, r)
     return scatter_add_planned(g, *plan, r)
+
+
+def scatter_add_onehot_v1(g: torch.Tensor, flat_ids: torch.Tensor,
+                          owned: Optional[torch.Tensor], num_rows: int,
+                          plan: Optional[SegmentPlan] = None
+                          ) -> torch.Tensor:
+    """The first port's passes (a warp per chunk found by a binary search,
+    a block per row to combine) on CUDA tensors, kept as the bitwise
+    yardstick of :func:`scatter_add_onehot`: both add in the same order.
+    Not on any path of the port; it counts no launches."""
+    tensors = (g, flat_ids) + (() if owned is None else (owned,))
+    if _build.on_cpu("scatter_add_onehot", *tensors):
+        raise ValueError("scatter_add_onehot_v1: CUDA tensors only (the "
+                         "plain version is scatter_add_onehot_plain)")
+    if plan is not None:
+        check_plan("scatter_add_onehot_v1", plan, flat_ids, owned, num_rows)
+    r = _scatter_operands(g, flat_ids, owned, num_rows)
+    if r == 0:
+        return torch.empty((0, g.shape[1]), dtype=torch.float32,
+                           device=g.device)
+    if plan is None:
+        plan = segment_plan(flat_ids, owned, r)
+    return _scatter_launch("scatter_add_f32_v1", None, g, *plan, r)
 
 
 def scatter_add_planned(g: torch.Tensor, perm: torch.Tensor,
@@ -295,6 +329,15 @@ def scatter_add_planned(g: torch.Tensor, perm: torch.Tensor,
                         num_rows: int) -> torch.Tensor:
     """The kernel alone on CUDA tensors, given ``segment_plan``'s output
     for the slots' flat rows and ownership."""
+    return _scatter_launch("scatter_add_f32", scatter_add_onehot, g, perm,
+                           offsets, chunk_ptr, num_rows)
+
+
+def _scatter_launch(entry: str, counter, g: torch.Tensor, perm: torch.Tensor,
+                    offsets: torch.Tensor, chunk_ptr: torch.Tensor,
+                    num_rows: int) -> torch.Tensor:
+    """Launch the C entry point ``entry`` over a plan, adding one to
+    ``counter.launches`` when given."""
     v, d = g.shape
     r = int(num_rows)
     i64 = torch.int64
@@ -309,12 +352,16 @@ def scatter_add_planned(g: torch.Tensor, perm: torch.Tensor,
                           device=g.device)
     lib = _library()
     with torch.cuda.device(g.device):
-        code = lib.scatter_add_f32(
-            g.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
-            chunk_ptr.data_ptr(), out.data_ptr(), partial.data_ptr(), r, d,
-            max_chunks, torch.cuda.current_stream().cuda_stream)
+        ptrs = [g.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
+                chunk_ptr.data_ptr(), out.data_ptr(), partial.data_ptr()]
+        if entry == "scatter_add_f32":   # its list of the long rows
+            long_rows = torch.empty(r + 1, dtype=i64, device=g.device)
+            ptrs.append(long_rows.data_ptr())
+        code = getattr(lib, entry)(
+            *ptrs, r, d, max_chunks, torch.cuda.current_stream().cuda_stream)
     _build.check_launch("scatter_add_onehot", code)
-    scatter_add_onehot.launches += 1
+    if counter is not None:
+        counter.launches += 1
     return out
 
 

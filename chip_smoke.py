@@ -11,7 +11,7 @@ Phases, each of which fails the run on error:
 2. Kernel vs plain: each of the eight kernels against its plain PyTorch
    version on the card, with its time, its plain version's time, one
    PyTorch library call's time (where one computes the function) and the
-   least time the card could take; the five redesigned kernels also
+   least time the card could take; the seven redesigned kernels also
    bitwise against their first kernels (``*_v1``), timed beside them:
    kge_score, topk and fused_gather at the serving shapes, kge_score also
    at the mini-batch ranking shape (B = 256) and, register-tiled, bitwise
@@ -34,6 +34,16 @@ Phases, each of which fails the run on error:
    and over the card's shared memory), basis_message (register-tiled)
    bitwise basis_message_v1 at all six of its cases and timed beside it at
    the two training shapes, with each case's tile, grid and column split;
+   segment_sum (on the scatter's passes) bitwise segment_sum_v1, deg ==,
+   at all its cases (d = 1, 4, 128, 150 and segments of 64 and 65 chunks
+   among them), timed beside it with each pass's time at the mini-batch
+   shape; topk (one streaming pass) bitwise topk_scores_v1 and the plain
+   version, values and indices, at the serving widths, the shard merge (B
+   8, C 40, ids) and edge shapes (k = 1, k = C, k at each register
+   bucket's edge and above the largest, C = 1, C < 32, C not a multiple of
+   4, a row off 16-byte alignment, B = 1, ties across span boundaries,
+   signed-zero ties), at forced span counts, two runs bitwise equal, its
+   launches per call logged;
    scatter_add_onehot at the shapes of one mini-batch of
    the mini-batch path (the 4-shard table gradient V = 17,200 into
    R = 14,544, the vertex-state gather backward E = 472,448 into 17,200,
@@ -556,38 +566,187 @@ def check_kge_score(dev, rng, widths):
     return max_err, stats
 
 
-def check_topk(dev, rng, widths):
-    """Exact ties, -1e9 and all--inf rows, k=10; the merge form with ids.
-    Values and indices must be bitwise the plain version's; returns (max
-    |kernel - plain| over values and indices, per-width times)."""
+def same_topk(a, b) -> bool:
+    """Two ``(values, indices)`` pairs equal: values bit for bit (-0.0 is
+    not +0.0), indices exactly."""
     import torch
-    from repro_torch.kernels.topk import topk_plain, topk_scores
+    return same_bits(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def signed_zero_row(rng, c):
+    """A row of -0.0 with +0.0, -inf and -1e9 scattered in, a few 1.0 in
+    front: its top entries tie at zero with both signs."""
+    s = np.full(c, -0.0, np.float32)
+    s[rng.random(c) < .2] = -np.inf
+    s[rng.random(c) < .1] = np.float32(-1e9)
+    s[rng.random(c) < 2.0 / c] = 0.0
+    s[rng.integers(0, c, 3)] = 1.0
+    return s
+
+
+def topk_edge_cases(dev, rng):
+    """The streaming kernel (at its own plan and at forced spans) and
+    topk_scores at every k
+    against the first kernel (topk_scores_v1) and the plain version, bit
+    for bit: k = 1, k = C, k at each register bucket's edge and one above
+    the largest (the first kernel's passes), C = 1, C < 32, C not a
+    multiple of 4, a row that starts off 16-byte alignment, B = 1, ties
+    across span boundaries, signed-zero ties within and across spans, and
+    two runs bitwise equal. Returns the cases checked."""
+    import torch
+    from repro_torch.kernels.topk import (
+        STREAM_MAX_K, stream_select, topk_plain, topk_scores, topk_scores_v1,
+    )
+
+    def grid_scores(b, c, lo=0, hi=64):
+        return (rng.integers(lo, hi, (b, c)) / 8.0).astype(np.float32)
+
+    cases = []
+    for b, c, k in ((8, 1, 1), (3, 7, 7), (8, 31, 4), (8, 1001, 8),
+                    (1, 14541, 10), (8, 14541, 1), (8, 3636, 16),
+                    (8, 3636, 17), (2, 5000, 32), (8, 3636, 33),
+                    (4, 40, 40), (8, 14541, 100)):
+        cases.append((f"B={b} C={c} k={k}", grid_scores(b, c), k, None))
+    # a row 4 bytes past 16-byte alignment (its float4 loads start later)
+    cases.append(("misaligned C=14541", grid_scores(8, 14541), 10, "skew"))
+    # every entry tied: ties across every span boundary drain by position
+    cases.append(("all tied C=1000", np.full((4, 1000), 0.5, np.float32),
+                  10, [1, 3, 7, 16]))
+    cases.append(("ties across spans C=14541",
+                  grid_scores(8, 14541, 60, 64), 32, [2, 4, 5, 13]))
+    z = np.stack([signed_zero_row(rng, 14541) for _ in range(8)])
+    z[0, :] = -0.0
+    z[0, 14000] = 0.0            # one +0.0 in the last span
+    z[1, :] = -0.0               # no +0.0 at all
+    z[2, :] = -0.0
+    z[2, 0] = 0.0                # a +0.0 first, then only -0.0
+    cases.append(("signed zeros C=14541", z, 10, [1, 2, 4, 9]))
+    cases.append(("signed zeros C=3636", z[:, :3636].copy(), 32, [1, 3]))
+    cases.append(("signed zeros C=40 (merge)", z[:, :40].copy(), 10, [1, 3]))
+    for label, s, k, spans in cases:
+        b, c = s.shape
+        if spans == "skew":
+            buf = torch.empty(b * c + 1, device=dev)
+            scores = buf[1:].view(b, c)
+            scores.copy_(torch.from_numpy(s))
+            spans = None
+        else:
+            scores = torch.from_numpy(s).to(dev)
+        ids = torch.from_numpy(np.stack([rng.permutation(c) for _ in range(b)]
+                                        ).astype(np.int64)).to(dev)
+        for with_ids in (None, ids):
+            want = topk_plain(scores, k, with_ids)
+            first = topk_scores_v1(scores, k, with_ids)
+            got = topk_scores(scores, k, with_ids)
+            again = topk_scores(scores, k, with_ids)
+            torch.cuda.synchronize()
+            tag = f"topk {label} (ids={with_ids is not None})"
+            if not same_topk(first, want):
+                raise AssertionError(f"{tag}: the first kernel != plain")
+            if not same_topk(got, want):
+                raise AssertionError(f"{tag}: kernel != plain")
+            if not same_topk(got, again):
+                raise AssertionError(f"{tag}: two runs differ")
+            if k <= STREAM_MAX_K:
+                for n_sp in spans or ():
+                    if not same_topk(stream_select(scores, k, with_ids, n_sp),
+                                     want):
+                        raise AssertionError(
+                            f"{tag}: {n_sp} spans: kernel != plain")
+    labels = [c[0] for c in cases]
+    log(f"[phase 2] topk: the streaming kernel (forced spans too) and "
+        f"topk_scores == the first kernel == plain bit for bit, with and "
+        f"without ids, two runs equal, at {labels}")
+    return labels
+
+
+def check_topk(dev, rng, widths):
+    """Exact ties, -1e9 and all--inf rows, a row of signed-zero ties, k=10,
+    at each serving width (B = the serving slots) and the shard merge (B
+    8, C = 4 shards x k, with ids), then the edge cases. The kernel must
+    be bitwise the first kernel (``topk_scores_v1``, timed beside it) and
+    the plain version, values and indices; launches per call logged; the
+    streaming kernel's span count measured against others. Returns
+    (max |kernel - plain| over values and indices, per-width times, edge
+    cases)."""
+    import torch
+    from repro_torch.kernels.topk import (
+        stream_select, stream_splits, topk_plain, topk_scores, topk_scores_v1,
+    )
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     max_err, stats = 0.0, {}
-    for label, c, _ in widths:
+    shapes = [(label, c) for label, c, _ in widths] + [("merge_S4", 4 * K)]
+    for label, c in shapes:
         s = (rng.integers(0, 64, (SLOTS, c)) / 8.0).astype(np.float32)
         s[1] = -np.inf                        # all--inf row
         s[2, rng.random(c) < .999] = -np.inf  # mostly -inf: drains by index
         s[3, rng.random(c) < .5] = -1e9       # filtered candidates
+        s[4] = signed_zero_row(rng, c)        # signed-zero ties
         scores = torch.from_numpy(s).to(dev)
         ids = torch.from_numpy(
             rng.permutation(c).astype(np.int64)[None].repeat(SLOTS, 0)
         ).to(dev)
         for with_ids in (None, ids):
-            gv, gi = topk_scores(scores, K, with_ids)
-            wv, wi = topk_plain(scores, K, with_ids)
+            got = topk_scores(scores, K, with_ids)
+            first = topk_scores_v1(scores, K, with_ids)
+            want = topk_plain(scores, K, with_ids)
             torch.cuda.synchronize()
-            if not (torch.equal(gv.view(torch.int32), wv.view(torch.int32))
-                    and torch.equal(gi, wi)):
-                raise AssertionError(f"topk {label} (ids={with_ids is not None})"
-                                     f": kernel != plain")
-            max_err = max(max_err, max_abs_diff(gv, wv), max_abs_diff(gi, wi))
-        stats[label] = dict(C=c, k=K, **timings(
-            lambda: topk_scores(scores, K), lambda: topk_plain(scores, K),
+            tag = f"topk {label} (ids={with_ids is not None})"
+            if not same_topk(got, want):
+                raise AssertionError(f"{tag}: kernel != plain")
+            if not same_topk(first, got):
+                raise AssertionError(f"{tag}: kernel != first kernel")
+            max_err = max(max_err, max_abs_diff(got[0], want[0]),
+                          max_abs_diff(got[1], want[1]))
+        # the shape the serving path calls: the merge carries ids
+        call_ids = ids if label == "merge_S4" else None
+        before = topk_scores.launches
+        topk_scores(scores, K, call_ids)
+        launches = topk_scores.launches - before
+        splits = stream_splits(SLOTS, c, sms)
+        st = stats[label] = dict(C=c, k=K, launches_per_call=launches,
+                                 splits=splits, **timings(
+            lambda: topk_scores(scores, K, call_ids),
+            lambda: topk_plain(scores, K, call_ids),
             lambda: torch.topk(scores, K),
-            *bound_ms(4 * SLOTS * c + 12 * SLOTS * K, SLOTS * c)))
-        report("topk", f"{label} (B={SLOTS}, C={c}, k={K})", stats[label],
+            # the merge reads the ids of its k winners a row, no more
+            *bound_ms(4 * SLOTS * c + 12 * SLOTS * K
+                      + (8 * SLOTS * K if call_ids is not None else 0),
+                      SLOTS * c)))
+        st["first_kernel_ms"], _ = timed(
+            lambda: topk_scores_v1(scores, K, call_ids))
+        report("topk", f"{label} (B={SLOTS}, C={c}, k={K})", st,
                "torch.topk")
-    return max_err, stats
+        if label.startswith("citation2"):
+            # the streaming kernel's worst case: rows sorted ascending, so
+            # every entry beats its warp's bar and goes through a flush
+            up = torch.sort(torch.from_numpy(rng.normal(0, 1, (SLOTS, c))
+                                             .astype(np.float32)), 1)[0]
+            up = up.to(dev)
+            if not same_topk(topk_scores(up, K), topk_scores_v1(up, K)):
+                raise AssertionError("topk ascending rows: kernel != first "
+                                     "kernel")
+            st["ascending_ms"], _ = timed(lambda: topk_scores(up, K))
+            st["ascending_first_kernel_ms"], _ = timed(
+                lambda: topk_scores_v1(up, K))
+            log(f"[phase 2] topk {label}, rows sorted ascending: "
+                f"{st['ascending_ms']:.4f} ms, the first kernel "
+                f"{st['ascending_first_kernel_ms']:.4f} ms; bitwise equal")
+        # other span counts
+        alt = {}
+        for n_sp in sorted({1, 2, 4, 8, splits // 2, splits, 2 * splits}):
+            if 1 <= n_sp <= c:
+                alt[n_sp], _ = timed(lambda: stream_select(
+                    scores, K, call_ids, n_sp))
+        st["spans_ms"] = alt
+        log(f"[phase 2] topk {label}: {launches} launch(es) a call, "
+            f"{splits} span(s) a row; the first kernel "
+            f"{st['first_kernel_ms']:.4f} ms, the streaming one "
+            f"{st['ms']:.4f} ms ({st['first_kernel_ms'] / st['ms']:.2f}x, "
+            f"{st['ms'] / st['bound_ms']:.1f}x its bound); by spans a row "
+            f"(ms): {({k_: round(v, 5) for k_, v in alt.items()})}; bitwise "
+            f"equal")
+    return max_err, stats, topk_edge_cases(dev, rng)
 
 
 def check_fused_gather_v1(dev, rng):
@@ -972,20 +1131,32 @@ def check_basis_message(dev, rng, part, mbs):
 
 def check_segment_sum(dev, rng, part, mbs):
     """The training shapes (one partition's heads and mask, and one
-    mini-batch's, d=75) and the edge cases; deg must be ==, agg within 2 gamma_n sum|msg| of the plain
-    version (n = the segment's length: both add the same terms in other
-    orders), and two runs bitwise equal. Returns (max |err|, times)."""
+    mini-batch's, d=75) and the edge cases (d = 1, 4, 128, 150, a hub and
+    empty segments, segments of exactly WARP_COMBINE_MAX = 64 and 65
+    chunks, the edge of the scatter passes' one-warp combine). agg must be
+    bitwise the first kernel's (``segment_sum_v1``, timed beside it, with
+    each pass's device time at the mini-batch shape: both add in the same
+    order) and deg == it and the plain version's; agg within 2 gamma_n
+    sum|msg| of the plain version (n = the segment's length: both add the
+    same terms in other orders), and two runs bitwise equal. Returns (max
+    |err|, times, the cases checked)."""
     import torch
     from repro_torch.kernels.rgcn_message import (
-        SegmentPlan, segment_key, segment_plan, segment_plan_host,
-        segment_sum, segment_sum_plain, segment_sum_planned,
+        CHUNK, SegmentPlan, segment_key, segment_plan, segment_plan_host,
+        segment_sum, segment_sum_plain, segment_sum_planned, segment_sum_v1,
     )
     v, e = part["V"], part["E"]
     cases = [("train", e, v, 75, part["src"], part["mask"]),
              ("minibatch", mbs["E"], mbs["V"], 75, mbs["src"], mbs["mask"]),
              ("ragged unsorted", 1000, 300, 75, None, None),
              ("sorted", 4000, 500, 32, "sorted", None),
-             ("hub + empty", 70000, 2000, 75, "hub", None)]
+             ("hub + empty", 70000, 2000, 75, "hub", None),
+             ("d=1", 9000, 300, 1, None, None),
+             ("d=4", 9000, 300, 4, None, None),
+             ("d=128", 9000, 300, 128, None, None),
+             ("d=150", 9000, 300, 150, None, None),
+             ("64 and 65 chunks", 64 * CHUNK + 65 * CHUNK + 500, 40, 75,
+              "64/65", None)]
     max_err, stats = 0.0, {}
     for label, ne, nv, d, seg, mask in cases:
         if seg is None or isinstance(seg, str):
@@ -997,14 +1168,24 @@ def check_segment_sum(dev, rng, part, mbs):
                 seg[rng.random(ne) < .6] = 7      # one 42,000-edge segment
             mask = rng.random(ne) < .9
             mask[:128] = False
+            if kind == "64/65":   # unmasked: 64 x 32 and 65 x 32 edges
+                seg = rng.permutation(np.concatenate([
+                    np.full(64 * CHUNK, 3), np.full(65 * CHUNK, 11),
+                    rng.integers(12, nv, 500)]))
+                mask = np.ones(ne, bool)
         msg = torch.from_numpy(rng.normal(0, 1, (ne, d)).astype(np.float32)
                                ).to(dev)
+        msg[::7] = -0.0        # rows of -0.0: the sum order shows in signs
         seg_t = torch.from_numpy(np.asarray(seg, np.int32)).to(dev)
         m = torch.from_numpy(np.asarray(mask, bool)).to(dev)
         agg, deg = segment_sum(msg, seg_t, m, nv)
         agg2, deg2 = segment_sum(msg, seg_t, m, nv)
+        fagg, fdeg = segment_sum_v1(msg, seg_t, m, nv)
         pagg, pdeg = segment_sum_plain(msg, seg_t, m, nv)
         torch.cuda.synchronize()
+        if not (same_bits(agg, fagg) and torch.equal(deg, fdeg)):
+            raise AssertionError(f"segment_sum {label}: kernel != first "
+                                 f"kernel")
         if not (torch.equal(agg.view(torch.int32), agg2.view(torch.int32))
                 and torch.equal(deg, deg2)):
             raise AssertionError(f"segment_sum {label}: two runs differ")
@@ -1021,8 +1202,8 @@ def check_segment_sum(dev, rng, part, mbs):
                 f"the bound, worst err {float(err.max())}")
         max_err = max(max_err, float(err.max()))
         log(f"[phase 2] segment_sum {label} (E={ne}, V={nv}, d={d}, longest "
-            f"segment {int(deg.max())}): max err {float(err.max()):.3g}, "
-            f"deg ==, two runs bitwise equal")
+            f"segment {int(deg.max())}): bitwise the first kernel, deg ==, "
+            f"max err {float(err.max()):.3g}, two runs bitwise equal")
         if label in ("train", "minibatch"):
             # the main paths hand the call the plan built on the host with
             # the batch: planned == unplanned, bit for bit
@@ -1046,6 +1227,8 @@ def check_segment_sum(dev, rng, part, mbs):
                           *bound_ms(nbytes, n_on * d)))
             st["kernel_ms"], _ = timed(
                 lambda: segment_sum_planned(msg, *plan, nv))
+            st["first_kernel_ms"], _ = timed(
+                lambda: segment_sum_v1(msg, seg_t, m, nv, plan=plan))
             st["unplanned_ms"], _ = timed(
                 lambda: segment_sum(msg, seg_t, m, nv))
             st["plan_ms"], _ = timed(lambda: segment_plan(seg_t, m, nv))
@@ -1054,11 +1237,29 @@ def check_segment_sum(dev, rng, part, mbs):
             report("segment_sum", f"{label} (E={ne}, V={nv}, d={d})", st,
                    "index_add_")
             log(f"[phase 2] segment_sum {label}: planned == unplanned "
-                f"bitwise; kernels alone {st['kernel_ms']:.4f} ms, with the "
-                f"plan built on the card {st['unplanned_ms']:.4f} ms (the "
+                f"bitwise; kernels alone {st['kernel_ms']:.4f} ms, the first "
+                f"kernel {st['first_kernel_ms']:.4f} ms "
+                f"({st['first_kernel_ms'] / st['kernel_ms']:.2f}x, "
+                f"{st['kernel_ms'] / st['bound_ms']:.2f}x the bound), with "
+                f"the plan built on the card {st['unplanned_ms']:.4f} ms (the "
                 f"plan {st['plan_ms']:.4f} ms); the host plan {host_ms:.2f} "
                 f"ms of host time")
-    return max_err, stats
+            if label == "minibatch":
+                # each pass's device time, the new passes and the first's
+                reps = 10
+                for key_, fn in (
+                        ("passes_ms", lambda: segment_sum_planned(
+                            msg, *plan, nv)),
+                        ("first_kernel_passes_ms", lambda: segment_sum_v1(
+                            msg, seg_t, m, nv, plan=plan))):
+                    fn()
+                    w = profiled(fn, reps)
+                    st[key_] = {n: us / reps / 1e3
+                                for n, us in w["by_name"].items()}
+                log(f"[phase 2] segment_sum minibatch by pass, ms: "
+                    f"{st['passes_ms']}; the first kernel's "
+                    f"{st['first_kernel_passes_ms']}")
+    return max_err, stats, [c[0] for c in cases]
 
 
 def minibatch_arrays():
@@ -2085,8 +2286,9 @@ def main() -> int:
                      ("citation2", CITATION2["entities"], CITATION2["dim"])]
     kge_v1_cases = check_kge_score_v1(dev, rng)
     gather_v1_cases = check_fused_gather_v1(dev, rng)
-    phase2 = {"kge_score": check_kge_score(dev, rng, widths),
-              "topk": check_topk(dev, rng, widths[:3]),
+    phase2 = {"kge_score": check_kge_score(dev, rng, widths)}
+    topk_err, topk_stats, topk_cases = check_topk(dev, rng, widths[:3])
+    phase2 |= {"topk": (topk_err, topk_stats),
               "fused_gather": check_fused_gather(dev, rng, gather_widths,
                                                  mbs)}
     fdg_err, fdg_stats, table_bytes = check_fused_dequant_gather(
@@ -2094,14 +2296,15 @@ def main() -> int:
     phase2["fused_dequant_gather"] = (fdg_err, fdg_stats)
     bm_err, bm_stats, bm_configs = check_basis_message(dev, rng, part, mbs)
     phase2["basis_message"] = (bm_err, bm_stats)
-    phase2["segment_sum"] = check_segment_sum(dev, rng, part, mbs)
+    seg_err, seg_stats, seg_cases = check_segment_sum(dev, rng, part, mbs)
+    phase2["segment_sum"] = (seg_err, seg_stats)
     phase2["scatter_add_onehot"] = check_scatter_add(dev, rng, mbs)
     phase2["wkv_chunked"] = check_wkv(dev, rng)
     log("[phase 2] kge_score and basis_message within their stated bounds; "
         "topk, fused_gather and fused_dequant_gather bitwise equal to their "
-        "plain versions; kge_score, fused_gather, basis_message, "
-        "scatter_add_onehot and wkv_chunked bitwise equal to their first "
-        "kernels; "
+        "plain versions; kge_score, topk, fused_gather, basis_message, "
+        "segment_sum, scatter_add_onehot and wkv_chunked bitwise equal to "
+        "their first kernels; "
         "segment_sum deg == plain, agg within its bound, runs bitwise "
         "equal; scatter_add_onehot within its bound, non-hit rows 0, runs "
         "bitwise equal; wkv_chunked within its bounds of the plain chunked "
@@ -2504,7 +2707,8 @@ def main() -> int:
             widths=stats))
         if "first_kernel_ms" in head:   # held bitwise against it in phase 2
             kernels[-1]["first_kernel"] = dict(
-                name=f"{name}_v1", ms=head["first_kernel_ms"], bitwise=True)
+                name=f"{KERNELS[name].__name__}_v1",
+                ms=head["first_kernel_ms"], bitwise=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": card, "build_s": build_s, "ptxas": ptxas,
@@ -2538,6 +2742,8 @@ def main() -> int:
                        "minibatch_plan_placements": placements,
                        "kge_score_first_kernel_cases": kge_v1_cases,
                        "fused_gather_first_kernel_cases": gather_v1_cases,
+                       "topk_edge_cases": topk_cases,
+                       "segment_sum_cases": seg_cases,
                        "minibatch_int8_two_run_loss": mb8_loss,
                        "embedding_max_abs_diff": emb_err,
                        "lm": lm,

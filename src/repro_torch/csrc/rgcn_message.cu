@@ -78,12 +78,21 @@
 //    (4*V*d): 0.036 ms at the training shape.
 //
 //    Design: no float atomics, so the sum is the same bits on every run: the
-//    two passes of segment_sum.cuh (which scatter_add_onehot in
-//    sharded_gather.cu shares) over the edges sorted stably by segment
-//    (masked edges last), in chunks of 32 edges, then each segment's chunk
-//    sums over 16 warps. Chunks and runs keep a hub vertex (the FB15k-237
-//    training partition has a 53,149-edge segment) from serialising on one
-//    warp.
+//    edges sorted stably by segment (masked edges last), added in chunks of
+//    32 edges, then each segment's chunk sums in 16 runs, in the order
+//    segment_sum.cuh sets out. segment_sum_f32 runs that header's
+//    launch_scatter, the passes scatter_add_onehot in sharded_gather.cu
+//    runs, with the degree written by pass 2a: a warp per chunk found by a
+//    32-ary search, up to 4 columns a lane with 16-32 loads in flight, a
+//    warp per segment to combine, a block per hub segment (the FB15k-237
+//    training partition has a 53,149-edge one).
+//
+//    What held the first kernel back (segment_sum_f32_v1, segsum::launch,
+//    kept so that the chip smoke run can hold the new passes against it bit
+//    for bit; the same order, so the same bits): a chunk's segment found by
+//    a binary search 14-15 loads deep, a lane walking its columns 32 at a
+//    time, and a 512-thread combine block for every segment, most of which
+//    return at once.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -554,11 +563,26 @@ extern "C" int basis_message_f32_v1(const void* h_t, const void* coef,
 }
 
 // `max_chunks` bounds chunk_ptr[V] (the caller passes E / CHUNK + V); the
-// partial buffer holds max_chunks rows.
+// partial buffer holds max_chunks rows and long_rows V + 1 int64s.
 extern "C" int segment_sum_f32(const void* msg, const void* perm,
                                const void* offsets, const void* chunk_ptr,
-                               void* agg, void* deg, void* partial, int V,
-                               int d, int64_t max_chunks, void* stream) {
+                               void* agg, void* deg, void* partial,
+                               void* long_rows, int V, int d,
+                               int64_t max_chunks, void* stream) {
+  return static_cast<int>(segsum::launch_scatter(
+      static_cast<const float*>(msg), static_cast<const int64_t*>(perm),
+      static_cast<const int64_t*>(offsets),
+      static_cast<const int64_t*>(chunk_ptr), static_cast<float*>(agg),
+      static_cast<float*>(deg), static_cast<float*>(partial),
+      static_cast<int64_t*>(long_rows), V, d, max_chunks,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The first kernel's passes (segsum::launch), the same order and degree.
+extern "C" int segment_sum_f32_v1(const void* msg, const void* perm,
+                                  const void* offsets, const void* chunk_ptr,
+                                  void* agg, void* deg, void* partial, int V,
+                                  int d, int64_t max_chunks, void* stream) {
   return static_cast<int>(segsum::launch(
       static_cast<const float*>(msg), static_cast<const int64_t*>(perm),
       static_cast<const int64_t*>(offsets),

@@ -22,15 +22,17 @@
 //
 // Two implementations of that order give the same bits:
 //
-// launch (the RGCN segment sum, and scatter_add_f32_v1): pass 1 gives each
-// chunk one warp, found by a binary search of chunk_ptr, whose lanes own
-// columns (one column pass of 32 at a time); a segment of one chunk is
-// written to out, a longer one writes one partial row per chunk. Pass 2
-// gives each segment one block, writes the degree if asked, zeroes an empty
-// segment, and adds a long segment's partial rows: COMBINE_WARPS warps each
-// add a run, then warp 0 adds the run sums.
+// launch (the first passes: segment_sum_f32_v1 and scatter_add_f32_v1,
+// each kept as its kernel's bitwise yardstick): pass 1 gives each chunk one
+// warp, found by a binary search of chunk_ptr, whose lanes own columns (one
+// column pass of 32 at a time); a segment of one chunk is written to out, a
+// longer one writes one partial row per chunk. Pass 2 gives each segment
+// one block, writes the degree if asked, zeroes an empty segment, and adds
+// a long segment's partial rows: COMBINE_WARPS warps each add a run, then
+// warp 0 adds the run sums.
 //
-// launch_scatter (scatter_add_f32): pass 1 gives each chunk a warp (as
+// launch_scatter (scatter_add_f32, and segment_sum_f32 with the degree):
+// pass 1 gives each chunk a warp (as
 // launch does; a grid that walked the chunks with fewer warps measured no
 // faster), which finds its chunk's segment by a 32-ary search of chunk_ptr
 // (3 dependent loads at 17,200 segments where a binary search takes 15);
@@ -42,7 +44,9 @@
 // combined in registers, its partial rows loaded Batch<NC>::rows ahead
 // across the runs' boundaries. Pass 2b gives the rare longer segments (a
 // hub) blocks of COMBINE_WARPS warps, through a list pass 2a makes, one run
-// a warp, the run's rows prefetched into L2.
+// a warp, the run's rows prefetched into L2. Where asked, pass 2a's warp
+// writes its segment's degree (its row count) before anything else, so
+// every segment gets one: empty, one-chunk and listed ones alike.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -161,7 +165,7 @@ cudaError_t launch(const float* src, const int64_t* perm,
 }
 
 // ---------------------------------------------------------------------- //
-// launch_scatter: the scatter-add's passes (no degree)
+// launch_scatter: the scatter-add's passes (the degree where asked)
 // ---------------------------------------------------------------------- //
 constexpr int SC_WARPS = 8;            // warps per pass-1 block
 // rows a lane loads before it adds them, at NC columns a lane: 16 to 32
@@ -359,20 +363,24 @@ scatter_chunk_kernel(const float* __restrict__ src,
   }
 }
 
-// pass 2a: a warp per segment: zero an empty one, combine one of 2 to
-// WARP_COMBINE_MAX chunks in registers (a one-chunk segment is done), and
-// list a longer one in long_rows (long_rows[0]: how many)
+// pass 2a: a warp per segment: write its degree (deg may be null), zero an
+// empty one, combine one of 2 to WARP_COMBINE_MAX chunks in registers (a
+// one-chunk segment is done), and list a longer one in long_rows
+// (long_rows[0]: how many)
 template <int NC>
 __global__ void __launch_bounds__(SHORT_WARPS * 32, 8)
 scatter_short_kernel(const float* __restrict__ partial,
+                     const int64_t* __restrict__ offsets,
                      const int64_t* __restrict__ chunk_ptr,
-                     float* __restrict__ out,
+                     float* __restrict__ out, float* __restrict__ deg,
                      unsigned long long* __restrict__ long_rows, int V,
                      int d) {
   const int lane = threadIdx.x & 31;
   const int64_t v =
       static_cast<int64_t>(blockIdx.x) * SHORT_WARPS + (threadIdx.x >> 5);
   if (v >= V) return;
+  if (deg != nullptr && lane == 0)
+    deg[v] = static_cast<float>(offsets[v + 1] - offsets[v]);
   const int64_t c0 = chunk_ptr[v], c1 = chunk_ptr[v + 1];
   if (c1 - c0 > WARP_COMBINE_MAX) {  // listed for pass 2b, in any order
     if (lane == 0) long_rows[1 + atomicAdd(long_rows, 1ull)] = v;
@@ -442,8 +450,8 @@ template <int NC>
 cudaError_t launch_scatter_nc(const float* src, const int64_t* perm,
                               const int64_t* offsets,
                               const int64_t* chunk_ptr, float* out,
-                              float* partial, int64_t* long_rows, int V,
-                              int d, int64_t max_chunks,
+                              float* deg, float* partial, int64_t* long_rows,
+                              int V, int d, int64_t max_chunks,
                               cudaStream_t stream) {
   if (max_chunks > 0) {
     scatter_chunk_kernel<NC>
@@ -456,7 +464,7 @@ cudaError_t launch_scatter_nc(const float* src, const int64_t* perm,
   scatter_short_kernel<NC>
       <<<static_cast<unsigned>((V + SHORT_WARPS - 1) / SHORT_WARPS),
          SHORT_WARPS * 32, 0, stream>>>(
-          partial, chunk_ptr, out,
+          partial, offsets, chunk_ptr, out, deg,
           reinterpret_cast<unsigned long long*>(long_rows), V, d);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || max_chunks <= WARP_COMBINE_MAX) return e;
@@ -476,26 +484,29 @@ cudaError_t launch_scatter_nc(const float* src, const int64_t* perm,
   return cudaGetLastError();
 }
 
-// The passes on `stream`, as launch without the degree: `max_chunks`
-// bounds chunk_ptr[V], the partial buffer holds max_chunks rows of d, and
-// long_rows holds V + 1 int64s.
+// The passes on `stream`, the order and the degree (deg may be null) as
+// launch's: `max_chunks` bounds chunk_ptr[V], the partial buffer holds
+// max_chunks rows of d, and long_rows holds V + 1 int64s.
 cudaError_t launch_scatter(const float* src, const int64_t* perm,
                            const int64_t* offsets, const int64_t* chunk_ptr,
-                           float* out, float* partial, int64_t* long_rows,
-                           int V, int d, int64_t max_chunks,
-                           cudaStream_t stream) {
+                           float* out, float* deg, float* partial,
+                           int64_t* long_rows, int V, int d,
+                           int64_t max_chunks, cudaStream_t stream) {
   if (V <= 0) return cudaGetLastError();
   if (d <= 32)
-    return launch_scatter_nc<1>(src, perm, offsets, chunk_ptr, out, partial,
-                                long_rows, V, d, max_chunks, stream);
+    return launch_scatter_nc<1>(src, perm, offsets, chunk_ptr, out, deg,
+                                partial, long_rows, V, d, max_chunks,
+                                stream);
   if (d <= 64)
-    return launch_scatter_nc<2>(src, perm, offsets, chunk_ptr, out, partial,
-                                long_rows, V, d, max_chunks, stream);
+    return launch_scatter_nc<2>(src, perm, offsets, chunk_ptr, out, deg,
+                                partial, long_rows, V, d, max_chunks,
+                                stream);
   if (d <= 96)
-    return launch_scatter_nc<3>(src, perm, offsets, chunk_ptr, out, partial,
-                                long_rows, V, d, max_chunks, stream);
-  return launch_scatter_nc<4>(src, perm, offsets, chunk_ptr, out, partial,
-                              long_rows, V, d, max_chunks, stream);
+    return launch_scatter_nc<3>(src, perm, offsets, chunk_ptr, out, deg,
+                                partial, long_rows, V, d, max_chunks,
+                                stream);
+  return launch_scatter_nc<4>(src, perm, offsets, chunk_ptr, out, deg,
+                              partial, long_rows, V, d, max_chunks, stream);
 }
 
 }  // namespace

@@ -94,7 +94,7 @@
 // padding included, are 0. scatter_add_f32 runs segsum::launch_scatter.
 //
 // What held the first kernel back (scatter_add_f32_v1, segsum::launch, the
-// RGCN segment sum's passes): at the vertex-state gradient (472,448 slots
+// passes the RGCN segment sum first ran): at the vertex-state gradient (472,448 slots
 // into 17,200 rows, one of them hit by 147,696 padded slots) its combine
 // pass took most of the time: a 512-thread block for each of the 17,200
 // rows, most of which return at once, and the hub's 16 runs of 289 partial
@@ -319,10 +319,10 @@ extern "C" int fused_dequant_gather_i8(const void* codes, const void* scales,
 
 // `max_chunks` bounds the chunk count (the caller passes V / CHUNK + R); the
 // partial buffer holds max_chunks rows of d and long_rows R + 1 int64s.
-// scatter_add_f32 runs segsum::launch_scatter; scatter_add_f32_v1, the
-// first kernel, runs segsum::launch (the RGCN segment sum's passes) and is
-// kept so that the chip smoke run can hold the new passes against it bit
-// for bit.
+// scatter_add_f32 runs segsum::launch_scatter (the RGCN segment sum's
+// passes too); scatter_add_f32_v1, the first kernel, runs segsum::launch
+// and is kept so that the chip smoke run can hold the new passes against it
+// bit for bit.
 extern "C" int scatter_add_f32(const void* g, const void* perm,
                                const void* offsets, const void* chunk_ptr,
                                void* out, void* partial, void* long_rows,
@@ -332,8 +332,9 @@ extern "C" int scatter_add_f32(const void* g, const void* perm,
       static_cast<const float*>(g), static_cast<const int64_t*>(perm),
       static_cast<const int64_t*>(offsets),
       static_cast<const int64_t*>(chunk_ptr), static_cast<float*>(out),
-      static_cast<float*>(partial), static_cast<int64_t*>(long_rows), R, d,
-      max_chunks, static_cast<cudaStream_t>(stream)));
+      nullptr, static_cast<float*>(partial),
+      static_cast<int64_t*>(long_rows), R, d, max_chunks,
+      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int scatter_add_f32_v1(const void* g, const void* perm,

@@ -18,7 +18,9 @@ the first kernel, so the two give the same bits.
 bits: :func:`segment_plan` sorts the edges stably by segment (masked edges
 last) and cuts each segment into chunks of ``CHUNK`` edges; the kernel adds
 each chunk's rows in ascending edge order, then each segment's chunk sums
-in chunk order. The plan is index bookkeeping (the TPU kernel has no
+in chunk order. It runs the passes of ``scatter_add_onehot``, which also
+write the degree; :func:`segment_sum_v1` runs the first kernel's passes,
+the same order and so the same bits. The plan is index bookkeeping (the TPU kernel has no
 counterpart of it) and a value of its own, :class:`SegmentPlan`: it
 depends on the ids alone, so one plan serves every segment sum and
 ``scatter_add_onehot`` over the same ids in a step: a mini-batch step
@@ -46,7 +48,9 @@ _SIGNATURES = {
                            ctypes.c_int, ctypes.c_void_p],
     "basis_message_f32": _BASIS_ARGTYPES,
     "basis_message_f32_v1": _BASIS_ARGTYPES,
-    "segment_sum_f32": [ctypes.c_void_p] * 7 + [
+    "segment_sum_f32": [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
+    "segment_sum_f32_v1": [ctypes.c_void_p] * 7 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
 }
 
@@ -291,6 +295,19 @@ def segment_sum_planned(msg: torch.Tensor, perm: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel alone on CUDA tensors, given :func:`segment_plan`'s
     output."""
+    long_rows = torch.empty_like(offsets)   # the kernel's long segments
+    return _segment_launch("segment_sum_f32", segment_sum, msg, perm,
+                           offsets, chunk_ptr, num_segments, (long_rows,))
+
+
+def _segment_launch(entry: str, counter, msg: torch.Tensor,
+                    perm: torch.Tensor, offsets: torch.Tensor,
+                    chunk_ptr: torch.Tensor, num_segments: int,
+                    scratch: Tuple[torch.Tensor, ...] = ()
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the C entry point ``entry`` over a plan, with the pointers of
+    ``scratch`` after its own, adding one to ``counter.launches`` when
+    given."""
     e, d = msg.shape
     v = int(num_segments)
     f32, i64 = torch.float32, torch.long
@@ -310,14 +327,23 @@ def segment_sum_planned(msg: torch.Tensor, perm: torch.Tensor,
     partial = torch.empty((max_chunks, d), dtype=f32, device=msg.device)
     lib = _library()
     with torch.cuda.device(msg.device):
-        code = lib.segment_sum_f32(
-            msg.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
-            chunk_ptr.data_ptr(), agg.data_ptr(), deg.data_ptr(),
-            partial.data_ptr(), v, d, max_chunks,
-            torch.cuda.current_stream().cuda_stream)
+        ptrs = [msg.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
+                chunk_ptr.data_ptr(), agg.data_ptr(), deg.data_ptr(),
+                partial.data_ptr()] + [t.data_ptr() for t in scratch]
+        code = getattr(lib, entry)(
+            *ptrs, v, d, max_chunks, torch.cuda.current_stream().cuda_stream)
     _build.check_launch("segment_sum", code)
-    segment_sum.launches += 1
+    if counter is not None:
+        counter.launches += 1
     return agg, deg
+
+
+def _segment_operands(msg: torch.Tensor, seg: torch.Tensor,
+                      edge_mask: torch.Tensor) -> None:
+    if msg.dim() != 2 or seg.shape != (msg.shape[0],) or \
+            edge_mask.shape != seg.shape or edge_mask.dtype != torch.bool:
+        raise ValueError("segment_sum: msg must be (E, d), seg (E,) and "
+                         "edge_mask (E,) bool")
 
 
 def segment_sum(msg: torch.Tensor, seg: torch.Tensor,
@@ -333,13 +359,31 @@ def segment_sum(msg: torch.Tensor, seg: torch.Tensor,
         check_plan("segment_sum", plan, seg, edge_mask, num_segments)
     if _build.on_cpu("segment_sum", msg, seg, edge_mask):
         return segment_sum_plain(msg, seg, edge_mask, num_segments)
-    if msg.dim() != 2 or seg.shape != (msg.shape[0],) or \
-            edge_mask.shape != seg.shape or edge_mask.dtype != torch.bool:
-        raise ValueError("segment_sum: msg must be (E, d), seg (E,) and "
-                         "edge_mask (E,) bool")
+    _segment_operands(msg, seg, edge_mask)
     if plan is None:
         plan = segment_plan(seg, edge_mask, num_segments)
     return segment_sum_planned(msg, *plan, num_segments)
+
+
+def segment_sum_v1(msg: torch.Tensor, seg: torch.Tensor,
+                   edge_mask: torch.Tensor, num_segments: int,
+                   plan: Optional[SegmentPlan] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first port's passes (a warp per chunk found by a binary search,
+    a block per segment to combine) on CUDA tensors, kept as the bitwise
+    yardstick of :func:`segment_sum`: both add in the same order and count
+    the same degree. Not on any path of the port; it counts no
+    launches."""
+    if _build.on_cpu("segment_sum", msg, seg, edge_mask):
+        raise ValueError("segment_sum_v1: CUDA tensors only (the plain "
+                         "version is segment_sum_plain)")
+    if plan is not None:
+        check_plan("segment_sum_v1", plan, seg, edge_mask, num_segments)
+    _segment_operands(msg, seg, edge_mask)
+    if plan is None:
+        plan = segment_plan(seg, edge_mask, num_segments)
+    return _segment_launch("segment_sum_f32_v1", None, msg, *plan,
+                           num_segments)
 
 
 segment_sum.launches = 0

@@ -27,10 +27,11 @@ from repro_torch.kernels import (
     fused_gather, kge_score, ops, ref, topk_plain, topk_scores,
 )
 from repro_torch.kernels.kge_score import kge_score_v1
-from repro_torch.kernels.rgcn_message import basis_message_v1
+from repro_torch.kernels.rgcn_message import basis_message_v1, segment_sum_v1
 from repro_torch.kernels.sharded_gather import (
     fused_gather_v1, scatter_add_onehot_v1,
 )
+from repro_torch.kernels.topk import stream_splits, topk_scores_v1
 from repro_torch.kernels.wkv_chunk import wkv_chunked_v1
 
 U32 = 2.0 ** -24
@@ -188,13 +189,19 @@ def v1_operands(name):
     if name == "wkv_chunked_v1":
         return (torch.zeros(2, 5, 4), torch.zeros(2, 5, 4),
                 torch.zeros(2, 5, 4), torch.zeros(2, 5, 4), torch.zeros(2, 4))
+    if name == "segment_sum_v1":
+        return (torch.zeros(5, 3), torch.zeros(5, dtype=torch.int64),
+                torch.ones(5, dtype=torch.bool), 4)
+    if name == "topk_scores_v1":
+        return (torch.zeros(2, 5), 3)
     return (torch.zeros(5, 3), torch.zeros(5, 2), torch.zeros(2, 3, 4),
             torch.ones(5, dtype=torch.bool))
 
 
 @pytest.mark.parametrize("wrapper", [kge_score_v1, fused_gather_v1,
                                      basis_message_v1, scatter_add_onehot_v1,
-                                     wkv_chunked_v1],
+                                     wkv_chunked_v1, segment_sum_v1,
+                                     topk_scores_v1],
                          ids=lambda w: w.__name__)
 def test_first_kernels_refuse_cpu_tensors(wrapper):
     """The first kernels, kept as the redesigned kernels' bitwise
@@ -218,10 +225,21 @@ def tie_heavy_scores(rng, b=6, c=40):
     return s
 
 
+def same_bits(got: torch.Tensor, want) -> bool:
+    """Values equal bit for bit (``-0.0`` differs from ``+0.0``)."""
+    want = np.asarray(want, np.float32)
+    return got.shape == want.shape and np.array_equal(
+        got.numpy().view(np.int32), want.view(np.int32))
+
+
 @pytest.mark.parametrize("k", [1, 3, 17, 40])
 def test_topk_equals_pallas_kernel_and_lax(k):
-    """Values and indices equal the Pallas kernel's and ``jax.lax.top_k``'s
-    (ties to the lowest index, -inf drained in index order, k = C)."""
+    """Values (bit for bit) and indices equal the Pallas kernel's and
+    ``jax.lax.top_k``'s (ties to the lowest index, -inf drained in index
+    order, k = C). These inputs hold no -0.0: at a tie of signed zeros
+    ``jax.lax.top_k`` orders +0.0 above -0.0 and so picks other indices
+    than the reference's kernel, which the port follows (see
+    ``test_topk_signed_zero_ties_equal_the_pallas_kernel``)."""
     s = tie_heavy_scores(np.random.default_rng(k))
     kv, ki = jops.topk_padded(jnp.asarray(s), k, use_kernel=True,
                               interpret=True)
@@ -229,14 +247,15 @@ def test_topk_equals_pallas_kernel_and_lax(k):
     gv, gi = topk_scores(torch.from_numpy(s), k)
     assert gv.dtype == torch.float32 and gi.dtype == torch.int64
     for want_v, want_i in ((kv, ki), (lv, li)):
-        assert np.array_equal(gv.numpy(), np.asarray(want_v))
+        assert same_bits(gv, want_v)
         assert np.array_equal(gi.numpy(), np.asarray(want_i))
 
 
 @pytest.mark.parametrize("k", [1, 5, 12])
 def test_merge_topk_equals_jax_merge(k):
     """The shard merge picks the lowest concat position among equal values
-    and returns that position's id, as the JAX merge does."""
+    and returns that position's id, as the JAX merge does; values bit for
+    bit."""
     rng = np.random.default_rng(11 + k)
     vals = grid(rng, (4, 12), -2, 2)
     vals[1, ::3] = -np.inf
@@ -244,8 +263,91 @@ def test_merge_topk_equals_jax_merge(k):
     jv, ji = jops.merge_topk(jnp.asarray(vals), jnp.asarray(ids, jnp.int32),
                              k)
     gv, gi = ops.merge_topk(torch.from_numpy(vals), torch.from_numpy(ids), k)
-    assert np.array_equal(gv.numpy(), np.asarray(jv))
+    assert same_bits(gv, jv)
     assert np.array_equal(gi.numpy(), np.asarray(ji))
+
+
+def signed_zero_rows(c=12):
+    """Rows whose top entries tie at zero with both signs: -0.0 before
+    +0.0, +0.0 before -0.0, only -0.0 left after the last +0.0, and zeros
+    among -inf and -1e9 (filtered candidates)."""
+    z, p, n, f = -0.0, 0.0, -np.inf, np.float32(-1e9)
+    rows = [
+        [z, p, z, 1.0, z, z, -1, -1, f, n, z, -2],   # a +0.0 among -0.0
+        [z, z, z, p, -1, -1, -1, -1, -1, -1, -1, -1],  # -0.0 before +0.0
+        [p, z, z, z, -1, -1, -1, -1, -1, -1, -1, -1],  # +0.0 before -0.0
+        [z, p, z, z, z, 2.0, z, -1, z, -1, -1, -1],    # only -0.0 left
+        [n, z, f, p, n, z, f, n, z, n, f, n],          # among -inf, -1e9
+        [n, n, z, n, f, f, z, n, n, n, n, z],          # no +0.0 at all
+        [p, p, z, p, z, n, f, p, z, z, n, z],          # +0.0 then -0.0 last
+        [f, f, f, p, f, z, f, n, n, n, n, n],          # zeros above -1e9
+    ]
+    return np.array([r[:c] for r in rows], np.float32)
+
+
+@pytest.mark.parametrize("k", [1, 3, 6, 12])
+def test_topk_signed_zero_ties_equal_the_pallas_kernel(k):
+    """At ties of signed zeros ``topk_scores`` and ``topk_plain`` give the
+    reference's value bits and indices: the Pallas kernel's (interpret
+    mode) and ``repro.kernels.ref.topk_ref``'s. A round's value is the
+    reference's max over the active columns, where +0.0 wins over -0.0."""
+    s = signed_zero_rows()
+    kv, ki = jops.topk_padded(jnp.asarray(s), k, use_kernel=True,
+                              interpret=True)
+    rv, ri = jref.topk_ref(jnp.asarray(s), k)
+    for fn in (topk_scores, topk_plain):
+        gv, gi = fn(torch.from_numpy(s), k)
+        for want_v, want_i in ((kv, ki), (rv, ri)):
+            assert same_bits(gv, want_v)
+            assert np.array_equal(gi.numpy(), np.asarray(want_i))
+
+
+def test_topk_signed_zero_rule_on_one_row():
+    """The row ``[-0, +0, -0, 1, -0, -0, -1, -1]``, k = 3: values
+    ``[1, +0, +0]`` at indices ``[3, 0, 1]`` (the second zero round still
+    has the +0.0 at index 1 active; the first takes index 0)."""
+    s = np.array([[-0.0, 0.0, -0.0, 1.0, -0.0, -0.0, -1, -1]], np.float32)
+    gv, gi = topk_plain(torch.from_numpy(s), 3)
+    assert same_bits(gv, [[1.0, 0.0, 0.0]])
+    assert gi.tolist() == [[3, 0, 1]]
+    gv, gi = topk_plain(torch.from_numpy(s), 5)
+    # after index 1 no +0.0 is left: the later zeros are -0.0
+    assert same_bits(gv, [[1.0, 0.0, 0.0, -0.0, -0.0]])
+    assert gi.tolist() == [[3, 0, 1, 2, 4]]
+
+
+@pytest.mark.parametrize("k", [1, 4, 9])
+def test_merge_topk_signed_zero_ties_equal_the_jax_merge(k, monkeypatch):
+    """The shard merge at ties of signed zeros: values bit for bit and ids
+    of ``repro.kernels.ops.merge_topk`` run through its Pallas kernel
+    (interpret mode), as it runs on the TPU. On the CPU that merge
+    dispatches to ``jax.lax.top_k``, whose signed-zero order differs from
+    the kernel's (see ``test_topk_equals_pallas_kernel_and_lax``), so the
+    test routes it to the kernel. "Position" is the position in the
+    concatenated row."""
+    rng = np.random.default_rng(40 + k)
+    vals = signed_zero_rows()
+    ids = np.stack([rng.permutation(5000)[:vals.shape[1]]
+                    for _ in range(vals.shape[0])]).astype(np.int64)
+    kernel_topk = jops.topk_padded
+    monkeypatch.setattr(jops, "topk_padded", lambda v, k, interpret=None:
+                        kernel_topk(v, k, use_kernel=True, interpret=True))
+    jv, ji = jops.merge_topk(jnp.asarray(vals), jnp.asarray(ids, jnp.int32),
+                             k)
+    gv, gi = ops.merge_topk(torch.from_numpy(vals), torch.from_numpy(ids), k)
+    assert same_bits(gv, jv)
+    assert np.array_equal(gi.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("b,c,sms,want", [
+    (8, 14541, 132, 4), (8, 3636, 132, 1), (8, 40, 132, 1),
+    (8, 2927963, 132, 66), (1, 2927963, 132, 528), (1, 1, 132, 1),
+    (300, 2927963, 132, 2)])
+def test_stream_splits(b, c, sms, want):
+    """The streaming kernel's blocks a row: one per ``STREAM_SPAN``
+    positions, capped so that the grid holds ``STREAM_BLOCKS_PER_SM`` (4)
+    blocks an SM, one wave, never more than C."""
+    assert stream_splits(b, c, sms) == want
 
 
 def test_topk_plain_is_the_reference_oracle():
@@ -255,7 +357,7 @@ def test_topk_plain_is_the_reference_oracle():
     rv, ri = jref.topk_ref(jnp.asarray(s), 9)
     gv, gi = ref.topk_ref(torch.from_numpy(s), 9)
     assert ref.topk_ref is topk_plain
-    assert np.array_equal(gv.numpy(), np.asarray(rv))
+    assert same_bits(gv, rv)
     assert np.array_equal(gi.numpy(), np.asarray(ri))
 
 

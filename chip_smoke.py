@@ -11,19 +11,22 @@ Phases, each of which fails the run on error:
 2. Kernel vs plain: each of the eight kernels against its plain PyTorch
    version on the card, with its time, its plain version's time, one
    PyTorch library call's time (where one computes the function) and the
-   least time the card could take; the seven redesigned kernels also
-   bitwise against their first kernels (``*_v1``), timed beside them:
+   least time the card could take; all eight kernels, each redesigned,
+   also bitwise against their first kernels (``*_v1``), timed beside them:
    kge_score, topk and fused_gather at the serving shapes, kge_score also
    at the mini-batch ranking shape (B = 256) and, register-tiled, bitwise
    the first kernel (kge_score_v1, timed beside it) there and at edge
    shapes (ragged B and C, d = 1, d = MAX_DIM, B = 1, C below one tile);
-   fused_gather (a warp per group of rows) bitwise fused_gather_v1 and the
-   plain version at the serving shapes, at the mini-batch table gather
-   (V = 17,200 into 14,544 x 75) and at edge shapes (d from 1 to 1,000,
-   float4 and misaligned rows, V = 1, ragged V);
+   fused_gather and fused_dequant_gather (one kernel body, a warp per
+   group of rows) bitwise fused_gather_v1 / fused_dequant_gather_v1 and
+   their plain versions at edge shapes (d from 1 to 1,000, float4 and
+   char4 rows, a source off its alignment, V = 1, ragged V, groups of
+   several rows; two runs bitwise equal); fused_gather at the serving
+   shapes and the mini-batch table gather (V = 17,200 into 14,544 x 75);
    fused_dequant_gather at the serving shapes over tables quantized on the
    card, and at the 4-shard mini-batch table gather (V = 17,200 into
-   14,544 x 75 int8): bitwise the plain version, unowned slots exactly 0,
+   14,544 x 75 int8): bitwise the plain version and
+   fused_dequant_gather_v1 (timed beside it), unowned slots exactly 0,
    two runs bitwise equal, a flat id outside the table raises, a table of
    subnormal and zero scales comes through bitwise; quantize_rows on the
    card bitwise the CPU's (FB15k-237 table, subnormal table); basis_message
@@ -118,6 +121,13 @@ Phases, each of which fails the run on error:
    loss and gradients, the master table's included, are bitwise the fp32
    path's on the dequantized master; 4-shard int8 ranking == 1-shard int8
    ranking, and |MRR(int8) - MRR(fp32)| <= 0.02 on the same embeddings.
+6d. Resume from a checkpoint: phase 6b's main configuration (without and
+   with --table-dtype int8) trains epochs 1-2 without a break; a second
+   run trains epoch 1 and saves a checkpoint (``KGETrainer.
+   save_checkpoint``); a new trainer restores it (``KGETrainer.restore``)
+   and trains epoch 2, at 4 table shards and at 1: per-step losses and
+   final parameters bitwise the unbroken run's; the checkpoint's bytes,
+   the save and restore times and the resumed runs' launch counts.
 7. Profile under ``torch.profiler``: one rwkv6-3b prefill (with the WKV
    kernel's share of it) and one steady decode step; steady serving steps
    of each serving
@@ -195,6 +205,8 @@ MB_INT8_GATES = {   # int8 runs held bitwise against the int8 main run
     "S1": MB_GATES["S1"] + INT8,
     "dedup": MB_GATES["dedup"] + INT8,
 }
+# phase 6d: where the resume runs write their checkpoints (removed after)
+CHECKPOINT_DIR = os.path.join(ROOT, "build", "chip_smoke_checkpoints")
 # |MRR(int8) - MRR(fp32)| on the same embeddings; the reference's bound,
 # QUANT_MRR_DRIFT_LIMIT in benchmarks/pipeline_bench.py:203
 QUANT_MRR_DRIFT_LIMIT = 0.02
@@ -254,6 +266,7 @@ MINIBATCH_KERNELS = ("fused_gather", "scatter_add_onehot", "basis_message",
 SERVING_INT8_KERNELS = ("kge_score", "topk", "fused_dequant_gather")
 MINIBATCH_INT8_KERNELS = ("fused_dequant_gather", "scatter_add_onehot",
                           "basis_message", "segment_sum", "kge_score")
+EVAL_KERNELS = ("kge_score",)   # launched by the evaluation, not a step
 
 
 def log(msg: str) -> None:
@@ -749,33 +762,52 @@ def check_topk(dev, rng, widths):
     return max_err, stats, topk_edge_cases(dev, rng)
 
 
-def check_fused_gather_v1(dev, rng):
-    """The warp-per-rows fused_gather against the first kernel
-    (``fused_gather_v1``) and the plain version bit for bit at edge shapes:
-    d from 1 to past one pass of a warp's loads, float4 rows (d % 4 == 0)
-    and a table 4 bytes off 16-byte alignment (scalar rows), V = 1 and V
-    ragged against the rows per warp, unowned slots. Returns the shapes
-    checked."""
+def check_gathers_v1(dev, rng):
+    """The warp-per-rows fused_gather and fused_dequant_gather (one kernel
+    body) against their first kernels (``fused_gather_v1``,
+    ``fused_dequant_gather_v1``) and their plain versions bit for bit at
+    edge shapes: d from 1 to past one pass of a warp's loads, vector units
+    (d % 4 == 0: float4 rows, char4 code rows) and a source off its
+    alignment (a table 4 bytes off 16, a code base one byte off 4: scalar
+    units), V = 1, V ragged against the rows per warp and V large enough
+    for groups of several rows, unowned slots; two runs bitwise equal.
+    Returns the shapes checked."""
     import torch
     from repro_torch.kernels.sharded_gather import (
-        fused_gather, fused_gather_plain, fused_gather_v1,
+        fused_dequant_gather, fused_dequant_gather_plain,
+        fused_dequant_gather_v1, fused_gather, fused_gather_plain,
+        fused_gather_v1,
     )
+    from repro_torch.sharding import quantize_rows
     cases = [(1000, d, v, aligned) for d in (1, 4, 32, 33, 75, 300, 1000)
-             for v in (1, 5, 777) for aligned in (True, False)]
+             for v in (1, 5, 777, 5000, 40001) for aligned in (True, False)]
     for r, d, v, aligned in cases:
         x = torch.from_numpy(rng.normal(0, .1, r * d + 1).astype(np.float32)
                              ).to(dev)
         table = (x[:-1] if aligned else x[1:]).view(r, d)
+        codes0, scales = quantize_rows(table)
+        buf = torch.empty(r * d + 1, dtype=torch.int8, device=dev)
+        codes = (buf[:-1] if aligned else buf[1:]).view(r, d)
+        codes.copy_(codes0)
         flat = torch.from_numpy(rng.integers(0, r, v).astype(np.int64)
                                 ).to(dev)
         owned = torch.from_numpy(rng.random(v) < .75).to(dev)
-        got = fused_gather(table, flat, owned)
-        if not (same_bits(got, fused_gather_v1(table, flat, owned))
-                and same_bits(got, fused_gather_plain(table, flat, owned))):
-            raise AssertionError(f"fused_gather R={r} d={d} V={v} aligned="
-                                 f"{aligned}: != first kernel or plain")
-    log(f"[phase 2] fused_gather: the warp-per-rows kernel == the first "
-        f"kernel == plain bit for bit at (R, d, V, 16-byte aligned) {cases}")
+        for name, kernel, first, plain, src in (
+                ("fused_gather", fused_gather, fused_gather_v1,
+                 fused_gather_plain, (table,)),
+                ("fused_dequant_gather", fused_dequant_gather,
+                 fused_dequant_gather_v1, fused_dequant_gather_plain,
+                 (codes, scales))):
+            got = kernel(*src, flat, owned)
+            if not (same_bits(got, kernel(*src, flat, owned))
+                    and same_bits(got, first(*src, flat, owned))
+                    and same_bits(got, plain(*src, flat, owned))):
+                raise AssertionError(f"{name} R={r} d={d} V={v} aligned="
+                                     f"{aligned}: != first kernel or "
+                                     f"plain, or two runs differ")
+    log(f"[phase 2] fused_gather and fused_dequant_gather: the warp-per-rows "
+        f"kernels == the first kernels == plain bit for bit, two runs "
+        f"equal, at (R, d, V, aligned source) {cases}")
     return cases
 
 
@@ -882,7 +914,8 @@ def check_fused_dequant_gather(dev, rng, widths, mbs):
     """fused_dequant_gather at the serving batch (8) and dedup bucket (64)
     over the FB15k-237 and ogbl-citation2 tables quantized on the card, and
     at the mini-batch path's 4-shard table gather (``mbs``): bitwise the
-    plain version, unowned slots exactly 0, two runs bitwise equal, a flat
+    plain version and the first kernel (``fused_dequant_gather_v1``, timed
+    beside it), unowned slots exactly 0, two runs bitwise equal, a flat
     id outside the table raises; a table of subnormal and zero scales comes
     through bitwise and nonzero. ``quantize_rows`` on the card is bitwise
     the CPU's for the FB15k-237 table and the subnormal table. Returns
@@ -891,6 +924,7 @@ def check_fused_dequant_gather(dev, rng, widths, mbs):
     from repro_torch.kernels.ops import flat_gather_plan
     from repro_torch.kernels.sharded_gather import (
         fused_dequant_gather, fused_dequant_gather_plain,
+        fused_dequant_gather_v1,
     )
     from repro_torch.sharding import quantize_rows
 
@@ -905,10 +939,15 @@ def check_fused_dequant_gather(dev, rng, widths, mbs):
         got2 = fused_dequant_gather(codes, scales, flat_t, owned_t,
                                     check=check)
         want = fused_dequant_gather_plain(codes, scales, flat_t, owned_t)
+        first = fused_dequant_gather_v1(codes, scales, flat_t, owned_t,
+                                        check=check)
         torch.cuda.synchronize()
         if not (same(got, want) and same(got, got2)):
             raise AssertionError(f"fused_dequant_gather {label}: kernel != "
                                  f"plain, or two runs differ")
+        if not same(got, first):
+            raise AssertionError(f"fused_dequant_gather {label}: kernel != "
+                                 f"first kernel")
         if not bool((got[~owned_t].view(torch.int32) == 0).all()):
             raise AssertionError(f"fused_dequant_gather {label}: an unowned "
                                  f"slot is not exactly 0")
@@ -918,6 +957,13 @@ def check_fused_dequant_gather(dev, rng, widths, mbs):
         # owned slots' codes and scales, every slot's id and ownership,
         # the output; one multiply per output element
         return bound_ms(n_own * d + 4 * n_own + 9 * v + 4 * v * d, v * d)
+
+    def first_kernel_time(label, st, fn):
+        st["first_kernel_ms"], _ = timed(fn)
+        log(f"[phase 2] fused_dequant_gather {label}: the first kernel "
+            f"{st['first_kernel_ms']:.5f} ms, the warp-per-rows one "
+            f"{st['ms']:.5f} ms ({st['first_kernel_ms'] / st['ms']:.2f}x); "
+            f"bitwise equal")
 
     def library(codes, scales, flat_t, owned_t):
         # several PyTorch calls: index_select twice, the cast, the product
@@ -968,6 +1014,9 @@ def check_fused_dequant_gather(dev, rng, widths, mbs):
             *bound(SLOTS, n_own, d)))
         report("fused_dequant_gather", f"{label} (V={SLOTS}, d={d})",
                stats[label], "index_select, cast, mul, where")
+        first_kernel_time(label, stats[label],
+                          lambda: fused_dequant_gather_v1(codes, scales,
+                                                          flat_t, owned_t))
     # subnormal and zero scales
     x = subnormal_table(rng, 4096, 75)
     codes, scales = quantize_rows(torch.from_numpy(x).to(dev))
@@ -1010,6 +1059,9 @@ def check_fused_dequant_gather(dev, rng, widths, mbs):
     report("fused_dequant_gather", f"minibatch_S4 (V={v}, R="
            f"{lay.padded_rows}, d=75)", stats["minibatch_S4"],
            "index_select, cast, mul, where")
+    first_kernel_time("minibatch_S4", stats["minibatch_S4"],
+                      lambda: fused_dequant_gather_v1(
+                          codes, scales, flat_t, owned_t, check=False))
     log(f"[phase 2] quantize_rows of the 4-shard master ({lay.padded_rows} x "
         f"75): {stats['minibatch_S4']['quantize_ms']:.4f} ms")
     return max_err, stats, table_bytes
@@ -2129,6 +2181,64 @@ def plain_twin(trainer):
         cfg.rgcn, use_kernel=False))
 
 
+def resume_exact(table_opts):
+    """Phase 6d for one table dtype (``table_opts``: none, or ``INT8``):
+    run A trains epochs 1-2 of phase 6b's main configuration without a
+    break; run B trains epoch 1 and saves a checkpoint; a new trainer on
+    the card restores B's checkpoint and trains epoch 2, once at 4 table
+    shards and once at 1 (the 4-shard table restored into 1). Each resumed
+    epoch's per-step losses and final parameters must be bitwise A's.
+    Launch counts are read around each resumed run (restore and epoch,
+    no evaluation).
+    Returns the checkpoint's bytes, the save time and each resumed run's
+    restore time, epoch time and launches."""
+    import shutil
+    import torch
+    from repro_torch.launch import train
+
+    def make(opts):
+        return train.make_trainer(train.parse_args(MB_ARGV + opts +
+                                                   table_opts))
+    a = make(MB_MAIN)
+    hist = [a.train_epoch() for _ in range(2)]
+    a.close()
+    b = make(MB_MAIN)
+    b.train_epoch()
+    b.close()
+    directory = os.path.join(CHECKPOINT_DIR, "int8" if table_opts
+                             else "fp32")
+    shutil.rmtree(directory, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = b.save_checkpoint(directory)
+    out = dict(save_s=time.perf_counter() - t0, checkpoint_bytes=(
+        os.path.getsize(path)
+        + os.path.getsize(path.replace(".npz", ".json"))),
+        losses=hist[1]["losses"], runs={})
+    del b
+    for label, opts in (("S4", MB_MAIN), ("S1", MB_GATES["S1"])):
+        c = make(opts)
+        reset_counts()
+        t0 = time.perf_counter()
+        epoch = c.restore(path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        rec = c.train_epoch()
+        launches = launch_counts()
+        c.close()
+        bad = bitwise_mismatch(a, c)
+        if epoch != 1 or rec["epoch"] != 2 or \
+                rec["losses"] != hist[1]["losses"] or bad or \
+                int(c.opt_state.step) != int(a.opt_state.step):
+            raise AssertionError(
+                f"resume {table_opts} into {label}: epoch {epoch}, losses "
+                f"{rec['losses']} vs {hist[1]['losses']}, parameters {bad}")
+        out["runs"][label] = dict(restore_s=restore_s,
+                                  t_epoch=rec["t_epoch"], launches=launches)
+        del c
+    shutil.rmtree(directory, ignore_errors=True)
+    return out
+
+
 # ---------------------------------------------------------------------- #
 # phases 3-4: the serving path through its entry points
 # ---------------------------------------------------------------------- #
@@ -2201,7 +2311,7 @@ def profile_serving(width, decoder, shards, *, filtered, cache_size,
 def kernel_name(symbol: str) -> str:
     """The last name of a mangled nested symbol (``_ZN...``), with its
     template arguments as mangled: ``basis_message_kernel``,
-    ``fused_gather_kernelIfLb1EE``."""
+    ``gather_rows_kernelIffLb1EE``."""
     rest, names = symbol[3:] if symbol.startswith("_ZN") else "", []
     while rest[:1].isdigit():
         digits = len(rest) - len(rest.lstrip("0123456789"))
@@ -2285,7 +2395,7 @@ def main() -> int:
     gather_widths = [("fb15k237", n, d),
                      ("citation2", CITATION2["entities"], CITATION2["dim"])]
     kge_v1_cases = check_kge_score_v1(dev, rng)
-    gather_v1_cases = check_fused_gather_v1(dev, rng)
+    gather_v1_cases = check_gathers_v1(dev, rng)
     phase2 = {"kge_score": check_kge_score(dev, rng, widths)}
     topk_err, topk_stats, topk_cases = check_topk(dev, rng, widths[:3])
     phase2 |= {"topk": (topk_err, topk_stats),
@@ -2302,9 +2412,10 @@ def main() -> int:
     phase2["wkv_chunked"] = check_wkv(dev, rng)
     log("[phase 2] kge_score and basis_message within their stated bounds; "
         "topk, fused_gather and fused_dequant_gather bitwise equal to their "
-        "plain versions; kge_score, topk, fused_gather, basis_message, "
-        "segment_sum, scatter_add_onehot and wkv_chunked bitwise equal to "
-        "their first kernels; "
+        "plain versions; kge_score, topk, fused_gather, "
+        "fused_dequant_gather, basis_message, segment_sum, "
+        "scatter_add_onehot and wkv_chunked bitwise equal to their first "
+        "kernels; "
         "segment_sum deg == plain, agg within its bound, runs bitwise "
         "equal; scatter_add_onehot within its bound, non-hit rows 0, runs "
         "bitwise equal; wkv_chunked within its bounds of the plain chunked "
@@ -2601,6 +2712,32 @@ def main() -> int:
         f"the master table's included, bitwise the fp32 path's on the "
         f"dequantized master")
 
+    # phase 6d: exact resume from a checkpoint, fp32 and int8 tables;
+    # counts reset and read inside resume_exact around each resumed run
+    resume = {}
+    for label, opts, path_kernels in (
+            ("fp32", [], MINIBATCH_KERNELS),
+            ("int8", INT8, MINIBATCH_INT8_KERNELS)):
+        # the resumed main run (4 shards) is the path; the 1-shard one,
+        # whose dense table has no sharded gather, a bitwise gate
+        r = resume[label] = resume_exact(opts)
+        launches = r["runs"]["S4"]["launches"]
+        missing = [k for k in path_kernels
+                   if k not in EVAL_KERNELS and launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the resumed "
+                                 f"{label} run: {missing}")
+        log(f"[phase 6d] {label} table: epoch 2 restored from an epoch-1 "
+            f"checkpoint ({r['checkpoint_bytes']} bytes, saved in "
+            f"{r['save_s']:.3f} s) into 4 and 1 table shards: per-step "
+            f"losses and final parameters bitwise the unbroken run's; "
+            f"restore {r['runs']['S4']['restore_s']:.3f} / "
+            f"{r['runs']['S1']['restore_s']:.3f} s, epoch "
+            f"{r['runs']['S4']['t_epoch']:.3f} / "
+            f"{r['runs']['S1']['t_epoch']:.3f} s; launches "
+            f"{r['runs']['S4']['launches']} / "
+            f"{r['runs']['S1']['launches']}; {card}")
+
     # phase 8: rwkv6-3b prefill and greedy serving at full width; counts
     # reset and read inside run_lm around each part of the path
     lm, lm_state = run_lm(dev, rng)
@@ -2697,6 +2834,9 @@ def main() -> int:
                    "train": train_launches[name],
                    "minibatch": mb_launches[name],
                    "minibatch_int8": mb8_launches[name],
+                   "resume": resume["fp32"]["runs"]["S4"]["launches"][name],
+                   "resume_int8":
+                       resume["int8"]["runs"]["S4"]["launches"][name],
                    "lm": lm_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
@@ -2741,10 +2881,11 @@ def main() -> int:
                        "minibatch_plans": plans,
                        "minibatch_plan_placements": placements,
                        "kge_score_first_kernel_cases": kge_v1_cases,
-                       "fused_gather_first_kernel_cases": gather_v1_cases,
+                       "gather_first_kernel_cases": gather_v1_cases,
                        "topk_edge_cases": topk_cases,
                        "segment_sum_cases": seg_cases,
                        "minibatch_int8_two_run_loss": mb8_loss,
+                       "resume": resume,
                        "embedding_max_abs_diff": emb_err,
                        "lm": lm,
                        "profile": profiles,

@@ -12,7 +12,7 @@ crosses both ways bit for bit (:func:`quantized_table_from_jax`,
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Dict, Iterable, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -102,14 +102,14 @@ def kge_model_from_jax(tree: Mapping, cfg, *, device=None):
     return model
 
 
-def kge_model_to_jax(model) -> Dict:
-    """A :class:`KGEModel` → the reference's tree layout with numpy leaves
-    (``{"entity_embedding", "layers": [{...}, ...], "decoder": {...}}``);
-    a row-sharded entity table stays ``(S, rows, d)``, as the reference
-    stores it."""
+def kge_tree(named: Iterable[Tuple[str, object]]) -> Dict:
+    """``(dotted name, leaf)`` pairs of a KGE model (``named_parameters``
+    names, or an optimizer moment's keys) → the reference's tree layout
+    (``{"entity_embedding", "layers": [{...}, ...], "decoder": {...}}``),
+    the leaves as given. The inverse of :func:`flatten_tree` on that
+    layout."""
     tree: Dict = {}
-    for name, p in model.named_parameters():
-        value = p.detach().cpu().numpy().copy()
+    for name, value in named:
         parts = name.split(".")
         if parts[0] == "layers":
             layers = tree.setdefault("layers", [])
@@ -122,6 +122,14 @@ def kge_model_to_jax(model) -> Dict:
         else:
             tree[name] = value
     return tree
+
+
+def kge_model_to_jax(model) -> Dict:
+    """A :class:`KGEModel` → the reference's tree layout with numpy leaves
+    (:func:`kge_tree`); a row-sharded entity table stays ``(S, rows, d)``,
+    as the reference stores it."""
+    return kge_tree((name, p.detach().cpu().numpy().copy())
+                    for name, p in model.named_parameters())
 
 
 def quantized_table_from_jax(quantized: Mapping, *, device=None

@@ -24,8 +24,9 @@ path (``ops.gather_rows``).
 
 Each wrapper launches its CUDA kernel from ``csrc/sharded_gather.cu`` for
 CUDA tensors and runs its plain version for CPU tensors.
-:func:`fused_gather_v1` launches the first ``fused_gather`` kernel (a
-block per row), kept as the bitwise yardstick of the warp-per-rows one;
+:func:`fused_gather_v1` and :func:`fused_dequant_gather_v1` launch the
+first ``fused_gather`` and ``fused_dequant_gather`` kernels (a block per
+row), kept as the bitwise yardsticks of the warp-per-rows ones;
 :func:`scatter_add_onehot_v1` the first scatter-add passes (the RGCN
 segment sum's), the yardstick of ``segment_sum.cuh``'s scatter passes.
 
@@ -61,14 +62,13 @@ _GATHER_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
     ctypes.c_void_p]
+_DEQUANT_ARGTYPES = [ctypes.c_void_p] + _GATHER_ARGTYPES
 _SCATTER_TAIL = [ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
 _SIGNATURES = {
     "fused_gather_f32": _GATHER_ARGTYPES,
     "fused_gather_f32_v1": _GATHER_ARGTYPES,
-    "fused_dequant_gather_i8": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p],
+    "fused_dequant_gather_i8": _DEQUANT_ARGTYPES,
+    "fused_dequant_gather_i8_v1": _DEQUANT_ARGTYPES,
     "scatter_add_f32": [ctypes.c_void_p] * 7 + _SCATTER_TAIL,
     "scatter_add_f32_v1": [ctypes.c_void_p] * 6 + _SCATTER_TAIL,
 }
@@ -204,17 +204,12 @@ def fused_dequant_gather_plain(codes_flat: torch.Tensor,
     return torch.where(any_owned[:, None], rows, zero)
 
 
-def fused_dequant_gather(codes_flat: torch.Tensor, scales_flat: torch.Tensor,
-                         flat_ids: torch.Tensor, any_owned: torch.Tensor, *,
-                         check: bool = True) -> torch.Tensor:
-    """``out[v] = any_owned[v] ? codes_flat[flat_ids[v]] ·
-    scales_flat[flat_ids[v]] : 0`` in fp32 — the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors. ``check`` as in
-    :func:`fused_gather`."""
+def _dequant_gather(entry: str, counter, codes_flat: torch.Tensor,
+                    scales_flat: torch.Tensor, flat_ids: torch.Tensor,
+                    any_owned: torch.Tensor, check: bool) -> torch.Tensor:
+    """Check the operands and launch the C entry point ``entry`` on CUDA
+    tensors, adding one to ``counter.launches`` when given."""
     name = "fused_dequant_gather"
-    if _build.on_cpu(name, codes_flat, scales_flat, flat_ids, any_owned):
-        return fused_dequant_gather_plain(codes_flat, scales_flat, flat_ids,
-                                          any_owned)
     if codes_flat.dim() != 2 or flat_ids.dim() != 1:
         raise ValueError(f"{name}: codes_flat must be 2-D and flat_ids 1-D")
     r, d = codes_flat.shape
@@ -230,17 +225,50 @@ def fused_dequant_gather(codes_flat: torch.Tensor, scales_flat: torch.Tensor,
     with torch.cuda.device(codes_flat.device):
         bad = _bad_slot_flag(codes_flat.device)
         stream = torch.cuda.current_stream()
-        code = lib.fused_dequant_gather_i8(
+        code = getattr(lib, entry)(
             codes_flat.data_ptr(), scales_flat.data_ptr(),
             flat_ids.data_ptr(), any_owned.data_ptr(), out.data_ptr(), r, v,
             d, bad.data_ptr(), stream.cuda_stream)
         _build.check_launch(name, code)
-        fused_dequant_gather.launches += 1
+        if counter is not None:
+            counter.launches += 1
         if not check:
             return out
         stream.synchronize()
     _check_flag(name, bad, flat_ids, r)
     return out
+
+
+def fused_dequant_gather(codes_flat: torch.Tensor, scales_flat: torch.Tensor,
+                         flat_ids: torch.Tensor, any_owned: torch.Tensor, *,
+                         check: bool = True) -> torch.Tensor:
+    """``out[v] = any_owned[v] ? codes_flat[flat_ids[v]] ·
+    scales_flat[flat_ids[v]] : 0`` in fp32 — the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. ``check`` as in
+    :func:`fused_gather`."""
+    if _build.on_cpu("fused_dequant_gather", codes_flat, scales_flat,
+                     flat_ids, any_owned):
+        return fused_dequant_gather_plain(codes_flat, scales_flat, flat_ids,
+                                          any_owned)
+    return _dequant_gather("fused_dequant_gather_i8", fused_dequant_gather,
+                           codes_flat, scales_flat, flat_ids, any_owned,
+                           check)
+
+
+def fused_dequant_gather_v1(codes_flat: torch.Tensor,
+                            scales_flat: torch.Tensor,
+                            flat_ids: torch.Tensor, any_owned: torch.Tensor,
+                            *, check: bool = True) -> torch.Tensor:
+    """The first port's kernel (one block per row) on CUDA tensors, kept as
+    the bitwise yardstick of :func:`fused_dequant_gather`: both take each
+    element's product with ``__fmul_rn``. Not on any path of the port; it
+    counts no launches."""
+    if _build.on_cpu("fused_dequant_gather", codes_flat, scales_flat,
+                     flat_ids, any_owned):
+        raise ValueError("fused_dequant_gather_v1: CUDA tensors only (the "
+                         "plain version is fused_dequant_gather_plain)")
+    return _dequant_gather("fused_dequant_gather_i8_v1", None, codes_flat,
+                           scales_flat, flat_ids, any_owned, check)
 
 
 fused_dequant_gather.launches = 0

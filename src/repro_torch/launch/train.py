@@ -96,10 +96,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace) -> Dict:
-    """Train, then evaluate on the test split; prints the reference's
-    per-epoch and ``[eval]`` lines. Returns the trainer, the per-epoch
-    history and the test metrics."""
+def make_trainer(args: argparse.Namespace):
+    """The ``KGETrainer`` the CLI trains for ``args`` (raises
+    ``NotImplementedError`` for the architectures the port has not
+    reached)."""
     if args.arch == "rgcn-citation2":
         raise not_ported("--arch rgcn-citation2 (feature-mode edge "
                          "mini-batches)", "citation2")
@@ -124,6 +124,15 @@ def run(args: argparse.Namespace) -> Dict:
         **({"hidden_dim": args.hidden_dim} if args.hidden_dim > 0 else {}))
     splits = load_or_synthesize("fb15k-237", data_root=args.data_root,
                                 scale=args.scale)
+    return KGETrainer(splits, cfg, device=args.device)
+
+
+def run(args: argparse.Namespace) -> Dict:
+    """Train, then evaluate on the test split; prints the reference's
+    per-epoch and ``[eval]`` lines. Returns the trainer, the per-epoch
+    history and the test metrics."""
+    trainer = make_trainer(args)
+    cfg, splits = trainer.cfg, trainer.splits
     pipe = ("full-graph (resident batch)" if cfg.batch_size is None
             else f"{cfg.pipeline} pipeline, batch {cfg.batch_size}")
     if cfg.gather_dedup:
@@ -139,7 +148,6 @@ def run(args: argparse.Namespace) -> Dict:
           f"{cfg.num_table_shards}-shard entity table); d={cfg.hidden_dim}, "
           f"{'kernel' if cfg.use_kernel else 'plain'} message passing on "
           f"{args.device}", flush=True)
-    trainer = KGETrainer(splits, cfg, device=args.device)
     pad, budget = trainer.padded, trainer.budget
     shape = (f"padded partitions V={pad.padded_vertices} "
              f"E={pad.padded_edges}" if budget is None else

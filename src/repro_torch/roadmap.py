@@ -7,8 +7,6 @@ item, instead of silently doing something else.
 from __future__ import annotations
 
 ITEMS = {
-    "checkpoint": "ROADMAP Queue 1 item 1: checkpoints in the reference's "
-                  ".npz + JSON manifest format",
     "spmd": "ROADMAP Queue 1 item 2: the multi-process step over "
             "torch.distributed",
     "citation2": "ROADMAP Queue 1 item 4: feature-mode mini-batch training "

@@ -7,7 +7,8 @@ exchange (port of the single-device part of
   num_shards)), zero-padded to ``padded_rows`` and stored as
   ``(num_shards, rows_per_shard, d)``.
 * ``shard_table`` / ``unshard_table`` — dense ``(V, d)`` ⇄ sharded
-  ``(S, rows, d)``.
+  ``(S, rows, d)``; ``convert_table_layout`` the same for numpy tables
+  at any pair of shard counts (the checkpoints' conversion).
 * ``plan_local_gather`` / ``plan_unique_gather`` /
   ``ShardedGatherPlan.for_stacked`` — host numpy plans: global ids →
   per-shard LOCAL ids + ownership masks, optionally deduplicated and
@@ -204,6 +205,63 @@ def unshard_table(shards: torch.Tensor, num_rows: int) -> torch.Tensor:
     if num_rows > s * rows:
         raise ValueError(f"layout holds {s * rows} rows, need {num_rows}")
     return shards.reshape(s * rows, d)[:num_rows]
+
+
+def _layout_row_range(shape) -> Tuple[int, int]:
+    """Logical row counts a table shape can represent: a dense ``(V, d)``
+    is exactly ``V``; a sharded ``(S, rows, d)`` is any ``V`` with
+    ``rows == ceil(V / S)`` (the tail padding is less than one shard)."""
+    if len(shape) == 2:
+        return shape[0], shape[0]
+    s, rows = shape[0], shape[1]
+    return s * (rows - 1) + 1, s * rows
+
+
+def convert_table_layout(arr: np.ndarray, target_shape,
+                         num_rows: Optional[int] = None) -> np.ndarray:
+    """Convert a numpy embedding table between layouts: dense ``(V, d)`` ⇄
+    sharded ``(S, rows, d)`` (any shard count). Row blocks are contiguous,
+    so flattening a sharded table recovers global row order with the zero
+    padding at the tail; the conversion pads or trims that tail. Used by
+    ``repro_torch.training.checkpoint`` so that checkpoints restore across
+    layouts.
+
+    Only layouts convert: the two shapes must be able to describe the same
+    logical row count, else it raises (a checkpoint of another vocabulary
+    is never truncated or zero-padded). A sharded shape hides the exact
+    count in its tail padding (any ``V`` with ``ceil(V / S) == rows``
+    fits), so pass ``num_rows``, the model's true entity count, where it is
+    known: without it a mismatch smaller than one shard's padding cannot be
+    seen from the shapes."""
+    target_shape = tuple(target_shape)
+    arr = np.asarray(arr)
+    if arr.shape == target_shape:
+        return arr
+    if arr.ndim not in (2, 3) or len(target_shape) not in (2, 3) or \
+            arr.shape[-1] != target_shape[-1]:
+        raise ValueError(
+            f"cannot convert table layout {arr.shape} -> {target_shape}")
+    lo_a, hi_a = _layout_row_range(arr.shape)
+    lo_b, hi_b = _layout_row_range(target_shape)
+    if num_rows is not None and not (lo_a <= num_rows <= hi_a and
+                                     lo_b <= num_rows <= hi_b):
+        raise ValueError(
+            f"table layouts {arr.shape} / {target_shape} cannot hold "
+            f"exactly {num_rows} logical rows ({lo_a}-{hi_a} vs "
+            f"{lo_b}-{hi_b}): refusing to truncate or zero-pad real "
+            f"embedding rows")
+    if max(lo_a, lo_b) > min(hi_a, hi_b):
+        raise ValueError(
+            f"table layouts {arr.shape} and {target_shape} describe "
+            f"disjoint logical row counts ({lo_a}-{hi_a} vs {lo_b}-{hi_b}): "
+            f"refusing to truncate or zero-pad real embedding rows")
+    d = arr.shape[-1]
+    dense = arr.reshape(-1, d)
+    need = int(np.prod(target_shape[:-1]))
+    if dense.shape[0] < need:
+        dense = np.concatenate(
+            [dense, np.zeros((need - dense.shape[0], d), dense.dtype)])
+    return np.ascontiguousarray(dense[:need].reshape(target_shape))
 
 
 # ---------------------------------------------------------------------- #

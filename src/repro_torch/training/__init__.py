@@ -1,5 +1,8 @@
-"""Full-graph KGE training: preprocessing, the simulated data-parallel
-step, the optimizers, evaluation and the trainer."""
+"""KGE training: preprocessing, the simulated data-parallel step, the
+optimizers, checkpoints, evaluation and the trainer."""
+from repro_torch.training.checkpoint import (
+    latest_checkpoint, restore_checkpoint, save_checkpoint,
+)
 from repro_torch.training.evaluation import (
     encode_all_entities, evaluate_split,
 )
@@ -9,6 +12,7 @@ from repro_torch.training.preprocessing import (
 )
 from repro_torch.training.trainer import KGETrainer, TrainConfig
 
-__all__ = ["encode_all_entities", "evaluate_split", "adam",
+__all__ = ["latest_checkpoint", "restore_checkpoint", "save_checkpoint",
+           "encode_all_entities", "evaluate_split", "adam",
            "apply_updates", "sgd", "PreprocessedGraph", "preprocess_graph",
            "KGETrainer", "TrainConfig"]

@@ -29,6 +29,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.convert import kge_tree
 from repro_torch.core import KnowledgeGraph
 from repro_torch.data.pipeline import (
     FullGraphPipeline, PlanSizes, make_input_pipeline,
@@ -42,6 +43,10 @@ from repro_torch.models.rgcn import RGCNConfig
 from repro_torch.roadmap import not_ported
 from repro_torch.sharding.embedding import SIM_EXCHANGES, TABLE_DTYPES
 from repro_torch.training import optimizer as opt_lib
+from repro_torch.training.checkpoint import (
+    read_metadata, restore_checkpoint, save_checkpoint,
+    tree_leaves_with_path,
+)
 from repro_torch.training.distributed import (
     make_simulated_train_step, trainer_generators,
 )
@@ -280,11 +285,63 @@ class KGETrainer:
     def close(self) -> None:
         self.pipeline.close()
 
+    # ------------------------------------------------------------------ #
+    # checkpointing: the parameters, the optimizer state and the trainer's
+    # own state (the epoch and the generator seed that the per-epoch
+    # generators come from), so that a resumed run draws what the run
+    # without a break draws
+    # ------------------------------------------------------------------ #
+    def _checkpoint_tree(self) -> Dict:
+        """``{"params", "opt"}`` in the reference trainer's layout (the
+        reference's parameter tree, ``mu`` and ``nu`` in it too), the
+        leaves the trainer's own tensors."""
+        return {"params": kge_tree((n, p.detach()) for n, p in
+                                   self.params.named_parameters()),
+                "opt": opt_lib.OptState(
+                    step=self.opt_state.step,
+                    mu=kge_tree(self.opt_state.mu.items()),
+                    nu=kge_tree(self.opt_state.nu.items()))}
+
     def save_checkpoint(self, directory: str, keep: int = 3) -> str:
-        raise not_ported("save_checkpoint", "checkpoint")
+        """One checkpoint per call, stamped with the current epoch, in the
+        reference's format: its ``.npz`` keys are the reference trainer's
+        (``params/entity_embedding``, ``opt/mu/layers/0/bases``, ...) and
+        the manifest's ``metadata`` holds ``epoch`` and ``key``, the raw
+        ``PRNGKey(seed + 1)`` the reference trainer holds (``[0, seed +
+        1]``), so either trainer resumes the other's run."""
+        if not 0 <= self._seed < 2 ** 32:
+            raise ValueError(f"seed {self._seed - 1} has no [0, seed + 1] "
+                             f"key")
+        meta = {"epoch": int(self._epoch), "key": [0, int(self._seed)]}
+        return save_checkpoint(directory, self._epoch,
+                               self._checkpoint_tree(), metadata=meta,
+                               keep=keep)
 
     def restore(self, path: str) -> int:
-        raise not_ported("restore", "checkpoint")
+        """Resume from a checkpoint of :meth:`save_checkpoint` (or of the
+        reference trainer): the values are copied in place into the
+        model's parameters and the optimizer state, whose objects the step
+        holds (the entity table converts across layouts and shard counts),
+        then the epoch and the generator seed come from the metadata.
+        Returns the epoch."""
+        like = self._checkpoint_tree()
+        step, tree = restore_checkpoint(
+            path, like, entity_rows=self.train_kg.num_entities)
+        _, meta = read_metadata(path)
+        key = meta.get("key")
+        if key is not None and (len(key) != 2 or key[0] != 0):
+            raise ValueError(
+                f"checkpoint key {key}: the port's generators come from "
+                f"(seed, epoch, trainer[, step]) and continue only a key "
+                f"of the form [0, seed + 1]")
+        with torch.no_grad():
+            for (_, dst), (_, src) in zip(tree_leaves_with_path(like),
+                                          tree_leaves_with_path(tree)):
+                dst.copy_(src)
+        self._epoch = int(meta.get("epoch", step))
+        if key is not None:
+            self._seed = int(key[1])
+        return self._epoch
 
     # ------------------------------------------------------------------ #
     def encode_all_entities(self) -> torch.Tensor:

@@ -29,7 +29,7 @@ from repro_torch.kernels import (
 from repro_torch.kernels.kge_score import kge_score_v1
 from repro_torch.kernels.rgcn_message import basis_message_v1, segment_sum_v1
 from repro_torch.kernels.sharded_gather import (
-    fused_gather_v1, scatter_add_onehot_v1,
+    fused_dequant_gather_v1, fused_gather_v1, scatter_add_onehot_v1,
 )
 from repro_torch.kernels.topk import stream_splits, topk_scores_v1
 from repro_torch.kernels.wkv_chunk import wkv_chunked_v1
@@ -183,6 +183,10 @@ def v1_operands(name):
     if name == "fused_gather_v1":
         return (torch.zeros(4, 2), torch.zeros(3, dtype=torch.int64),
                 torch.ones(3, dtype=torch.bool))
+    if name == "fused_dequant_gather_v1":
+        return (torch.zeros(4, 2, dtype=torch.int8), torch.ones(4),
+                torch.zeros(3, dtype=torch.int64),
+                torch.ones(3, dtype=torch.bool))
     if name == "scatter_add_onehot_v1":
         return (torch.zeros(3, 2), torch.zeros(3, dtype=torch.int64),
                 torch.ones(3, dtype=torch.bool), 4)
@@ -201,7 +205,8 @@ def v1_operands(name):
 @pytest.mark.parametrize("wrapper", [kge_score_v1, fused_gather_v1,
                                      basis_message_v1, scatter_add_onehot_v1,
                                      wkv_chunked_v1, segment_sum_v1,
-                                     topk_scores_v1],
+                                     topk_scores_v1,
+                                     fused_dequant_gather_v1],
                          ids=lambda w: w.__name__)
 def test_first_kernels_refuse_cpu_tensors(wrapper):
     """The first kernels, kept as the redesigned kernels' bitwise

@@ -253,14 +253,6 @@ def test_cli_spmd_exchanges_rejected_on_the_simulated_step(exchange):
                                 exchange])
 
 
-def test_checkpoints_raise(trained):
-    tr = trained[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        tr.save_checkpoint("unused")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        tr.restore("unused")
-
-
 def test_convert_round_trip_is_bitwise():
     jcfg = JKGEConfig(JRGCNConfig(num_entities=30, num_relations=8,
                                   hidden_dim=12), decoder="complex")

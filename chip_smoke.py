@@ -128,6 +128,33 @@ Phases, each of which fails the run on error:
    and trains epoch 2, at 4 table shards and at 1: per-step losses and
    final parameters bitwise the unbroken run's; the checkpoint's bytes,
    the save and restore times and the resumed runs' launch counts.
+6e. Training, ogbl-citation2 at RGCN_CITATION2's widths (128-d features,
+   hidden 32, 2 bases, 2 hops, dropout 0.2, distmult): --arch
+   rgcn-citation2 --batch-size 118000 --trainers 4 --epochs 1 --scale
+   0.045 (the smallest scale at which every trainer's epoch holds two full
+   118,000-edge batches) with --use-kernel on the async pipeline, then the
+   filtered test evaluation; launch counts of that path (basis_message,
+   segment_sum, scatter_add_onehot and kge_score each launched). Against
+   it, the run without --use-kernel within rtol=1e-3, atol=1e-4 per step,
+   and the serial pipeline bitwise (losses and parameters); two runs of
+   one step bitwise on both paths; a steady step's time, device busy and
+   idle share; the ogbl candidate-list protocol over the trained
+   embeddings (1,000 negatives per test edge from default_rng(0)) at 4
+   shards == dense; and phase 2's checks at the batch's shapes:
+   basis_message 128 -> 32 and 32 -> 32 (B = 2), segment_sum and the
+   vertex-state scatter_add_onehot at d = 32, each against its plain
+   version and bitwise its first kernel, timed. The three runs share one
+   preprocessing of the graph.
+6f. The multi-process step on a NCCL process group of world size 1 in
+   this process (``file://`` rendezvous under ``build/``; a 1 x 1 mesh,
+   the 4 trainers grouped on the one rank): phase 6b's configuration with
+   a 1-shard table and --use-kernel, fp32 and int8, through
+   ``repro_torch.launch.train --spmd``: two steps' losses, parameters and
+   Adam moments bitwise the simulated step's (--no-spmd), the test
+   evaluation (the rank step) equal, make_sharded_rank_step == the
+   simulated counts in both ranking protocols and at both table dtypes;
+   the real and the simulated step times, alternated; launch counts of
+   the spmd runs. The group is destroyed before phase 8.
 7. Profile under ``torch.profiler``: one rwkv6-3b prefill (with the WKV
    kernel's share of it) and one steady decode step; steady serving steps
    of each serving
@@ -165,6 +192,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -214,6 +242,27 @@ QUANT_MRR_DRIFT_LIMIT = 0.02
 PLACEMENT = {"step": "in the step, at first use (the port's)",
              "copy": "on the card with the copy, on the copy stream",
              "host": "on the host (numpy, in the collator)"}
+# phase 6e: ogbl-citation2 at RGCN_CITATION2's widths (128-d features,
+# hidden 32, 2 bases, 2 hops, dropout 0.2, distmult) and its 118,000-edge
+# mini-batches, 4 trainers, one epoch. The scale is the smallest of the
+# synthetic stand-in (in steps of 0.001) at which every trainer's epoch
+# holds two full batches: each trainer's partition then has 237,334 core
+# edges (train edges and their inverses), at 0.044 fewer than 236,000.
+C2_BATCH = 118_000
+C2_ARGV = ["--arch", "rgcn-citation2", "--trainers", "4", "--epochs", "1",
+           "--scale", "0.045", "--batch-size", str(C2_BATCH),
+           "--device", "cuda"]
+C2_MAIN = ["--use-kernel"]                     # async pipeline (default)
+C2_GATES = {"plain": [], "serial": ["--use-kernel", "--pipeline", "serial"]}
+C2_NEGATIVES = 1000     # ogbl-citation2's negatives per test edge
+C2_KERNELS = ("basis_message", "segment_sum", "scatter_add_onehot",
+              "kge_score")
+# phase 6f: the multi-process step at world size 1 (phase 6b's
+# configuration with a 1-shard table): its rendezvous file (removed after)
+SPMD_RENDEZVOUS = os.path.join(ROOT, "build", "chip_smoke_rendezvous")
+SPMD_ARGV = MB_ARGV + ["--table-shards", "1", "--use-kernel"]
+SPMD_KERNELS = ("scatter_add_onehot", "basis_message", "segment_sum",
+                "kge_score")
 LOSS_TOL = dict(rtol=1e-3, atol=1e-4)   # kernel vs plain per-epoch losses
 EMB_TOL = dict(rtol=1e-4, atol=1e-5)    # kernel vs plain encoder outputs
 
@@ -311,13 +360,40 @@ def short_name(name: str) -> str:
     return name.strip()
 
 
-def device_activity(prof):
-    """``(busy_us, {name: us}, count)`` of a profile's device-side activity
-    (kernels and copies): the union of their intervals, each short name's
-    summed duration, and the number of device events."""
+# the host-side CUDA runtime and driver calls that put work on the card:
+# kernel launches, copies and memsets
+LAUNCH_API = re.compile(r"^cu\w*(Launch\w*Kernel|Memcpy|Memset)")
+# untimed one-element launches before and after each profiler window's
+# calls: the tracer has lost up to 24 of a window's last device records
+PAD_LAUNCHES = 64
+# profiler windows taken, and how many were incomplete
+WINDOWS = {"taken": 0, "incomplete": 0}
+
+
+def device_activity(prof, pad: int = 0):
+    """``(busy_us, {name: us}, count, lost)`` of a profile's device-side
+    activity (kernels and copies), leaving out the ``pad`` first and last
+    host calls that put work on the card (:data:`LAUNCH_API`) and their
+    device events: the union of the events' intervals, each short name's
+    summed duration, the number of events, and the names of the other
+    host calls that have no device event of their correlation id (empty
+    in a complete window)."""
     from torch.autograd import DeviceType
+    events = prof.events()
+    calls = sorted((e for e in events if e.device_type == DeviceType.CPU
+                    and LAUNCH_API.match(e.name)),
+                   key=lambda e: e.time_range.start)
+    if len(calls) < 2 * pad + 1:
+        raise RuntimeError(f"the profiler recorded {len(calls)} host calls "
+                           f"that put work on the card, fewer than the "
+                           f"window's {2 * pad} padding launches and one")
+    padding = {e.id for e in calls[:pad] + calls[len(calls) - pad:]}
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.id not in padding]
+    ids = {e.id for e in device}
+    lost = [e.name for e in calls[pad:len(calls) - pad] if e.id not in ids]
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in device)
     busy, end, by_name = 0.0, float("-inf"), {}
     for lo, hi, name in spans:
         key = short_name(name)
@@ -325,44 +401,57 @@ def device_activity(prof):
         if hi > end:
             busy += hi - max(lo, end)
             end = hi
-    return busy, by_name, len(spans)
+    return busy, by_name, len(spans), lost
 
 
 def profiled(fn, reps: int, windows: int = 10, host: bool = True):
     """One complete ``torch.profiler`` window of ``reps`` calls of ``fn``:
     ``{"busy_us", "by_name", "count", "wall_us"}``, the wall time on the
-    host clock ending in a synchronise. ``host=False`` records device
-    activity only, which costs the host less.
+    host clock ending in a synchronise. ``host=False`` records no host
+    operations, which costs the host less.
 
-    The profiler on the card can deliver a window that misses device
-    events or holds a few extra ones (windows of one 0.3 ms kernel once
-    held 1 % of its events; windows of one serving stream held 148, 150,
-    148, 148 events). Every window of the same calls launches the same
-    device work, so windows are taken until two of them deliver the same
-    number of device events, and the first of those is returned; after
-    ``windows`` windows without such a pair it raises."""
+    The tracer records every CUDA runtime and driver call that puts work
+    on the card (:data:`LAUNCH_API`) and the device event it made, under
+    one correlation id. It can lose device events: after phase 6b's
+    trainers, windows lost up to 24 of their last events, the same number
+    in every retake (windows of a three-pass scatter-add read 0.0225 ms
+    where complete ones read 0.17 ms). So each window starts and ends
+    with :data:`PAD_LAUNCHES` untimed launches, which are left out of its
+    numbers; it is complete when every call of ``fn`` that put work on the
+    card has its device event, and an incomplete window is taken again.
+    After ``windows`` windows without a complete one it raises, and the
+    phase that asked fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    marker = torch.zeros(1, device="cuda")
     seen = []
     for _ in range(windows):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA] + (
                 [ProfilerActivity.CPU] if host else [])) as prof:
+            for _ in range(PAD_LAUNCHES):
+                marker.add_(1)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        busy, by_name, count = device_activity(prof)
-        for w in seen:
-            if count > 0 and w["count"] == count:
-                return w
-        seen.append(dict(busy_us=busy, by_name=by_name, count=count,
-                         wall_us=wall_us))
-    raise RuntimeError(f"torch.profiler gave no two windows with the same "
-                       f"device activity in {windows} (device events per "
-                       f"window: {[w['count'] for w in seen]}), so no "
-                       f"device time can be given")
+            for _ in range(PAD_LAUNCHES):
+                marker.add_(1)
+            torch.cuda.synchronize()
+        busy, by_name, count, lost = device_activity(prof, PAD_LAUNCHES)
+        WINDOWS["taken"] += 1
+        if count > 0 and not lost:
+            return dict(busy_us=busy, by_name=by_name, count=count,
+                        wall_us=wall_us)
+        WINDOWS["incomplete"] += 1
+        seen.append((count, lost))
+    raise RuntimeError(
+        f"torch.profiler gave no complete window in {windows} (device "
+        f"events, host calls without one, per window: "
+        f"{[(c, len(x)) for c, x in seen]}; lost in the last: "
+        f"{sorted(set(seen[-1][1]))[:4]}), so no device time can be given")
 
 
 def device_ms(fn, reps: int = 10) -> float:
@@ -391,9 +480,9 @@ def step_profile(fn, steps: int = 1, top: int = 8):
 
 
 def timed(fn, reps: int = 20, warmup: int = 3):
-    """``(ms, call_ms)``: ``ms`` is the device time per call from the
-    profiler; ``call_ms`` the CUDA-event time of one call, host overhead
-    included."""
+    """``(ms, call_ms)``: ``ms`` is the device time per call from a
+    complete profiler window (:func:`profiled`); ``call_ms`` the
+    CUDA-event time of one call, host overhead included."""
     return device_ms(fn, max(2, reps // 2)), time_ms(fn, reps, warmup)
 
 
@@ -1085,10 +1174,12 @@ def gamma(n):
     return n * U32 / (1 - n * U32)
 
 
-def check_basis_message(dev, rng, part, mbs):
+def check_basis_message(dev, rng, part, mbs, c2=None):
     """The training shapes (one partition's gathers at d=75, B=2, and one
-    mini-batch's) and the edge cases; returns (max |err|, per-shape times,
-    each case's plan).
+    mini-batch's) and the edge cases, or with ``c2`` (phase 6e's
+    :func:`citation2_arrays`) the ogbl-citation2 mini-batch's two layers
+    (128 -> 32 and 32 -> 32, B=2) only; returns (max |err|, per-shape
+    times, each case's plan).
 
     The kernel must be bitwise the first kernel (``basis_message_v1``,
     timed beside it at the training shapes): both compute every output by
@@ -1113,6 +1204,11 @@ def check_basis_message(dev, rng, part, mbs):
              ("d_in!=d_out", v, 777, 128, 75, 3, None, None, None),
              ("bases>48KB", v, 2000, 128, 128, 2, None, None, None),
              ("bases>smem", v, 513, 256, 256, 2, None, None, None)]
+    if c2 is not None:
+        cases = [(f"citation2_{d_in}to32", c2["V"], c2["E"], d_in, 32, 2,
+                  c2["dst"], c2["rel"], c2["mask"]) for d_in in (128, 32)]
+    timed_labels = ("train", "minibatch", "citation2_128to32",
+                    "citation2_32to32")
     max_err, stats, configs = 0.0, {}, {}
     for label, v, ne, d_in, d_out, nb, dst, rel, mask in cases:
         if dst is None:
@@ -1158,12 +1254,13 @@ def check_basis_message(dev, rng, part, mbs):
             f"{plan['blocks_per_sm']} per SM, {plan['smem_bytes']} bytes of "
             f"shared memory): bitwise the first kernel, max err "
             f"{float(err.max()):.3g}")
-        if label in ("train", "minibatch"):
+        if label in timed_labels:
             n_on = int(m.sum())
             nbytes = 4 * (ne * d_in + ne * nb + nb * d_in * d_out
                           + ne * d_out) + ne
             ops = 2 * n_on * nb * d_out * (d_in + 1)
-            st = stats[label] = dict(E=ne, d=d_in, B=nb, **timings(
+            st = stats[label] = dict(E=ne, d=d_in, d_out=d_out, B=nb,
+                                     **timings(
                 lambda: basis_message(h_t, coef, w, m),
                 lambda: basis_message_plain(h_t, coef, w, m),
                 lambda: torch.einsum("ebo,eb->eo", torch.einsum(
@@ -1171,8 +1268,8 @@ def check_basis_message(dev, rng, part, mbs):
                 *bound_ms(nbytes, ops)))
             st["first_kernel_ms"], _ = timed(
                 lambda: basis_message_v1(h_t, coef, w, m))
-            report("basis_message", f"{label} (E={ne}, d={d_in}, B={nb})",
-                   st, "einsum pair")
+            report("basis_message", f"{label} (E={ne}, d={d_in} -> {d_out}, "
+                   f"B={nb})", st, "einsum pair")
             log(f"[phase 2] basis_message {label}: the first kernel "
                 f"{st['first_kernel_ms']:.4f} ms, the tiled one "
                 f"{st['ms']:.4f} ms ({st['first_kernel_ms'] / st['ms']:.2f}x"
@@ -1181,9 +1278,10 @@ def check_basis_message(dev, rng, part, mbs):
     return max_err, stats, configs
 
 
-def check_segment_sum(dev, rng, part, mbs):
+def check_segment_sum(dev, rng, part, mbs, c2=None):
     """The training shapes (one partition's heads and mask, and one
-    mini-batch's, d=75) and the edge cases (d = 1, 4, 128, 150, a hub and
+    mini-batch's, d=75; with ``c2`` only the ogbl-citation2 mini-batch's,
+    d=32) and the edge cases (d = 1, 4, 128, 150, a hub and
     empty segments, segments of exactly WARP_COMBINE_MAX = 64 and 65
     chunks, the edge of the scatter passes' one-warp combine). agg must be
     bitwise the first kernel's (``segment_sum_v1``, timed beside it, with
@@ -1209,6 +1307,8 @@ def check_segment_sum(dev, rng, part, mbs):
              ("d=150", 9000, 300, 150, None, None),
              ("64 and 65 chunks", 64 * CHUNK + 65 * CHUNK + 500, 40, 75,
               "64/65", None)]
+    if c2 is not None:
+        cases = [("citation2", c2["E"], c2["V"], 32, c2["src"], c2["mask"])]
     max_err, stats = 0.0, {}
     for label, ne, nv, d, seg, mask in cases:
         if seg is None or isinstance(seg, str):
@@ -1256,7 +1356,7 @@ def check_segment_sum(dev, rng, part, mbs):
         log(f"[phase 2] segment_sum {label} (E={ne}, V={nv}, d={d}, longest "
             f"segment {int(deg.max())}): bitwise the first kernel, deg ==, "
             f"max err {float(err.max()):.3g}, two runs bitwise equal")
-        if label in ("train", "minibatch"):
+        if label in ("train", "minibatch", "citation2"):
             # the main paths hand the call the plan built on the host with
             # the batch: planned == unplanned, bit for bit
             t0 = time.perf_counter()
@@ -1342,11 +1442,12 @@ def minibatch_arrays():
                 comp_vertices=int(mb.vertex_mask[0].sum()))
 
 
-def check_scatter_add(dev, rng, mbs):
+def check_scatter_add(dev, rng, mbs, c2=None):
     """scatter_add_onehot at the mini-batch path's shapes (the table
     gradient, the vertex-state gradient h_dst, the relation coefficients,
     and the decoder's three: the relation diagonals and the head and tail
-    gathers from V) and the edge cases. The kernel must be bitwise the
+    gathers from V) and the edge cases; with ``c2`` only the
+    ogbl-citation2 mini-batch's vertex-state gradient (d=32). The kernel must be bitwise the
     first kernel (``scatter_add_onehot_v1``, timed beside it, with each
     pass's device time at h_dst): both add in the same order. Both sides
     of the plain comparison add each row's owned hits in fp32, in other
@@ -1391,6 +1492,9 @@ def check_scatter_add(dev, rng, mbs):
         ("d=128", rng.integers(0, 300, 9000), None, 300, 128),
         ("V=0", np.zeros(0, np.int64), np.zeros(0, bool), 1000, 75),
     ]
+    if c2 is not None:
+        cases = [("citation2_h_dst", c2["dst"], None, c2["V"], 32)]
+        timed_cases = ("citation2_h_dst",)
     max_err, stats = 0.0, {}
     for label, flat, owned, r, d in cases:
         v = flat.shape[0]
@@ -2239,6 +2343,264 @@ def resume_exact(table_opts):
     return out
 
 
+@contextlib.contextmanager
+def shared_preprocessing():
+    """Within the block, trainers built for the same graph and
+    preprocessing arguments share one ``preprocess_graph`` result (it is
+    deterministic, and a trainer only reads it): phase 6e's three runs
+    preprocess the citation2 graph once."""
+    from repro_torch.training import trainer as trainer_mod
+    real, memo = trainer_mod.preprocess_graph, {}
+
+    def cached(kg, **kw):
+        key = (kg.num_entities, kg.num_edges, tuple(sorted(kw.items())))
+        if key not in memo:
+            memo[key] = real(kg, **kw)
+        return memo[key]
+
+    trainer_mod.preprocess_graph = cached
+    try:
+        yield
+    finally:
+        trainer_mod.preprocess_graph = real
+
+
+def citation2_arrays(trainer):
+    """Trainer 0's slice of the first mini-batch of the citation2 run
+    (host arrays): the shapes phase 2 holds the kernels at for 6e."""
+    it = trainer.pipeline.epoch_batches(1)
+    mb = next(iter(it))
+    it.close()
+    budget = trainer.budget
+    return dict(src=mb.comp_src[0], dst=mb.comp_dst[0], rel=mb.comp_rel[0],
+                mask=mb.comp_mask[0], V=budget.max_vertices,
+                E=budget.max_edges, comp_edges=int(mb.comp_mask[0].sum()))
+
+
+def candidate_lists(test, num_entities, rng):
+    """ogbl-style lists: ``C2_NEGATIVES`` uniform tail ids per test edge,
+    the true tail replaced by its successor (the lists exclude it)."""
+    cands = rng.integers(0, num_entities,
+                         (test.shape[0], C2_NEGATIVES)).astype(np.int32)
+    tails = test[:, 2:3]
+    return np.where(cands == tails, (tails + 1) % num_entities,
+                    cands).astype(np.int32)
+
+
+def run_citation2(dev, part, mbs, phase2):
+    """Phase 6e: ogbl-citation2 training at RGCN_CITATION2's widths
+    through ``repro_torch.launch.train`` (the kernel path, async, is the
+    main run; the plain encoder and the serial pipeline beside it), the
+    test evaluation, the candidate-list protocol at 1 and 4 shards, and
+    phase 2's checks at the batch's shapes (merged into ``phase2``).
+    Returns the phase's results."""
+    import torch
+    from repro_torch.eval.ranking import CSRFilterIndex, ranking_metrics
+
+    t_phase = time.perf_counter()
+    with shared_preprocessing():
+        runs = {"main": train_once(C2_ARGV + C2_MAIN)}
+        for label, extra in C2_GATES.items():
+            runs[label] = train_once(C2_ARGV + extra)
+    main = runs["main"]["trainer"]
+    splits = main.splits
+    batches = [-(-p.core_edges_local().shape[0] // C2_BATCH)
+               for p in main.partitions]
+    full = [p.core_edges_local().shape[0] // C2_BATCH
+            for p in main.partitions]
+    feat = main.features
+    log(f"[phase 6e] ogbl-citation2 stand-in at scale "
+        f"{C2_ARGV[C2_ARGV.index('--scale') + 1]}: "
+        f"{splits['train'].num_entities} entities, "
+        f"{splits['train'].num_edges} train / {splits['test'].num_edges} "
+        f"test edges, features {tuple(feat.shape)} "
+        f"({feat.numel() * 4 / 1e6:.1f} MB); batches per trainer {batches} "
+        f"({full} full); budgets V={main.budget.max_vertices} "
+        f"E={main.budget.max_edges} T={main.budget.max_triplets}")
+    if min(full) < 2:
+        raise AssertionError(f"citation2: a trainer's epoch holds fewer "
+                             f"than two full {C2_BATCH}-edge batches")
+    launches = runs["main"]["launches"]
+    missing = [k for k in C2_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the citation2 "
+                             f"path: {missing}")
+    for label, r in runs.items():
+        h = r["history"][0]
+        log(f"[phase 6e] {label} run: {h['num_batches']} steps, losses "
+            f"{h['losses']}, t_epoch {h['t_epoch']:.3f} s, device step "
+            f"{h['t_device_step']:.3f} s, host exposed "
+            f"{h['t_get_compute_graph']:.3f} s of {h['t_host_build']:.3f} s "
+            f"(overlap {h['overlap_fraction']:.3f}), {r['wall_s']:.1f} s in "
+            f"all; {r['metrics']}")
+    log(f"[phase 6e] launches during the main run (1 epoch + the test "
+        f"evaluation): {launches}; the plain run launched "
+        f"{runs['plain']['launches']}")
+    losses = runs["main"]["history"][0]["losses"]
+    if not (len(losses) >= 2 and np.isfinite(losses).all()):
+        raise AssertionError(f"citation2 losses: {losses}")
+    np.testing.assert_allclose(runs["plain"]["history"][0]["losses"],
+                               losses, **LOSS_TOL)
+    serial = runs["serial"]
+    bad = bitwise_mismatch(main, serial["trainer"])
+    if serial["history"][0]["losses"] != losses or bad:
+        raise AssertionError(f"citation2 serial != async: losses "
+                             f"{serial['history'][0]['losses']} vs {losses},"
+                             f" params {bad}")
+    for k in ("test_mrr", "test_hits@1", "test_hits@3", "test_hits@10"):
+        if not 0.0 <= runs["main"]["metrics"][k] <= 1.0:
+            raise AssertionError(f"citation2 metric {k} out of range")
+    log(f"[phase 6e] kernel == plain per-step losses within {LOSS_TOL}; "
+        f"serial == async losses and parameters bitwise")
+    # phase 2 at this batch's shapes, before the step profiles below (a
+    # kernel timed after them once came back with events missing)
+    c2 = citation2_arrays(main)
+    log(f"[phase 2] citation2 mini-batch: budgets V={c2['V']}, E={c2['E']}; "
+        f"the first batch's comp graph holds {c2['comp_edges']} edges")
+    rng = np.random.default_rng(1)
+    for name, check in (("basis_message", check_basis_message),
+                        ("segment_sum", check_segment_sum)):
+        err, stats, _ = check(dev, rng, part, mbs, c2=c2)
+        phase2[name][1].update(stats)
+        phase2[name] = (max(phase2[name][0], err), phase2[name][1])
+    err, stats = check_scatter_add(dev, rng, mbs, c2=c2)
+    phase2["scatter_add_onehot"][1].update(stats)
+    phase2["scatter_add_onehot"] = (max(phase2["scatter_add_onehot"][0],
+                                        err), phase2["scatter_add_onehot"][1])
+    batch = first_batch(main, 2)
+    two_run = two_runs_bitwise(main, batch,
+                               lambda: main.step_generators(2, 0))
+    plain = runs["plain"]["trainer"]
+    plain_batch = first_batch(plain, 2)
+    two_run_plain = two_runs_bitwise(plain, plain_batch,
+                                     lambda: plain.step_generators(2, 0))
+    log(f"[phase 6e] two runs of one step: kernel path loss {two_run!r}, "
+        f"default path loss {two_run_plain!r}; every parameter bitwise "
+        f"equal")
+    # a steady step of each path (the first run of the phase also pays
+    # for the process's first use of these shapes)
+    prof = {}
+    for label, tr, b in (("kernel", main, batch), ("plain", plain,
+                                                   plain_batch)):
+        gens = tr.step_generators(2, 0)
+        p = prof[label] = step_profile(lambda: tr.step(b, gens))
+        log(f"[phase 6e] steady step ({label} path): {p['step_ms']:.3f} ms, "
+            f"device busy {p['device_ms_per_step']:.3f} ms, idle share "
+            f"{p['idle_share']:.3f}, sort kernels "
+            f"{p['sort_ms_per_step']:.4f} ms; top "
+            f"{p['top_device_ms_per_step']}")
+    del batch, plain_batch
+
+    # the ogbl protocol over the trained embeddings, 1 and 4 shards
+    emb = main.encode_all_entities()
+    if emb.shape != (splits["train"].num_entities, main.cfg.hidden_dim) or \
+            not bool(torch.isfinite(emb).all()):
+        raise AssertionError(f"bad citation2 embeddings {tuple(emb.shape)}")
+    test = splits["test"].triplets()
+    cands = candidate_lists(test, emb.shape[0], np.random.default_rng(0))
+    dparams = {k: v.detach() for k, v in main.params["decoder"].items()}
+    fidx = CSRFilterIndex.build([])
+    ogbl, ogbl_s = {}, {}
+    for shards in (1, 4):
+        reset_counts()
+        t0 = time.perf_counter()
+        ogbl[shards] = ranking_metrics(emb, dparams, test, fidx,
+                                       candidates=cands, num_shards=shards,
+                                       device=dev)
+        torch.cuda.synchronize()
+        ogbl_s[shards] = time.perf_counter() - t0
+    if ogbl[4] != ogbl[1]:
+        raise AssertionError(f"citation2 candidate protocol: 4 shards "
+                             f"{ogbl[4]} != dense {ogbl[1]}")
+    log(f"[phase 6e] candidate-list protocol ({test.shape[0]} test edges x "
+        f"{C2_NEGATIVES} negatives, rng 0): 4-shard == dense {ogbl[1]}; "
+        f"{ogbl_s[1]:.3f} s dense, {ogbl_s[4]:.3f} s at 4 shards")
+
+    seconds = time.perf_counter() - t_phase
+    log(f"[phase 6e] {seconds:.1f} s in all")
+    return dict(runs={k: {"history": r["history"], "metrics": r["metrics"],
+                          "launches": r["launches"], "wall_s": r["wall_s"]}
+                      for k, r in runs.items()},
+                launches=launches, two_run_loss=two_run,
+                two_run_plain_loss=two_run_plain, profile=prof,
+                ogbl=ogbl, ogbl_s=ogbl_s, batches=batches, seconds=seconds)
+
+
+def run_spmd(dev):
+    """Phase 6f: the multi-process step on a NCCL process group of world
+    size 1 in this process (a 1 x 1 mesh: 4 trainers grouped on the one
+    rank, a 1-shard table), phase 6b's configuration with --use-kernel,
+    fp32 and int8, through ``repro_torch.launch.train --spmd``, against
+    the same configuration on the simulated step: per-step losses,
+    parameters and Adam moments bitwise, the test evaluation equal, and
+    ``make_sharded_rank_step`` == the simulated counts in both protocols.
+    Launch counts are read around the spmd runs' steps and evaluation.
+    The group is destroyed before returning."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import spmd_check, train
+
+    os.makedirs(os.path.dirname(SPMD_RENDEZVOUS), exist_ok=True)
+    if os.path.exists(SPMD_RENDEZVOUS):
+        os.remove(SPMD_RENDEZVOUS)
+    dist.init_process_group("nccl", init_method=f"file://{SPMD_RENDEZVOUS}",
+                            world_size=1, rank=0)
+    out, t_phase = {}, time.perf_counter()
+    try:
+        for dtype in ("fp32", "int8"):
+            argv = SPMD_ARGV + ["--table-dtype", dtype]
+            with shared_preprocessing():
+                real = train.make_trainer(train.parse_args(argv + ["--spmd"]))
+                sim = train.make_trainer(train.parse_args(argv +
+                                                          ["--no-spmd"]))
+            if real.mesh is None or real.mesh.shape != {"data": 1,
+                                                        "model": 1}:
+                raise AssertionError("--spmd built no 1 x 1 process mesh")
+            reset_counts()
+            r_steps = spmd_check.run_steps(real, 2)
+            torch.cuda.synchronize()
+            metrics = real.evaluate("test")
+            launches = launch_counts()
+            s_steps = spmd_check.run_steps(sim, 2)
+            for tr in (real, sim):
+                tr.close()
+            bad = spmd_check.state_mismatches(real, sim)
+            if r_steps["losses"] != s_steps["losses"] or bad:
+                raise AssertionError(
+                    f"spmd {dtype}: losses {r_steps['losses']} vs "
+                    f"{s_steps['losses']}, state {bad}")
+            sim_metrics = sim.evaluate("test")
+            if metrics != sim_metrics:
+                raise AssertionError(f"spmd {dtype} evaluation {metrics} != "
+                                     f"simulated {sim_metrics}")
+            # step times, alternated: real, simulated, simulated, real
+            times = {"real": [], "sim": []}
+            for label in ("real", "sim", "sim", "real"):
+                tr = real if label == "real" else sim
+                times[label].append(spmd_check.run_steps(tr, 4)["step_s"])
+                tr.close()
+            out[dtype] = dict(losses=r_steps["losses"], metrics=metrics,
+                              launches=launches, step_s=times)
+            log(f"[phase 6f] {dtype} table, 1 x 1 NCCL mesh: per-step losses "
+                f"{r_steps['losses']}, parameters and Adam moments bitwise "
+                f"the simulated step's; evaluation == simulated {metrics}; "
+                f"step time real {[round(1e3 * x, 3) for x in times['real']]}"
+                f" ms, simulated {[round(1e3 * x, 3) for x in times['sim']]}"
+                f" ms; launches {launches}")
+        rank = spmd_check.compare_rank_steps(real, sim)
+        log(f"[phase 6f] make_sharded_rank_step == simulated counts, "
+            f"all-entities and candidate protocols, fp32 and int8 tables: "
+            f"{rank}")
+        out["rank_steps"] = rank
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(SPMD_RENDEZVOUS):
+            os.remove(SPMD_RENDEZVOUS)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 6f] {out['seconds']:.1f} s in all")
+    return out
+
+
 # ---------------------------------------------------------------------- #
 # phases 3-4: the serving path through its entry points
 # ---------------------------------------------------------------------- #
@@ -2738,6 +3100,19 @@ def main() -> int:
             f"{r['runs']['S4']['launches']} / "
             f"{r['runs']['S1']['launches']}; {card}")
 
+    # phase 6e: ogbl-citation2 at full width (counts reset and read inside
+    # train_once around the main run), with phase 2 at its shapes
+    c2 = run_citation2(dev, part, mbs, phase2)
+    # phase 6f: the multi-process step on a NCCL group of one rank (counts
+    # reset and read inside run_spmd around the spmd runs)
+    spmd = run_spmd(dev)
+    for label in ("fp32", "int8"):
+        missing = [k for k in SPMD_KERNELS
+                   if spmd[label]["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the spmd "
+                                 f"{label} path: {missing}")
+
     # phase 8: rwkv6-3b prefill and greedy serving at full width; counts
     # reset and read inside run_lm around each part of the path
     lm, lm_state = run_lm(dev, rng)
@@ -2837,6 +3212,9 @@ def main() -> int:
                    "resume": resume["fp32"]["runs"]["S4"]["launches"][name],
                    "resume_int8":
                        resume["int8"]["runs"]["S4"]["launches"][name],
+                   "citation2": c2["launches"][name],
+                   "spmd": spmd["fp32"]["launches"][name],
+                   "spmd_int8": spmd["int8"]["launches"][name],
                    "lm": lm_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
@@ -2886,10 +3264,13 @@ def main() -> int:
                        "segment_sum_cases": seg_cases,
                        "minibatch_int8_two_run_loss": mb8_loss,
                        "resume": resume,
+                       "citation2": c2, "spmd": spmd,
                        "embedding_max_abs_diff": emb_err,
                        "lm": lm,
                        "profile": profiles,
                        "total_s": time.perf_counter() - t_start}, f, indent=1)
+    log(f"[profiler] {WINDOWS['taken']} windows, {WINDOWS['incomplete']} "
+        f"of them incomplete and taken again")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -30,6 +30,15 @@ collator also attaches each batch's ``ShardedGatherPlan`` (keys
 ``shard_local_ids`` / ``shard_owned``, and ``shard_inverse`` when
 deduplicated), after checking that every gathered id lies in the table.
 
+Per-rank transfer (``BatchShardings``, the reference's placement on a
+``data`` × ``model`` mesh): on a rank of the multi-process step the copy
+takes only this rank's trainers' slice of a stacked batch (the data axis)
+and only its own row of the gather plan's shard axis (the model axis);
+every rank builds the whole stacked batch on the host, so the plans are
+the same arrays everywhere. On one process (``--sharded-transfer`` on the
+simulated step) the mesh is 1 × 1 and the transfer copies everything: the
+same bits, the reference's contract on one device.
+
 Timing contract (``PipelineStats``, the reference's): the steady-state
 clock starts at the first consumed batch; ``warmup_s`` is the wait for
 it, ``host_build_s`` the build time of consumed batches after it and
@@ -55,8 +64,54 @@ from repro_torch.core.minibatch import (
 )
 from repro_torch.kernels.rgcn_message import segment_plan_host
 from repro_torch.sharding.embedding import (
-    ShardedGatherPlan, ShardedTableLayout,
+    PLAN_BATCH_KEYS, ShardedGatherPlan, ShardedTableLayout,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShardings:
+    """What one rank of a ``data`` × ``model`` mesh copies of a stacked
+    batch: the trainer axis is split into ``data`` contiguous blocks (the
+    reference's ``P(data)``), and the gather plan's shard axis into
+    ``model`` blocks as well (``P(data, model)``). ``data_index`` and
+    ``model_index`` are this rank's place (``launch.mesh.ProcessMesh``);
+    the default is the 1 × 1 mesh of one process, which copies
+    everything."""
+
+    data: int = 1
+    model: int = 1
+    data_index: int = 0
+    model_index: int = 0
+
+    @classmethod
+    def of(cls, mesh) -> "BatchShardings":
+        return cls(mesh.data, mesh.model, mesh.data_index, mesh.model_index)
+
+    def check(self, num_partitions: int,
+              table_layout: Optional[ShardedTableLayout]) -> None:
+        """Fail fast on layouts the mesh cannot split evenly."""
+        if num_partitions % self.data:
+            raise ValueError(
+                f"{num_partitions} partitions cannot be sharded over a "
+                f"{self.data}-rank 'data' axis")
+        if table_layout is not None and \
+                table_layout.num_shards % self.model:
+            raise ValueError(
+                f"{table_layout.num_shards} table shards cannot be sharded "
+                f"over a {self.model}-rank 'model' axis")
+
+    def select(self, arrays: Dict[str, np.ndarray]
+               ) -> Dict[str, np.ndarray]:
+        """This rank's block of every stacked array (views, no copy)."""
+        out = {}
+        for key, v in arrays.items():
+            k = v.shape[0] // self.data
+            v = v[self.data_index * k:(self.data_index + 1) * k]
+            if key in PLAN_BATCH_KEYS:
+                m = v.shape[1] // self.model
+                v = v[:, self.model_index * m:(self.model_index + 1) * m]
+            out[key] = v
+        return out
 
 
 @dataclasses.dataclass
@@ -196,7 +251,11 @@ class _MinibatchPipelineBase:
         table_layout: Optional[ShardedTableLayout] = None,
         dedup_gather: bool = False,
         device: torch.device = torch.device("cpu"),
+        shardings: Optional[BatchShardings] = None,
     ):
+        if shardings is not None:
+            shardings.check(len(partitions), table_layout)
+        self.shardings = shardings
         self.partitions = list(partitions)
         self.batch_size = batch_size
         self.num_negatives = num_negatives
@@ -226,7 +285,12 @@ class _MinibatchPipelineBase:
             self.num_hops, self.budget, self.csrs[i], self.sampler)
 
     def _host_batch(self, mb: EdgeMiniBatch) -> Dict[str, np.ndarray]:
-        return host_batch(mb, self.table_layout, self.dedup_gather)
+        """The arrays this process copies: the whole stacked batch, or its
+        rank's block with ``shardings``."""
+        arrays = host_batch(mb, self.table_layout, self.dedup_gather)
+        if self.shardings is None:
+            return arrays
+        return self.shardings.select(arrays)
 
     def close(self) -> None:
         """Workers are per-epoch: nothing to release."""
@@ -469,18 +533,19 @@ def make_input_pipeline(
     table_layout: Optional[ShardedTableLayout] = None,
     dedup_gather: bool = False,
     device: torch.device = torch.device("cpu"),
+    shardings: Optional[BatchShardings] = None,
 ) -> _MinibatchPipelineBase:
     """A mini-batch input pipeline (``serial`` reference or ``async``
     prefetching) delivering batches on ``device``; ``table_layout`` makes
     every batch carry its gather plan (deduplicated per trainer row with
-    ``dedup_gather``)."""
+    ``dedup_gather``); ``shardings`` copies only a rank's block."""
     if kind not in PIPELINES:
         raise ValueError(
             f"unknown pipeline {kind!r}; choose from {sorted(PIPELINES)}")
     kw = dict(batch_size=batch_size, num_negatives=num_negatives,
               num_hops=num_hops, budget=budget, seed=seed, sampler=sampler,
               csrs=csrs, table_layout=table_layout,
-              dedup_gather=dedup_gather, device=device)
+              dedup_gather=dedup_gather, device=device, shardings=shardings)
     if kind == "async":
         kw["prefetch"] = prefetch
     return PIPELINES[kind](partitions, **kw)
@@ -513,7 +578,8 @@ def edge_plans_host(src: np.ndarray, rel: np.ndarray, dst: np.ndarray,
 
 
 class FullGraphPipeline:
-    """One full-edge batch per epoch, resident on ``device``. With a
+    """One full-edge batch per epoch, resident on ``device`` (with
+    ``shardings``, a rank's block of trainers). With a
     row-sharded table the encoder plans the gather in-graph (the plan of
     ``local_to_global`` is the same every epoch). The resident batch also
     carries every partition's edge plans (:func:`edge_plans_host`) and a
@@ -522,7 +588,8 @@ class FullGraphPipeline:
     the card: built on the host, the plans slowed the async epoch.)"""
 
     def __init__(self, padded: PaddedPartitionBatch, device: torch.device,
-                 plan_sizes: PlanSizes):
+                 plan_sizes: PlanSizes,
+                 shardings: Optional[BatchShardings] = None):
         self.device = torch.device(device)
         h = self._host = padded_fields(padded)
         plans = [edge_plans_host(h["src"][i], h["rel"][i], h["dst"][i],
@@ -535,6 +602,9 @@ class FullGraphPipeline:
             h["plan_table"] = np.stack([
                 segment_plan_host(g, None, plan_sizes.table_rows)
                 for g in h["local_to_global"]])
+        if shardings is not None:
+            shardings.check(padded.num_partitions, None)
+            self._host = shardings.select(h)
         self._device: Optional[Dict[str, torch.Tensor]] = None
         self._stats = PipelineStats()
 

@@ -1,5 +1,6 @@
-"""Filtered link-prediction evaluation (port of ``repro/eval/ranking.py``,
-the all-entities protocol, dense or sharded; paper §4.2, Eq. 5-6).
+"""Filtered link-prediction evaluation (port of ``repro/eval/ranking.py``:
+the all-entities protocol and the ogbl candidate-list protocol, dense or
+sharded; paper §4.2, Eq. 5-6).
 
 Filtered link prediction masks every candidate that forms a KNOWN positive.
 The filter is a ``CSRFilterIndex``: known (s, r) pairs as a sorted int64 key
@@ -15,6 +16,14 @@ Ranking scores each batch of queries against every entity through the
 and counts, per query, the candidates scoring above and equal to the true
 tail: ``rank = 1 + #greater + 0.5 · #equal`` (ties excluding the true
 tail itself), the reference's tie-aware mean rank.
+
+The ogbl candidate-list protocol (ogbl-citation2's: each test edge comes
+with its own list of negative tails, which excludes the true one) scores
+each query against its true tail and its ``(C,)`` list only: the gathered
+``(B, 1 + C, d)`` rows in the decoder's query form, one batched product
+plus the rank-1 biases (:func:`candidate_scores`), then the epilogue. The
+reference computes this product outside its Pallas kernel, and so does
+the port.
 """
 from __future__ import annotations
 
@@ -26,8 +35,8 @@ import torch
 
 from repro_torch.core.graph import KnowledgeGraph
 from repro_torch.device import resolve_device
+from repro_torch.kernels.kge_score import apply_epilogue
 from repro_torch.models.decoders import Decoder, get_decoder
-from repro_torch.roadmap import not_ported
 
 # Additive score mask for filtered-out candidates: large-negative rather
 # than -inf so a filtered candidate loses cleanly without inf-inf NaNs; pad
@@ -234,6 +243,32 @@ def _as_device_tensor(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32).to(device)
 
 
+def candidate_lanes(batch: np.ndarray, candidates: np.ndarray
+                    ) -> np.ndarray:
+    """``(B, 1 + C)`` int64 ids scored per query in the candidate
+    protocol: the true tail in lane 0, then the row's candidate list. The
+    true score comes out of the same product as the candidates', so a
+    candidate whose row equals the true tail's ties it exactly."""
+    return np.concatenate([np.asarray(batch)[:, 2:3],
+                           np.asarray(candidates)], axis=1).astype(np.int64)
+
+
+def candidate_scores(decoder: Decoder, dec_params: Dict, q: torch.Tensor,
+                     q_bias: torch.Tensor, rows: torch.Tensor
+                     ) -> torch.Tensor:
+    """``(B, C)`` scores of prepared queries ``q (B, d)`` / ``q_bias
+    (B,)`` against each query's own ``(B, C, d)`` candidate rows: the
+    reference's ``einsum("bd,bcd->bc")`` plus the rank-1 biases, then the
+    epilogue, in full fp32 on the card (TF32 off). A score depends only on
+    its query and its row, so every caller of one ``(B, C)`` shape gets
+    the same bits for the same pair (the sharded protocol relies on it)."""
+    if q.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    cand, c_bias = decoder.prepare_candidates(dec_params, rows)
+    return apply_epilogue(torch.einsum("bd,bcd->bc", q, cand)
+                          + q_bias[:, None] + c_bias, decoder.epilogue)
+
+
 def ranking_metrics(entity_emb, decoder_params: Dict,
                     test_triplets: np.ndarray, filter_index: FilterIndex,
                     hits_ks: Sequence[int] = (1, 3, 10),
@@ -241,27 +276,30 @@ def ranking_metrics(entity_emb, decoder_params: Dict,
                     batch_size: int = 256,
                     decoder: Union[str, Decoder] = "distmult",
                     num_shards: int = 1, table_dtype: str = "fp32",
-                    device=None) -> Dict[str, float]:
-    """Filtered MRR / Hits@k, tail-corruption direction, all-entities
-    protocol. Every batch of ``batch_size`` queries is one ``kge_score``
-    launch over all N candidates in the decoder's query form, with the
-    batch's filter bias built on the host. ``device`` defaults to the
-    table's own when it is a tensor, else to ``cuda``. ``num_shards > 1``
-    ranks candidate-axis-sharded over the row-sharded table
-    (``repro_torch.eval.sharded``), with exactly the dense metrics. An
-    int8 table always takes the sharded path, one shard included: its
-    block-at-a-time dequantization keeps the fp32 table off the device,
-    and the metrics are exactly the dense ones over the dequantized table.
-    The ogbl candidate-list protocol is not ported yet and raises."""
-    if candidates is not None:
-        raise not_ported("the candidate-list (ogbl) ranking protocol",
-                         "citation2")
-    if num_shards > 1 or table_dtype != "fp32":
+                    device=None, rank_step=None) -> Dict[str, float]:
+    """Filtered MRR / Hits@k, tail-corruption direction. All-entities
+    protocol (``candidates=None``): every batch of ``batch_size`` queries
+    is one ``kge_score`` launch over all N candidates in the decoder's
+    query form, with the batch's filter bias built on the host. ogbl
+    candidate-list protocol (``candidates``, ``(T, C)`` negative tail ids
+    per test triplet, the true tail not among them): each query against
+    its own list (:func:`candidate_scores`), no filter. ``device`` defaults
+    to the table's own when it is a tensor, else to ``cuda``.
+    ``num_shards > 1`` ranks candidate-axis-sharded over the row-sharded
+    table (``repro_torch.eval.sharded``), in either protocol, with exactly
+    the dense metrics. An int8 table always takes the sharded path, one
+    shard included: its block-at-a-time dequantization keeps the fp32
+    table off the device, and the metrics are exactly the dense ones over
+    the dequantized table. So does a ``rank_step``
+    (``eval.sharded.make_sharded_rank_step``): the ranks of its model axis
+    rank together, each over its own row block."""
+    if num_shards > 1 or table_dtype != "fp32" or rank_step is not None:
         from repro_torch.eval.sharded import sharded_ranking_metrics
         return sharded_ranking_metrics(
             entity_emb, decoder_params, test_triplets, filter_index,
             max(num_shards, 1), hits_ks=hits_ks, batch_size=batch_size,
-            decoder=decoder, table_dtype=table_dtype, device=device)
+            decoder=decoder, candidates=candidates, table_dtype=table_dtype,
+            device=device, rank_step=rank_step)
     if device is None and isinstance(entity_emb, torch.Tensor):
         device = entity_emb.device
     dev = resolve_device(device)
@@ -270,11 +308,27 @@ def ranking_metrics(entity_emb, decoder_params: Dict,
     n = emb.shape[0]
     dparams = {k: _as_device_tensor(v, dev)
                for k, v in decoder_params.items()}
-    prepared = dec.prepare_candidates(dparams, emb)
+    # the candidate side is row-local: prepared once for all entities, or,
+    # in the candidate protocol, per batch from the gathered rows
+    prepared = (dec.prepare_candidates(dparams, emb)
+                if candidates is None else None)
     ranks = []
     for lo in range(0, test_triplets.shape[0], batch_size):
         batch = np.asarray(test_triplets[lo: lo + batch_size])
         idx = torch.from_numpy(batch.astype(np.int64)).to(dev)
+        if candidates is not None:
+            ids = torch.from_numpy(candidate_lanes(
+                batch, candidates[lo: lo + batch_size])).to(dev)
+            q, q_bias = dec.prepare_query(dparams, emb[idx[:, 0]],
+                                          idx[:, 1])
+            scores = candidate_scores(dec, dparams, q, q_bias, emb[ids])
+            true = scores[:, :1]
+            greater = (scores[:, 1:] > true).sum(1)
+            equal = (scores[:, 1:] == true).sum(1)
+            # the lists exclude the true tail: add its own tie back
+            ranks.append(mean_rank(greater.cpu().numpy(),
+                                   equal.cpu().numpy() + 1))
+            continue
         bias = torch.from_numpy(_filter_bias(filter_index, batch, n)).to(dev)
         scores = dec.rank_scores(dparams, emb[idx[:, 0]], idx[:, 1], emb,
                                  bias, prepared=prepared)
@@ -291,7 +345,8 @@ def evaluate_both_directions(
     filter_graphs: Sequence[KnowledgeGraph], num_relations_base: int,
     hits_ks: Sequence[int] = (1, 3, 10),
     decoder: Union[str, Decoder] = "distmult", num_shards: int = 1,
-    table_dtype: str = "fp32", device=None) -> Dict[str, float]:
+    table_dtype: str = "fp32", device=None,
+    rank_step=None) -> Dict[str, float]:
     """Mean of tail corruption on (s, r, t) and on the inverse triplets
     (t, r + R, s), i.e. head corruption. The decoder's relation tables
     cover the doubled vocabulary; one CSR filter index over all splits
@@ -299,7 +354,7 @@ def evaluate_both_directions(
     fidx = CSRFilterIndex.build(
         [g.with_inverse_relations() for g in filter_graphs])
     kw = dict(decoder=decoder, num_shards=num_shards,
-              table_dtype=table_dtype, device=device)
+              table_dtype=table_dtype, device=device, rank_step=rank_step)
     m_fwd = ranking_metrics(entity_emb, decoder_params, test_kg.triplets(),
                             fidx, hits_ks, **kw)
     inv = np.stack([test_kg.dst, test_kg.rel + num_relations_base,

@@ -1,0 +1,296 @@
+"""The multi-process step against the simulated step, on every rank.
+
+    PYTHONPATH=src python -m repro_torch.launch.spmd_check \\
+        --init-method file:///tmp/rendezvous --world-size 2 --rank 0 \\
+        [--device cpu] [--table-shards 1] [--cli]
+
+Run one process per rank (the same command with ``--rank`` 0 .. W-1, or
+under ``torchrun`` without the three process-group flags): on the cards
+over NCCL, one card per rank (``LOCAL_RANK``, else the rank), or with
+``--device cpu`` on the CPU over gloo (``chip_smoke.py`` phase 6f runs the
+same functions on one card). Each rank joins the process group, builds
+the ``data`` × ``model`` process mesh with a model axis of
+``--table-shards`` ranks, and for every exchange (``psum_scatter``, ``psum``, ``alltoall``; one run for
+a dense fp32 table, which has no exchange) and both table dtypes trains a
+few steps of the FB15k-237 stand-in on the multi-process step and, in the
+same process, on the simulated step; then it holds them together:
+
+* per-step losses equal, and every parameter and Adam moment bitwise the
+  simulated one (this rank's row block of the entity table);
+* the test evaluation (the encode through the exchange, the ranking on
+  the model axis's ranks) equal to the simulated one;
+* ``eval.sharded.make_sharded_rank_step`` equal to the simulated counts in
+  the all-entities and the candidate-list protocols;
+* with ``--cli``, ``launch.train`` (``--spmd``) printing the losses and
+  metrics of the same command on the simulated step.
+
+It exits non-zero at the first difference, and prints ``SPMD_CHECK_OK``
+with the cases it held on success. The functions are the same checks
+``chip_smoke.py`` runs on the card. With ``--train-from DIR`` it runs no
+check: it trains the cases of ``DIR`` from the parameters there and
+reports the losses (:func:`train_from`), for a caller to hold against
+another implementation.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import io
+import json
+import os
+import re
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import ROW_BLOCK, backend_for
+from repro_torch.sharding.embedding import SPMD_EXCHANGES
+
+
+def state_mismatches(real, sim) -> List[str]:
+    """Names of the parameters, Adam moments and step counter of the
+    multi-process trainer ``real`` whose bits differ from the simulated
+    trainer ``sim``'s: a leaf placed as a row block (``real.param_specs``,
+    ``real.opt_specs``) against this rank's block of ``sim``'s."""
+    i = real.mesh.model_index
+
+    def own(spec, t):
+        return t[i:i + 1] if spec == ROW_BLOCK else t
+
+    pairs = [(f"params/{n}", p, own(real.param_specs[n], q))
+             for (n, p), (_, q) in zip(real.params.named_parameters(),
+                                       sim.params.named_parameters())]
+    for part in ("mu", "nu"):
+        a, b = getattr(real.opt_state, part), getattr(sim.opt_state, part)
+        specs = getattr(real.opt_specs, part)
+        pairs += [(f"opt/{part}/{n}", a[n], own(specs[n], b[n])) for n in a]
+    pairs.append(("opt/step", real.opt_state.step, sim.opt_state.step))
+    bad = []
+    for name, a, b in pairs:
+        a, b = a.detach(), b.detach()
+        if a.shape != b.shape or not torch.equal(
+                a.reshape(-1).view(torch.uint8),
+                b.reshape(-1).view(torch.uint8)):
+            bad.append(name)
+    return bad
+
+
+def run_steps(trainer, steps: int) -> Dict:
+    """``steps`` updates of ``trainer`` (mini-batch: the first steps of
+    epoch 1; full-graph: one per epoch): the losses and the mean step time
+    (host clock, ending in the loss on the host)."""
+    losses, t = [], 0.0
+
+    def one(batch, epoch, j):
+        nonlocal t
+        gens = trainer.step_generators(epoch, j)
+        t0 = time.perf_counter()
+        losses.append(trainer.step(batch, gens))
+        t += time.perf_counter() - t0
+
+    if trainer.cfg.batch_size is None:
+        for epoch in range(1, steps + 1):
+            for batch in trainer.pipeline.device_batches(epoch):
+                one(batch, epoch, 0)
+    else:
+        it = trainer.pipeline.device_batches(1)
+        for j, batch in zip(range(steps), it):
+            one(batch, 1, j)
+        it.close()
+    return {"losses": losses, "step_s": t / max(steps, 1)}
+
+
+def compare_training(splits, cfg, device, steps: int = 2) -> Dict:
+    """``cfg`` trained ``steps`` steps on the multi-process step (every
+    rank of the initialised group) and on the simulated step (in this
+    process): losses equal, the state bitwise (:func:`state_mismatches`),
+    and the test evaluations equal. Raises ``AssertionError`` on a
+    difference; returns the losses, step times, metrics and the trainers."""
+    from repro_torch.training import KGETrainer
+
+    real = KGETrainer(splits, dataclasses.replace(cfg, spmd=True),
+                      device=device)
+    sim = KGETrainer(splits, dataclasses.replace(
+        cfg, spmd=False, gather_exchange=None), device=device)
+    if real.mesh is None:
+        raise AssertionError("spmd=True built no process mesh")
+    out = {"real": run_steps(real, steps), "sim": run_steps(sim, steps)}
+    for tr in (real, sim):
+        tr.close()
+    bad = state_mismatches(real, sim)
+    if out["real"]["losses"] != out["sim"]["losses"] or bad:
+        raise AssertionError(
+            f"real != simulated step: losses {out['real']['losses']} vs "
+            f"{out['sim']['losses']}, state {bad}")
+    out["metrics"] = real.evaluate("test")
+    sim_metrics = sim.evaluate("test")
+    if out["metrics"] != sim_metrics:
+        raise AssertionError(f"spmd evaluation {out['metrics']} != "
+                             f"simulated {sim_metrics}")
+    out["trainers"] = (real, sim)
+    return out
+
+
+def compare_rank_steps(real, sim, num_candidates: int = 50,
+                       seed: int = 0) -> Dict:
+    """``make_sharded_rank_step`` on ``real``'s model axis against the
+    simulated sharded ranking of ``sim``'s embeddings, in both protocols
+    (the candidate lists drawn from ``numpy.random.default_rng(seed)``),
+    at both table dtypes: the metrics equal. Returns them."""
+    from repro_torch.eval.ranking import CSRFilterIndex
+    from repro_torch.eval.sharded import (
+        make_sharded_rank_step, sharded_ranking_metrics,
+    )
+    axis = real.mesh.model_axis
+    emb = sim.encode_all_entities()
+    dparams = {k: v.detach() for k, v in sim.params["decoder"].items()}
+    splits = sim.splits
+    test = splits["test"].triplets()
+    fidx = CSRFilterIndex.build([splits[k].with_inverse_relations()
+                                 for k in ("train", "valid", "test")])
+    cands = np.random.default_rng(seed).integers(
+        0, emb.shape[0], (test.shape[0], num_candidates)).astype(np.int32)
+    out = {}
+    for protocol, extra in (("all-entities", {}),
+                            ("candidates", {"candidates": cands})):
+        step = make_sharded_rank_step(axis, decoder=sim.cfg.decoder,
+                                      protocol=protocol)
+        for dtype in ("fp32", "int8"):
+            kw = dict(decoder=sim.cfg.decoder, table_dtype=dtype, **extra)
+            got = sharded_ranking_metrics(emb, dparams, test, fidx,
+                                          axis.size, rank_step=step, **kw)
+            want = sharded_ranking_metrics(emb, dparams, test, fidx,
+                                           axis.size, **kw)
+            if got != want:
+                raise AssertionError(f"rank step {protocol} {dtype}: {got} "
+                                     f"!= simulated {want}")
+            out[f"{protocol}_{dtype}"] = got
+    return out
+
+
+def cli_lines(argv: Sequence[str]) -> List[str]:
+    """The loss and metric lines ``launch.train`` prints for ``argv`` (the
+    times cut out); this rank prints them only if it is rank 0."""
+    from repro_torch.launch import train as train_cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(list(argv))
+    return [re.sub(r" t=.*", "", line) for line in buf.getvalue().splitlines()
+            if "loss=" in line or line.startswith("[eval] {")]
+
+
+def check_all(device: torch.device, table_shards: int, cli: bool) -> Dict:
+    """Every case of this module on the initialised process group."""
+    from repro_torch.data import synthetic_fb15k
+    from repro_torch.training import TrainConfig
+
+    splits = synthetic_fb15k(scale=0.01, seed=3)
+    base = TrainConfig(num_trainers=4, hidden_dim=8, batch_size=256,
+                       epochs=1, seed=0, num_table_shards=table_shards)
+    cases = {}
+    for dtype in ("fp32", "int8"):
+        exchanges = SPMD_EXCHANGES
+        if dtype == "fp32" and table_shards == 1:
+            exchanges = (None,)          # a dense table has no exchange
+        for ex in exchanges:
+            cfg = dataclasses.replace(base, table_dtype=dtype,
+                                      gather_exchange=ex)
+            res = compare_training(splits, cfg, device)
+            cases[f"minibatch_{dtype}_{ex}"] = res["real"]["losses"]
+    res = compare_training(splits, dataclasses.replace(
+        base, batch_size=None, use_kernel=True), device)
+    cases["fullgraph_fp32_kernel"] = res["real"]["losses"]
+    cases["rank_steps"] = compare_rank_steps(*res["trainers"])
+    if cli:
+        argv = ["--device", device.type, "--arch", "rgcn-fb15k237",
+                "--scale", "0.01", "--trainers", "2", "--batch-size", "64",
+                "--table-shards", str(table_shards), "--hidden-dim", "8",
+                "--epochs", "1"]
+        real, sim = cli_lines(argv + ["--spmd"]), cli_lines(
+            argv + ["--no-spmd"])
+        if real != sim:
+            raise AssertionError(f"CLI --spmd {real} != --no-spmd {sim}")
+        cases["cli"] = real
+    return cases
+
+
+def train_from(directory: str, device: torch.device) -> Dict:
+    """The cases of ``directory/config.json`` (``{"data": synthetic_fb15k
+    arguments, "cases": {label: TrainConfig fields}}``), each trained one
+    epoch on the multi-process step from the parameters in
+    ``directory/{label}_init.npz`` (flat, the port's names, the entity
+    table whole), with fresh Adam moments. This rank's parameters after
+    the epoch go to ``directory/{label}_rank{rank}.npz``. Returns each
+    case's epoch loss and batch count. The initial parameters come from
+    another implementation (the reference's trainer, in its test), which
+    then holds the results within its tolerance."""
+    from repro_torch import convert
+    from repro_torch.data import synthetic_fb15k
+    from repro_torch.launch.mesh import place_row_blocks
+    from repro_torch.training import KGETrainer, TrainConfig
+
+    with open(os.path.join(directory, "config.json")) as f:
+        spec = json.load(f)
+    splits = synthetic_fb15k(**spec["data"])
+    out = {}
+    for label, fields in spec["cases"].items():
+        tr = KGETrainer(splits, TrainConfig(**fields), device=device)
+        if tr.mesh is None:
+            raise AssertionError(f"{label}: no process mesh")
+        with np.load(os.path.join(directory, f"{label}_init.npz")) as z:
+            tr.params = convert.kge_model_from_jax(dict(z), tr.kge_cfg,
+                                                   device=device)
+        place_row_blocks(tr.params, tr.param_specs, tr.mesh)
+        tr.opt_state = tr.optimizer.init(
+            {n: p.detach() for n, p in tr.params.named_parameters()})
+        rec = tr.train_epoch()
+        tr.close()
+        np.savez(os.path.join(directory, f"{label}_rank{dist.get_rank()}"),
+                 **{n: p.detach().cpu().numpy()
+                    for n, p in tr.params.named_parameters()})
+        out[label] = {"loss": rec["loss"], "num_batches": rec["num_batches"]}
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--init-method", default="env://")
+    ap.add_argument("--world-size", type=int, default=None)
+    ap.add_argument("--rank", type=int, default=None)
+    ap.add_argument("--table-shards", type=int, default=1)
+    ap.add_argument("--cli", action="store_true",
+                    help="also hold launch.train --spmd against --no-spmd")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--train-from", metavar="DIR", default=None,
+                    help="instead of the checks, train the cases of "
+                         "DIR/config.json from given parameters "
+                         "(train_from)")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        local = os.environ.get("LOCAL_RANK", args.rank or 0)
+        device = torch.device("cuda", int(local) % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    kw = {} if args.world_size is None else dict(
+        world_size=args.world_size, rank=args.rank)
+    dist.init_process_group(backend_for(device),
+                            init_method=args.init_method, **kw)
+    try:
+        cases = (train_from(args.train_from, device) if args.train_from
+                 else check_all(device, args.table_shards, args.cli))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    print("SPMD_CHECK_OK " + json.dumps(
+        {"rank": args.rank, "world": args.world_size,
+         "table_shards": args.table_shards, "cases": cases}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

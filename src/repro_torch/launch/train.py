@@ -9,11 +9,20 @@ entity table (the simulated exchange, ``--gather-exchange fused`` or
 ``masked_sum``; ``--gather-dedup`` dedupes mini-batch gather plans), and
 the ranking is then sharded over its row blocks. ``--table-dtype int8``
 trains the fp32 master through the quantized gather and ranks over the
-int8 table (sharded ranking, one shard included). The flags are the
-reference's, plus ``--device`` (default ``cuda``; ``cpu`` runs the
-kernels' plain versions). ``--arch rgcn-citation2`` (feature-mode
-mini-batches), the LM architectures, and the reference's options the port
-has not reached raise ``NotImplementedError`` naming their ROADMAP item.
+int8 table (sharded ranking, one shard included). ``--arch
+rgcn-citation2`` trains the ogbl-citation2 stand-in in feature mode
+(128-d input features, edge mini-batches of 4,096 unless ``--batch-size``
+says otherwise; a sharded or int8 table is refused, as the reference
+refuses it). The flags are the reference's, plus ``--device`` (default
+``cuda``; ``cpu`` runs the kernels' plain versions). The LM architectures
+raise ``NotImplementedError`` naming their ROADMAP item.
+
+Under ``torchrun`` every rank runs this module: it joins the process group
+torchrun describes (NCCL on ``cuda``, one card per rank, gloo on
+``cpu``), and with more than one rank, or with ``--spmd``, trains on the
+multi-process step over a ``data`` × ``model`` process mesh (model axis
+``--table-shards``, ``--gather-exchange psum_scatter`` (default), ``psum``
+or ``alltoall``), bitwise the simulated step. Only rank 0 prints.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch rgcn-fb15k237 \\
@@ -27,15 +36,26 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch rgcn-fb15k237 \
       --scale 1.0 --trainers 4 --batch-size 4096 --table-shards 4 \
       --table-dtype int8 --use-kernel --epochs 1
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch rgcn-citation2 --scale 0.0003 --trainers 2 --epochs 1 \
+      --hidden-dim 8 --batch-size 256
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --device cpu --spmd --arch rgcn-fb15k237 --scale 0.01 --trainers 2 \
+      --batch-size 64 --table-shards 2 --hidden-dim 8 --epochs 1
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 from repro_torch.roadmap import not_ported
+
+# --arch -> the dataset it trains on (the reference's two KGE settings)
+DATASETS = {"rgcn-fb15k237": "fb15k-237", "rgcn-citation2": "ogbl-citation2"}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -60,21 +80,24 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="row-shard the entity table over this many "
                          "shards (1 = dense)")
     ap.add_argument("--sharded-transfer", action="store_true",
-                    help="per-device batch placement (not ported: raises)")
+                    help="copy each batch per rank of the mesh (always on "
+                         "under --spmd; on the simulated step the 1 x 1 "
+                         "mesh, bitwise the plain copy)")
     ap.add_argument("--gather-dedup", action="store_true",
                     help="dedupe sharded-gather plans per trainer row in "
                          "the collator (bitwise-identical output)")
     ap.add_argument("--spmd", action=argparse.BooleanOptionalAction,
                     default=None,
-                    help="the multi-device step (not ported: --spmd "
-                         "raises; the default and --no-spmd run the "
-                         "simulated step)")
+                    help="the multi-process step over torch.distributed "
+                         "(run under torchrun; default: on when there is "
+                         "more than one rank and the mesh fits; --no-spmd "
+                         "keeps the simulated step)")
     ap.add_argument("--gather-exchange", default=None,
                     choices=("fused", "masked_sum", "psum", "psum_scatter",
                              "alltoall"),
-                    help="sharded-gather exchange layout (default fused; "
-                         "the spmd layouts need the multi-process step, "
-                         "not ported)")
+                    help="sharded-gather exchange layout (simulated step: "
+                         "fused (default) or masked_sum; multi-process "
+                         "step: psum_scatter (default), psum or alltoall)")
     ap.add_argument("--table-dtype", default="fp32",
                     choices=("fp32", "int8"),
                     help="entity-table storage: int8 keeps the fp32 "
@@ -100,19 +123,20 @@ def make_trainer(args: argparse.Namespace):
     """The ``KGETrainer`` the CLI trains for ``args`` (raises
     ``NotImplementedError`` for the architectures the port has not
     reached)."""
-    if args.arch == "rgcn-citation2":
-        raise not_ported("--arch rgcn-citation2 (feature-mode edge "
-                         "mini-batches)", "citation2")
-    if args.arch != "rgcn-fb15k237":
+    if args.arch not in DATASETS:
         raise not_ported(f"--arch {args.arch} (LM training)", "lm_train")
 
-    from repro_torch.configs import RGCN_FB15K237
+    from repro_torch import configs
     from repro_torch.data import load_or_synthesize
     from repro_torch.training import KGETrainer
 
+    name = DATASETS[args.arch]
+    base = (configs.RGCN_FB15K237 if name == "fb15k-237"
+            else configs.RGCN_CITATION2)
     cfg = dataclasses.replace(
-        RGCN_FB15K237, num_trainers=args.trainers, epochs=args.epochs,
-        batch_size=args.batch_size if args.batch_size > 0 else None,
+        base, num_trainers=args.trainers, epochs=args.epochs,
+        batch_size=args.batch_size if args.batch_size > 0 else
+        (None if name == "fb15k-237" else 4096),
         strategy=args.strategy, use_kernel=args.use_kernel,
         pipeline=args.pipeline, prefetch=args.prefetch,
         num_table_shards=args.table_shards,
@@ -122,15 +146,41 @@ def make_trainer(args: argparse.Namespace):
         table_dtype=args.table_dtype, spmd=args.spmd,
         decoder=args.decoder, num_negatives=args.num_negatives,
         **({"hidden_dim": args.hidden_dim} if args.hidden_dim > 0 else {}))
-    splits = load_or_synthesize("fb15k-237", data_root=args.data_root,
+    splits = load_or_synthesize(name, data_root=args.data_root,
                                 scale=args.scale)
     return KGETrainer(splits, cfg, device=args.device)
 
 
-def run(args: argparse.Namespace) -> Dict:
+@contextlib.contextmanager
+def process_group(device: str) -> Iterator[int]:
+    """Join the process group ``torchrun`` describes in the environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``), on the backend of
+    ``device``, one card per rank (``LOCAL_RANK``) on ``cuda``, and leave
+    it at the end; yields this process's rank (0 outside ``torchrun``, or
+    when the caller already joined a group, which is left as it is)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import backend_for
+
+    launched = all(k in os.environ for k in ("RANK", "WORLD_SIZE",
+                                             "MASTER_ADDR"))
+    if dist.is_initialized() or not launched:
+        yield dist.get_rank() if dist.is_initialized() else 0
+        return
+    if device == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group(backend_for(torch.device(device)))
+    try:
+        yield dist.get_rank()
+    finally:
+        dist.destroy_process_group()
+
+
+def run(args: argparse.Namespace, verbose: bool = True) -> Dict:
     """Train, then evaluate on the test split; prints the reference's
-    per-epoch and ``[eval]`` lines. Returns the trainer, the per-epoch
-    history and the test metrics."""
+    per-epoch and ``[eval]`` lines (``verbose``: on rank 0 only). Returns
+    the trainer, the per-epoch history and the test metrics."""
+    say = print if verbose else (lambda *a, **k: None)
     trainer = make_trainer(args)
     cfg, splits = trainer.cfg, trainer.splits
     pipe = ("full-graph (resident batch)" if cfg.batch_size is None
@@ -141,21 +191,23 @@ def run(args: argparse.Namespace) -> Dict:
         pipe += f", {cfg.gather_exchange} exchange"
     if cfg.table_dtype != "fp32":
         pipe += f", {cfg.table_dtype} table"
-    print(f"[train] fb15k-237: {splits['train'].num_edges} train edges, "
-          f"{splits['train'].num_entities} entities; "
-          f"{cfg.decoder} decoder, {cfg.num_negatives} negatives/edge; "
-          f"{cfg.num_trainers} trainers ({cfg.strategy}, {pipe}, "
-          f"{cfg.num_table_shards}-shard entity table); d={cfg.hidden_dim}, "
-          f"{'kernel' if cfg.use_kernel else 'plain'} message passing on "
-          f"{args.device}", flush=True)
+    say(f"[train] {DATASETS[args.arch]}: {splits['train'].num_edges} "
+        f"train edges, {splits['train'].num_entities} entities; "
+        f"{cfg.decoder} decoder, {cfg.num_negatives} negatives/edge; "
+        f"{cfg.num_trainers} trainers ({cfg.strategy}, {pipe}, "
+        f"{cfg.num_table_shards}-shard entity table); d={cfg.hidden_dim}, "
+        f"{'kernel' if cfg.use_kernel else 'plain'} message passing on "
+        f"{args.device}", flush=True)
     pad, budget = trainer.padded, trainer.budget
     shape = (f"padded partitions V={pad.padded_vertices} "
              f"E={pad.padded_edges}" if budget is None else
              f"mini-batch budgets V={budget.max_vertices} "
              f"E={budget.max_edges} T={budget.max_triplets}")
-    print(f"[train] simulated step; RF={trainer.replication_factor:.2f}; "
-          f"{shape}", flush=True)
-    history = trainer.fit(log_fn=lambda r: print(
+    step = ("simulated step" if trainer.mesh is None else
+            f"spmd step on a {trainer.mesh.shape} process mesh")
+    say(f"[train] {step}; RF={trainer.replication_factor:.2f}; {shape}",
+        flush=True)
+    history = trainer.fit(log_fn=lambda r: say(
         f"  epoch {r['epoch']:3d} loss={r['loss']:.4f} "
         f"t={r['t_epoch']:.2f}s (host exposed "
         f"{r['t_get_compute_graph']:.2f}s of {r['t_host_build']:.2f}s, "
@@ -163,20 +215,24 @@ def run(args: argparse.Namespace) -> Dict:
     trainer.close()
     t0 = time.perf_counter()
     metrics = trainer.evaluate("test")
-    rank_mode = (f"{cfg.num_table_shards}-shard ranking"
-                 if cfg.num_table_shards > 1 or cfg.table_dtype != "fp32"
-                 else "dense ranking")
+    shards = (cfg.num_table_shards if trainer.mesh is None
+              else trainer.mesh.model)
+    rank_mode = (f"{shards}-shard ranking"
+                 if shards > 1 or cfg.table_dtype != "fp32"
+                 or trainer.mesh is not None else "dense ranking")
     if cfg.table_dtype != "fp32":
         rank_mode += f" over the {cfg.table_dtype} table"
-    print(f"[eval] {cfg.decoder} decoder, {rank_mode}, "
-          f"{len(trainer.partitions)}-partition streamed encode, "
-          f"{time.perf_counter() - t0:.2f}s")
-    print("[eval]", metrics, flush=True)
+    say(f"[eval] {cfg.decoder} decoder, {rank_mode}, "
+        f"{len(trainer.partitions)}-partition streamed encode, "
+        f"{time.perf_counter() - t0:.2f}s")
+    say("[eval]", metrics, flush=True)
     return {"trainer": trainer, "history": history, "metrics": metrics}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
-    return run(parse_args(argv))
+    args = parse_args(argv)
+    with process_group(args.device) as rank:
+        return run(args, verbose=rank == 0)
 
 
 if __name__ == "__main__":

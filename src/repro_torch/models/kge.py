@@ -39,7 +39,7 @@ from repro_torch.models.rgcn import (
     rgcn_layers,
 )
 from repro_torch.sharding.embedding import (
-    ShardedTableLayout, plan_local_gather_device, shard_table,
+    ModelAxis, ShardedTableLayout, plan_local_gather_device, shard_table,
     sharded_gather,
 )
 
@@ -124,7 +124,8 @@ def vertex_input(params: Mapping, cfg: KGEConfig,
                  shard_local_ids: Optional[torch.Tensor] = None,
                  shard_owned: Optional[torch.Tensor] = None,
                  shard_inverse: Optional[torch.Tensor] = None,
-                 plans: Optional[Mapping[str, torch.Tensor]] = None
+                 plans: Optional[Mapping[str, torch.Tensor]] = None,
+                 model_axis: Optional[ModelAxis] = None
                  ) -> torch.Tensor:
     """The per-vertex model input: learned embedding rows (transductive)
     or precomputed features (ogbl-citation2 style).
@@ -146,7 +147,12 @@ def vertex_input(params: Mapping, cfg: KGEConfig,
     ``plans`` may hold the packed scatter plan of the table's gradient
     (``plan_table``: into the table's rows, the flat ``S·rows`` of a
     stacked one), as the resident full-graph batch carries a dense
-    table's."""
+    table's.
+
+    ``model_axis`` (the multi-process step): a stacked table is this
+    rank's ``(1, rows, d)`` row block, and the gather is the real exchange
+    over the axis (``sharding.embedding.exchanged_gather``), bitwise the
+    simulated one."""
     plans = plans or {}
 
     def table_plan(rows):
@@ -159,15 +165,18 @@ def vertex_input(params: Mapping, cfg: KGEConfig,
         if table.dim() == 2 and table_dtype == "int8":
             table = table[None]
         if table.dim() == 3:
+            shards = table.shape[0] if model_axis is None else \
+                model_axis.size
             if shard_local_ids is None:
                 shard_local_ids, shard_owned = plan_local_gather_device(
-                    table.shape[0], table.shape[1], gather_global)
+                    shards, table.shape[1], gather_global)
             return sharded_gather(table, shard_local_ids, shard_owned,
                                   exchange=cfg.rgcn.gather_exchange,
                                   inverse=shard_inverse, check=False,
                                   table_dtype=table_dtype,
                                   plan=table_plan(table.shape[0] *
-                                                  table.shape[1]))
+                                                  table.shape[1]),
+                                  axis=model_axis)
         return gather_rows(table, gather_global,
                            table_plan(table.shape[0]))
     if features is None:
@@ -181,11 +190,12 @@ def _masked(x: torch.Tensor, vertex_mask: torch.Tensor) -> torch.Tensor:
 
 def _encode(params: Mapping, cfg: KGEConfig, part: Mapping[str, torch.Tensor],
             features: Optional[torch.Tensor],
-            generator: Optional[torch.Generator], train: bool
-            ) -> torch.Tensor:
+            generator: Optional[torch.Generator], train: bool,
+            model_axis: Optional[ModelAxis] = None) -> torch.Tensor:
     x = vertex_input(params, cfg, part["local_to_global"], features,
                      part.get("shard_local_ids"), part.get("shard_owned"),
-                     part.get("shard_inverse"), plans=part)
+                     part.get("shard_inverse"), plans=part,
+                     model_axis=model_axis)
     edges = (part["src"], part["rel"], part["dst"], part["edge_mask"])
     return rgcn_encode(params, cfg.rgcn, _masked(x, part["vertex_mask"]),
                        *edges, dropout_generator=generator, train=train,
@@ -199,7 +209,8 @@ def _encode(params: Mapping, cfg: KGEConfig, part: Mapping[str, torch.Tensor],
 def minibatch_loss(params: Mapping, cfg: KGEConfig,
                    batch: Mapping[str, torch.Tensor],
                    features: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   model_axis: Optional[ModelAxis] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss on one padded ``EdgeMiniBatch`` (fields as tensors; batches
     of a sharded-table pipeline also carry their gather plan). Dropout is
@@ -207,10 +218,11 @@ def minibatch_loss(params: Mapping, cfg: KGEConfig,
     Scatter plans a batch carries (``plan_src``, ``plan_dst``,
     ``plan_rel``, ``plan_table``) are used; the pipelines ship none, so
     the step builds each at first use (chip_smoke.py phase 6b times
-    both)."""
+    both). ``model_axis`` as in :func:`vertex_input`."""
     x = vertex_input(params, cfg, batch["gather_global"], features,
                      batch.get("shard_local_ids"), batch.get("shard_owned"),
-                     batch.get("shard_inverse"), plans=batch)
+                     batch.get("shard_inverse"), plans=batch,
+                     model_axis=model_axis)
     edges = (batch["comp_src"], batch["comp_rel"], batch["comp_dst"],
              batch["comp_mask"])
     h = rgcn_encode(params, cfg.rgcn, _masked(x, batch["vertex_mask"]),
@@ -263,11 +275,13 @@ def fullgraph_scored_loss(params: Mapping, cfg: KGEConfig,
                           neg: torch.Tensor,
                           generator: Optional[torch.Generator] = None,
                           features: Optional[torch.Tensor] = None,
-                          train: bool = True
+                          train: bool = True,
+                          model_axis: Optional[ModelAxis] = None
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Encode the partition (dropout drawn from ``generator`` when
-    training), score its core edges and the given negatives, BCE loss."""
-    h = _encode(params, cfg, part, features, generator, train)
+    training), score its core edges and the given negatives, BCE loss.
+    ``model_axis`` as in :func:`vertex_input`."""
+    h = _encode(params, cfg, part, features, generator, train, model_axis)
     trip, labels = mix_pos_neg(positive_triplets(part), neg)
     core = part["core_edge_mask"].to(torch.float32)
     mask = torch.cat([core] * (1 + cfg.num_negatives))
@@ -280,18 +294,20 @@ def fullgraph_loss(params: Mapping, cfg: KGEConfig,
                    part: Mapping[str, torch.Tensor],
                    generator: torch.Generator,
                    features: Optional[torch.Tensor] = None,
-                   train: bool = True
+                   train: bool = True,
+                   model_axis: Optional[ModelAxis] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-edge-batch loss on one padded partition: negatives first, then
     dropout, both from ``generator``."""
     neg = fullgraph_negatives(cfg, part, generator)
     return fullgraph_scored_loss(params, cfg, part, neg, generator,
-                                 features, train)
+                                 features, train, model_axis)
 
 
 def encode_partition(params: Mapping, cfg: KGEConfig,
                      part: Mapping[str, torch.Tensor],
-                     features: Optional[torch.Tensor] = None
+                     features: Optional[torch.Tensor] = None,
+                     model_axis: Optional[ModelAxis] = None
                      ) -> torch.Tensor:
     """Embed every local vertex of a partition (evaluation: no dropout)."""
-    return _encode(params, cfg, part, features, None, False)
+    return _encode(params, cfg, part, features, None, False, model_axis)

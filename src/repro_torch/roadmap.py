@@ -7,11 +7,8 @@ item, instead of silently doing something else.
 from __future__ import annotations
 
 ITEMS = {
-    "spmd": "ROADMAP Queue 1 item 2: the multi-process step over "
-            "torch.distributed",
-    "citation2": "ROADMAP Queue 1 item 4: feature-mode mini-batch training "
-                 "(--arch rgcn-citation2) and the ogbl candidate-list "
-                 "ranking protocol",
+    "spmd_checkpoint": "ROADMAP Queue 1 item 2b: checkpoints of the "
+                       "multi-process step",
     "lm_train": "ROADMAP Queue 1 item 7a: LM training (loss_fn, "
                 "make_train_step, train_lm, TokenStream and the WKV "
                 "backward)",

@@ -1,5 +1,5 @@
-"""Row-sharded embedding tables, the host side and the simulated
-exchange (port of the single-device part of
+"""Row-sharded embedding tables: the host side, the simulated exchange
+and the exchanges of the multi-process step (port of
 ``repro/sharding/embedding.py``).
 
 * ``ShardedTableLayout`` — ``num_rows`` logical rows in ``num_shards``
@@ -23,6 +23,18 @@ exchange (port of the single-device part of
   ``table[ids]`` gather, and their gradients bitwise the dense gather's:
   every backward is ``scatter_add_onehot`` over the same slots in the
   same order.
+* ``sharded_gather`` with a :class:`ModelAxis` — the real exchange of the
+  multi-process step (``SPMD_EXCHANGES``): each rank of the model axis
+  holds its ``(1, rows, d)`` row block, gathers its owned rows (the fused
+  gather, unowned slots 0) and the ranks exchange over ``torch.distributed``:
+  ``"psum"`` is one ``all_reduce``, ``"psum_scatter"`` (default) a
+  ``reduce_scatter`` of row chunks then an ``all_gather``, ``"alltoall"``
+  an ``all_to_all`` of row chunks, a local sum, then an ``all_gather``.
+  Every slot is one real value plus zeros, so each is bitwise the
+  simulated gather. The backward is the identity (the loss downstream is
+  the same on every rank of the axis), so each rank scatter-adds the
+  cotangents into its own rows only. An int8 table sends int8 codes and
+  fp32 scales through the same collective and dequantizes after it.
 * ``QuantizedTableLayout`` / ``quantize_rows`` / ``dequantize_rows`` —
   the int8 table (``table_dtype="int8"``): int8 codes in ``[-127, 127]``
   plus one fp32 scale per row, the smallest power of two ``>= amax / 127``
@@ -38,10 +50,11 @@ exchange (port of the single-device part of
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 TABLE_DTYPES = ("fp32", "int8")
 INT8_QMAX = 127          # symmetric code range [-127, 127]
@@ -362,6 +375,12 @@ class ShardedGatherPlan:
 # Simulated exchange
 # ---------------------------------------------------------------------- #
 SIM_EXCHANGES = ("fused", "masked_sum")
+SPMD_EXCHANGES = ("psum_scatter", "psum", "alltoall")
+
+# batch keys carrying the stacked (P, S, V_b) gather plan: the per-rank
+# transfer (``data.pipeline.BatchShardings``) sends each rank its own
+# (data, model) block of them
+PLAN_BATCH_KEYS = ("shard_local_ids", "shard_owned")
 
 
 def sharded_dequant_gather(codes: torch.Tensor, scales: torch.Tensor,
@@ -387,7 +406,8 @@ def sharded_dequant_gather(codes: torch.Tensor, scales: torch.Tensor,
 def sharded_gather(table: torch.Tensor, local_ids, owned, *,
                    exchange: Optional[str] = None,
                    inverse=None, check: bool = True,
-                   table_dtype: str = "fp32", plan=None) -> torch.Tensor:
+                   table_dtype: str = "fp32", plan=None,
+                   axis: Optional["ModelAxis"] = None) -> torch.Tensor:
     """Gather ``(V, d)`` rows from the ``(S, rows, d)`` stack with an
     ``(S, V)`` plan (numpy arrays or tensors), bitwise the dense
     ``table[ids]`` gather, differentiable in ``table``.
@@ -411,7 +431,13 @@ def sharded_gather(table: torch.Tensor, local_ids, owned, *,
     (``kernels.rgcn_message.SegmentPlan``) when the caller has it: of the
     flat rows and ownership into the ``S·rows`` stacked rows (the fused
     exchange and int8; the masked-sum chain plans shard by shard
-    itself)."""
+    itself).
+
+    With ``axis`` (inside the multi-process step) ``table`` is this rank's
+    ``(1, rows, d)`` block, the plan the whole ``(S, V)`` one (this rank's
+    row is taken) or this rank's ``(1, V)`` block, and ``exchange`` one of
+    ``SPMD_EXCHANGES`` (default ``"psum_scatter"``); see
+    :func:`exchanged_gather`."""
     from repro_torch.kernels.ops import (
         fused_sharded_gather, gather_rows, masked_take,
         quantized_sharded_gather,
@@ -420,12 +446,19 @@ def sharded_gather(table: torch.Tensor, local_ids, owned, *,
     if table_dtype not in TABLE_DTYPES:
         raise ValueError(
             f"unknown table_dtype {table_dtype!r}: one of {TABLE_DTYPES}")
+    # a plan is resolved where it lies (the host, for numpy plans)
+    local_ids, owned = torch.as_tensor(local_ids), torch.as_tensor(owned)
+    if axis is not None:
+        out = exchanged_gather(table, local_ids, owned, axis,
+                               exchange=exchange, check=check,
+                               table_dtype=table_dtype, plan=plan)
+        if inverse is None:
+            return out
+        return gather_rows(out, torch.as_tensor(inverse).to(out.device))
     exchange = exchange or "fused"
     if exchange not in SIM_EXCHANGES:
         raise ValueError(
             f"unknown sim exchange {exchange!r}: one of {SIM_EXCHANGES}")
-    # a plan is resolved where it lies (the host, for numpy plans)
-    local_ids, owned = torch.as_tensor(local_ids), torch.as_tensor(owned)
     if table_dtype == "int8":
         out = quantized_sharded_gather(table, local_ids, owned, check=check,
                                        plan=plan)
@@ -442,3 +475,138 @@ def sharded_gather(table: torch.Tensor, local_ids, owned, *,
     if inverse is None:
         return out
     return gather_rows(out, torch.as_tensor(inverse).to(out.device))
+
+
+# ---------------------------------------------------------------------- #
+# The exchanges of the multi-process step
+# ---------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """This rank's place on the model axis of a process mesh
+    (``repro_torch.launch.mesh.ProcessMesh.model_axis``): the process
+    group of the ranks that hold the table's row blocks side by side, this
+    rank's index in it (the row block it holds) and its size."""
+
+    group: Any
+    index: int
+    size: int
+
+
+def exchange_rows(x: torch.Tensor, axis: ModelAxis,
+                  exchange: str) -> torch.Tensor:
+    """Sum ``x`` (``(V, ...)``, each slot nonzero on at most one rank)
+    over the model axis with the ``exchange`` layout; every rank gets the
+    whole sum. ``psum_scatter`` and ``alltoall`` move row chunks, so ``V``
+    is padded to a multiple of the axis size and the padding cut off
+    after. Sums of int8 codes stay int8 (one code plus zeros)."""
+    v = x.shape[0]
+    if exchange == "psum":
+        out = x.clone()
+        dist.all_reduce(out, group=axis.group)
+        return out
+    s = axis.size
+    pad = -v % s
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+    x = x.contiguous()
+    chunk = x.shape[0] // s
+    if exchange == "psum_scatter":
+        part = x.new_empty((chunk,) + x.shape[1:])
+        dist.reduce_scatter_tensor(part, x, group=axis.group)
+    elif exchange == "alltoall":
+        pieces = torch.empty_like(x)
+        dist.all_to_all_single(pieces, x, group=axis.group)
+        part = pieces.reshape((s, chunk) + x.shape[1:]).sum(0, dtype=x.dtype)
+    else:
+        raise ValueError(f"unknown spmd exchange {exchange!r}: one of "
+                         f"{SPMD_EXCHANGES}")
+    out = torch.empty_like(x)
+    dist.all_gather_into_tensor(out, part, group=axis.group)
+    return out[:v]
+
+
+class _Exchange(torch.autograd.Function):
+    """:func:`exchange_rows` with the identity as its backward: the loss
+    after the exchange is the same on every rank of the axis, so each
+    rank's cotangent already is the whole cotangent (the collective's own
+    transpose would sum the S copies and scale the gradient by S)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, exchange):
+        return exchange_rows(x, axis, exchange)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _QuantizedExchange(torch.autograd.Function):
+    """The int8 table's exchange from the fp32 master block ``(rows, d)``:
+    quantize it row-wise, gather the owned slots' int8 codes and fp32
+    scales (0 elsewhere), send both through the exchange and dequantize
+    after it, one exact product per element, so the rows are bitwise the
+    fp32 exchange over the dequantized master. Backward: the
+    straight-through scatter-add of the cotangents into the master rows,
+    the fp32 path's."""
+
+    @staticmethod
+    def forward(ctx, block, flat, any_owned, axis, exchange, plan):
+        ctx.rows, ctx.plan = block.shape[0], plan
+        ctx.save_for_backward(flat, any_owned)
+        codes, scales = quantize_rows(block)
+        c = torch.where(any_owned[:, None], codes[flat],
+                        torch.zeros((), dtype=codes.dtype,
+                                    device=codes.device))
+        sc = torch.where(any_owned, scales[flat],
+                         torch.zeros((), device=scales.device))
+        c, sc = exchange_rows(c, axis, exchange), exchange_rows(
+            sc, axis, exchange)
+        return dequantize_rows(c, sc)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels.sharded_gather import scatter_add_onehot
+        flat, any_owned = ctx.saved_tensors
+        return (scatter_add_onehot(g.contiguous(), flat, any_owned,
+                                   ctx.rows, plan=ctx.plan),
+                None, None, None, None, None)
+
+
+def exchanged_gather(table: torch.Tensor, local_ids: torch.Tensor,
+                     owned: torch.Tensor, axis: ModelAxis, *,
+                     exchange: Optional[str] = None, check: bool = True,
+                     table_dtype: str = "fp32", plan=None) -> torch.Tensor:
+    """The multi-process twin of the fused gather: ``(V, d)`` rows, every
+    rank of ``axis`` holding its ``(1, rows, d)`` block of the table and
+    the ``(S, V)`` plan (or its own ``(1, V)`` row of it). Each rank
+    gathers the slots it owns (``fused_sharded_gather``, zeros elsewhere;
+    for int8 the codes and scales) and :func:`exchange_rows` sums them
+    over the axis; each slot is then its owner's row, bitwise the
+    simulated gather. Differentiable in ``table``: the identity backward
+    of the exchange, then the gather's scatter-add into this rank's rows,
+    over ``plan`` when given (of this rank's flat rows and ownership)."""
+    from repro_torch.kernels.ops import flat_gather_plan, fused_sharded_gather
+
+    exchange = exchange or "psum_scatter"
+    if exchange not in SPMD_EXCHANGES:
+        raise ValueError(f"unknown spmd exchange {exchange!r}: one of "
+                         f"{SPMD_EXCHANGES}")
+    if table.dim() != 3 or table.shape[0] != 1:
+        raise ValueError(
+            f"the multi-process gather expects this rank's (1, rows, d) "
+            f"row block, got {tuple(table.shape)}")
+    if local_ids.shape[0] != 1:
+        if local_ids.shape[0] != axis.size:
+            raise ValueError(f"a plan of {local_ids.shape[0]} shards on a "
+                             f"model axis of {axis.size} ranks")
+        local_ids = local_ids[axis.index:axis.index + 1]
+        owned = owned[axis.index:axis.index + 1]
+    if table_dtype == "int8":
+        rows = table.shape[1]
+        flat, any_owned = flat_gather_plan(local_ids, owned, rows)
+        return _QuantizedExchange.apply(
+            table[0], flat.to(table.device), any_owned.to(table.device),
+            axis, exchange, plan)
+    x = fused_sharded_gather(table, local_ids, owned, check=check,
+                             plan=plan)
+    return _Exchange.apply(x, axis, exchange)

@@ -8,7 +8,10 @@ into the global embedding matrix. Core vertices carry their full
 invariant), so the streamed embeddings equal a full-graph encode. With a
 row-sharded entity table the encoder gathers through the in-graph plan.
 Ranking then goes through ``repro_torch.eval.ranking``: dense, or sharded
-over the table's row blocks when the table is sharded or int8.
+over the table's row blocks when the table is sharded or int8. Under the
+multi-process step (``model_axis``) every rank encodes with its own row
+block through the real exchange and ranks its own block
+(``eval.sharded.make_sharded_rank_step``).
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ from repro_torch.core.expansion import (
 )
 from repro_torch.data.pipeline import eval_partition_batches
 from repro_torch.eval.ranking import evaluate_both_directions
+from repro_torch.eval.sharded import make_sharded_rank_step
 from repro_torch.models.kge import KGEConfig, encode_partition
+from repro_torch.sharding.embedding import ModelAxis
 
 
 def _device_of(params: Mapping) -> torch.device:
@@ -40,12 +45,15 @@ def encode_all_entities(
     features: Optional[torch.Tensor] = None,
     partitions: Optional[Sequence[SelfSufficientPartition]] = None,
     padded: Optional[PaddedPartitionBatch] = None,
+    model_axis: Optional[ModelAxis] = None,
 ) -> torch.Tensor:
     """``(N, d)`` embeddings of every entity, on the parameters' device,
     streamed partition by partition; core rows only are scattered (a
     support vertex at the receptive-field boundary is core elsewhere).
     Without ``partitions``/``padded`` the graph is one partition. Isolated
-    entities keep zero rows."""
+    entities keep zero rows. ``model_axis``: the parameters hold this
+    rank's row block of the table (the multi-process step); every rank of
+    the axis gets the same embeddings."""
     if padded is None:
         if partitions is None:
             partitions = expand_all(
@@ -56,7 +64,8 @@ def encode_all_entities(
     v_idx = torch.arange(padded.padded_vertices, device=dev)
     out: Optional[torch.Tensor] = None
     for i, part in enumerate(eval_partition_batches(padded, dev)):
-        h = encode_partition(params, kge_cfg, part, features=features)
+        h = encode_partition(params, kge_cfg, part, features=features,
+                             model_axis=model_axis)
         if out is None:
             out = torch.zeros((train_kg.num_entities, h.shape[1]),
                               dtype=torch.float32, device=dev)
@@ -78,21 +87,32 @@ def evaluate_split(
     features: Optional[torch.Tensor] = None,
     partitions: Optional[Sequence[SelfSufficientPartition]] = None,
     padded: Optional[PaddedPartitionBatch] = None,
+    model_axis: Optional[ModelAxis] = None,
 ) -> Dict[str, float]:
     """Filtered MRR / Hits@k on ``split`` (both directions, paper
     protocol), keys prefixed with the split's name; with a row-sharded
     entity table the ranking is sharded over its row blocks, and with an
-    int8 table it ranks over the quantized embeddings."""
+    int8 table it ranks over the quantized embeddings. With ``model_axis``
+    (the multi-process step) the encode gathers through the real exchange
+    and the ranking runs on the axis's ranks, each over its own row block
+    of the embeddings: the same metrics on every rank, exactly the
+    simulated ones."""
     emb = encode_all_entities(
         params, kge_cfg, splits["train"].with_inverse_relations(), num_hops,
-        features=features, partitions=partitions, padded=padded)
+        features=features, partitions=partitions, padded=padded,
+        model_axis=model_axis)
     decoder_params = {k: v.detach() for k, v in params["decoder"].items()}
     learned = kge_cfg.rgcn.feature_dim is None
+    num_shards = kge_cfg.num_table_shards if learned else 1
+    rank_step = None
+    if model_axis is not None:
+        num_shards = model_axis.size
+        rank_step = make_sharded_rank_step(model_axis, decoder=decoder)
     metrics = evaluate_both_directions(
         emb, decoder_params, splits[split],
         [splits["train"], splits["valid"], splits["test"]],
         num_relations_base=splits["train"].num_relations, decoder=decoder,
-        num_shards=kge_cfg.num_table_shards if learned else 1,
+        num_shards=num_shards,
         table_dtype=kge_cfg.rgcn.table_dtype if learned else "fp32",
-        device=emb.device)
+        device=emb.device, rank_step=rank_step)
     return {f"{split}_{k}": v for k, v in metrics.items()}

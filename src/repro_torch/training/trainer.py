@@ -8,17 +8,21 @@ The trainer composes four seams, as the reference does:
   once with its scatter plans (built once on the host, so no full-graph
   step builds its own), or the serial / async edge mini-batch pipeline
   (each mini-batch step builds its plans on the card, once per id array);
-* ``training.distributed`` — the simulated data-parallel step (per-trainer
-  gradients, their mean, one Adam step);
+* ``training.distributed`` — the data-parallel step (per-trainer
+  gradients, their mean, one Adam step), simulated in this process or,
+  under ``spmd``, real: one process per rank of a ``data`` × ``model``
+  process mesh (``launch.mesh``), the entity table's row blocks on the
+  model ranks;
 * ``training.evaluation`` — streamed encoding + filtered ranking (sharded
   over the entity table's row blocks when it is sharded).
 
 Everything runs on ``device`` (default ``cuda``). Options of the reference
 that the port has not reached raise ``NotImplementedError`` naming their
-ROADMAP item (``repro_torch.roadmap``). Timing mirrors the paper's Fig. 6
-breakdown: ``t_get_compute_graph`` is the host batch construction left on
-the critical path, ``t_host_build`` all of it, ``overlap_fraction`` the
-share the pipeline hid behind the device step.
+ROADMAP item (``repro_torch.roadmap``): checkpoints under ``spmd``.
+Timing mirrors the paper's Fig. 6 breakdown: ``t_get_compute_graph`` is
+the host batch construction left on the critical path, ``t_host_build``
+all of it, ``overlap_fraction`` the share the pipeline hid behind the
+device step.
 """
 from __future__ import annotations
 
@@ -32,23 +36,29 @@ import torch
 from repro_torch.convert import kge_tree
 from repro_torch.core import KnowledgeGraph
 from repro_torch.data.pipeline import (
-    FullGraphPipeline, PlanSizes, make_input_pipeline,
+    BatchShardings, FullGraphPipeline, PlanSizes, make_input_pipeline,
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sharded_gather import raise_if_flagged
+from repro_torch.launch.mesh import (
+    derive_opt_state_specs, fit_spmd_mesh, kge_param_specs,
+    make_process_mesh, place_row_blocks, world_size,
+)
 from repro_torch.models.kge import (
     KGEConfig, fullgraph_loss, init_kge_params, minibatch_loss,
 )
 from repro_torch.models.rgcn import RGCNConfig
 from repro_torch.roadmap import not_ported
-from repro_torch.sharding.embedding import SIM_EXCHANGES, TABLE_DTYPES
+from repro_torch.sharding.embedding import (
+    SIM_EXCHANGES, SPMD_EXCHANGES, TABLE_DTYPES,
+)
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training.checkpoint import (
     read_metadata, restore_checkpoint, save_checkpoint,
     tree_leaves_with_path,
 )
 from repro_torch.training.distributed import (
-    make_simulated_train_step, trainer_generators,
+    make_simulated_train_step, make_spmd_train_step, trainer_generators,
 )
 from repro_torch.training.evaluation import (
     encode_all_entities, evaluate_split,
@@ -60,8 +70,7 @@ from repro_torch.training.preprocessing import (
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The reference's training configuration; the fields the port has not
-    reached must keep their defaults (see :func:`check_ported`)."""
+    """The reference's training configuration."""
 
     num_trainers: int = 4
     strategy: str = "vertex_cut"        # paper's choice; Table 5 ablations
@@ -81,39 +90,68 @@ class TrainConfig:
     pipeline: str = "async"             # "async" | "serial" (mini-batch)
     prefetch: int = 2                   # per-partition prefetch queue depth
     num_table_shards: int = 1           # >1: row-shard the entity table
-    sharded_transfer: bool = False
+    sharded_transfer: bool = False      # copy batches per rank of a mesh
+    #   (BatchShardings): on the simulated step the 1 x 1 mesh of one
+    #   process, which copies everything (bitwise the plain copy); always
+    #   on under spmd
     gather_dedup: bool = False          # dedupe mini-batch gather plans
     gather_exchange: Optional[str] = None  # "fused" (default) | "masked_sum"
     table_dtype: str = "fp32"           # "fp32" | "int8": int8 keeps the
     #   fp32 master for Adam; every entity-table gather quantizes it and
     #   runs the fused dequantizing gather, with a straight-through backward
-    spmd: Optional[bool] = None         # None/False: the simulated step
+    spmd: Optional[bool] = None         # the multi-process step over the
+    #   initialised process group (training.distributed.
+    #   make_spmd_train_step): None = on when the group has more than one
+    #   rank and the mesh fits (launch.mesh.fit_spmd_mesh: model axis ==
+    #   num_table_shards, data axis divides num_trainers, every rank used);
+    #   True forces it (a 1 x 1 mesh allowed) and raises without a group
+    #   that fits; False keeps the simulated step. Both are bitwise equal.
 
 
-def check_ported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for every option the port has not
-    reached, and ``ValueError`` for an exchange the simulated step does
-    not have (the reference's check)."""
-    if cfg.spmd:
-        raise not_ported("spmd=True (the shard_map step)", "spmd")
-    if cfg.sharded_transfer:
-        raise not_ported("sharded_transfer (per-device batch placement)",
-                         "spmd")
+def resolve_spmd(cfg: TrainConfig) -> Optional[tuple]:
+    """The ``(data, model)`` mesh of the multi-process step for ``cfg``
+    over the initialised process group, or ``None`` for the simulated
+    step: ``cfg.spmd`` decides, ``None`` choosing the real step when it
+    buys parallelism. ``spmd=True`` without a group that fits raises the
+    reference's ``ValueError``."""
+    world = world_size()
+    fit = fit_spmd_mesh(cfg.num_trainers, cfg.num_table_shards, world)
+    if cfg.spmd is None:
+        return fit if fit is not None and world > 1 else None
+    grouped = torch.distributed.is_initialized()
+    if cfg.spmd and (fit is None or not grouped):
+        raise ValueError(
+            f"spmd=True needs an initialised process group whose ranks "
+            f"fit the mesh: {max(cfg.num_table_shards, 1)} model-axis "
+            f"ranks for {cfg.num_table_shards} table shards and a data "
+            f"axis dividing {cfg.num_trainers} trainers, but the world has "
+            f"{world} rank(s)" + ("" if grouped else " (no process group)"))
+    return fit if cfg.spmd else None
+
+
+def check_exchange(cfg: TrainConfig, spmd: bool) -> None:
+    """Fail fast on an exchange layout the chosen step does not have (the
+    reference's check): the simulated step runs ``SIM_EXCHANGES``, the
+    multi-process step ``SPMD_EXCHANGES``."""
+    allowed = SPMD_EXCHANGES if spmd else SIM_EXCHANGES
     if cfg.gather_exchange is not None and \
-            cfg.gather_exchange not in SIM_EXCHANGES:
+            cfg.gather_exchange not in allowed:
+        kind = "spmd" if spmd else "simulated"
         raise ValueError(
             f"gather_exchange={cfg.gather_exchange!r} is not available on "
-            f"the simulated step (one of {SIM_EXCHANGES}); leave it None "
-            f"for the default")
+            f"the {kind} step (one of {allowed}); leave it None for the "
+            f"default")
 
 
 class KGETrainer:
     """Owns the preprocessed data, the model, the optimizer state, the
-    input pipeline and the simulated step."""
+    input pipeline and the step (simulated, or on this rank of a process
+    mesh)."""
 
     def __init__(self, splits: Dict[str, KnowledgeGraph], cfg: TrainConfig,
                  device=None):
-        check_ported(cfg)
+        fit = resolve_spmd(cfg)
+        check_exchange(cfg, fit is not None)
         self.cfg = cfg
         self.splits = splits
         self.device = resolve_device(device)
@@ -165,18 +203,40 @@ class KGETrainer:
                                       self.kge_cfg, self.device)
         self.features = (None if feat is None else
                          torch.from_numpy(feat).to(self.device))
+
+        # ---- the process mesh: each rank keeps its row block; the specs
+        # say where each parameter and optimizer leaf lives (None on the
+        # simulated step) ----
+        self.mesh = self._model_axis = self.param_specs = None
+        self.opt_specs = None
+        if fit is not None:
+            self.mesh = make_process_mesh(*fit, self.device)
+            self._model_axis = self.mesh.model_axis
+            self.param_specs = kge_param_specs(self.params, self.mesh.model)
+            place_row_blocks(self.params, self.param_specs, self.mesh)
         self.optimizer = opt_lib.adam(cfg.learning_rate)
         self.opt_state = self.optimizer.init(
             {n: p.detach() for n, p in self.params.named_parameters()})
+        if self.mesh is not None:
+            self.opt_specs = derive_opt_state_specs(self.opt_state,
+                                                    self.param_specs)
         self._seed = cfg.seed + 1           # the reference's PRNGKey(seed+1)
         self._epoch = 0
         self.timings: List[Dict[str, float]] = []
 
         # ---- step + input pipeline ----
         self._fullgraph = cfg.batch_size is None
-        self._step = make_simulated_train_step(
-            self._fullgraph_loss if self._fullgraph else
-            self._minibatch_loss, self.optimizer)
+        loss = (self._fullgraph_loss if self._fullgraph else
+                self._minibatch_loss)
+        shardings = None
+        if self.mesh is not None:
+            self._step = make_spmd_train_step(loss, self.optimizer,
+                                              self.mesh.data_group)
+            shardings = BatchShardings.of(self.mesh)
+        else:
+            self._step = make_simulated_train_step(loss, self.optimizer)
+            if cfg.sharded_transfer:
+                shardings = BatchShardings()
         if self._fullgraph:
             # a sharded table's gather is planned in-graph
             plan_sizes = PlanSizes(
@@ -184,7 +244,7 @@ class KGETrainer:
                 train_kg.num_entities if feat is None and
                 cfg.num_table_shards <= 1 else None)
             self.pipeline = FullGraphPipeline(self.pre.padded, self.device,
-                                              plan_sizes)
+                                              plan_sizes, shardings)
         else:
             self.pipeline = make_input_pipeline(
                 cfg.pipeline, self.pre.partitions,
@@ -193,7 +253,8 @@ class KGETrainer:
                 budget=self.pre.budget, seed=cfg.seed,
                 sampler=cfg.negative_sampler, csrs=self.pre.csrs,
                 prefetch=cfg.prefetch, table_layout=self.pre.table_layout,
-                dedup_gather=cfg.gather_dedup, device=self.device)
+                dedup_gather=cfg.gather_dedup, device=self.device,
+                shardings=shardings)
 
     # ------------------------------------------------------------------ #
     # preprocessing artifacts (stable public surface)
@@ -217,19 +278,25 @@ class KGETrainer:
     # ------------------------------------------------------------------ #
     def _fullgraph_loss(self, params, batch, generator):
         return fullgraph_loss(params, self.kge_cfg, batch, generator,
-                              features=self.features, train=True)
+                              features=self.features, train=True,
+                              model_axis=self._model_axis)
 
     def _minibatch_loss(self, params, batch, generator):
         return minibatch_loss(params, self.kge_cfg, batch,
-                              features=self.features, generator=generator)
+                              features=self.features, generator=generator,
+                              model_axis=self._model_axis)
 
     def step_generators(self, epoch: int, step: int):
         """The trainers' generators of one step: per epoch on the
         full-graph path (one step per epoch), per (epoch, step) on the
-        mini-batch path."""
-        return trainer_generators(self._seed, self.cfg.num_trainers, epoch,
+        mini-batch path; under spmd this rank's trainers' only (the same
+        streams the simulated step gives them)."""
+        gens = trainer_generators(self._seed, self.cfg.num_trainers, epoch,
                                   self.device,
                                   None if self._fullgraph else step)
+        if self.mesh is None:
+            return gens
+        return gens[self.mesh.trainers(self.cfg.num_trainers)]
 
     def step(self, batch: Dict[str, torch.Tensor], generators) -> float:
         """One update on a trainer-stacked device batch; returns the loss
@@ -302,13 +369,21 @@ class KGETrainer:
                     mu=kge_tree(self.opt_state.mu.items()),
                     nu=kge_tree(self.opt_state.nu.items()))}
 
+    def _require_single_process(self, what: str) -> None:
+        if self.mesh is not None:
+            raise not_ported(f"{what} under spmd (the row blocks gathered "
+                             f"to one file and placed back on the ranks)",
+                             "spmd_checkpoint")
+
     def save_checkpoint(self, directory: str, keep: int = 3) -> str:
         """One checkpoint per call, stamped with the current epoch, in the
         reference's format: its ``.npz`` keys are the reference trainer's
         (``params/entity_embedding``, ``opt/mu/layers/0/bases``, ...) and
         the manifest's ``metadata`` holds ``epoch`` and ``key``, the raw
         ``PRNGKey(seed + 1)`` the reference trainer holds (``[0, seed +
-        1]``), so either trainer resumes the other's run."""
+        1]``), so either trainer resumes the other's run. Under spmd it
+        raises, before writing anything."""
+        self._require_single_process("save_checkpoint")
         if not 0 <= self._seed < 2 ** 32:
             raise ValueError(f"seed {self._seed - 1} has no [0, seed + 1] "
                              f"key")
@@ -323,7 +398,8 @@ class KGETrainer:
         model's parameters and the optimizer state, whose objects the step
         holds (the entity table converts across layouts and shard counts),
         then the epoch and the generator seed come from the metadata.
-        Returns the epoch."""
+        Returns the epoch. Under spmd it raises."""
+        self._require_single_process("restore")
         like = self._checkpoint_tree()
         step, tree = restore_checkpoint(
             path, like, entity_rows=self.train_kg.num_entities)
@@ -349,14 +425,15 @@ class KGETrainer:
         return encode_all_entities(
             self.params, self.kge_cfg, self.train_kg, self.cfg.num_hops,
             features=self.features, partitions=self.pre.partitions,
-            padded=self.pre.padded)
+            padded=self.pre.padded, model_axis=self._model_axis)
 
     def evaluate(self, split: str = "test") -> Dict[str, float]:
         """Filtered MRR / Hits@k on ``split``: streamed partition encoding,
         then ranking through the ``kge_score`` kernel, dense or (with a
         sharded or int8 table) one block per shard with the counts
-        summed."""
+        summed; under spmd each rank ranks its own row block."""
         return evaluate_split(
             self.params, self.kge_cfg, self.splits, split,
             self.cfg.num_hops, self.cfg.decoder, features=self.features,
-            partitions=self.pre.partitions, padded=self.pre.padded)
+            partitions=self.pre.partitions, padded=self.pre.padded,
+            model_axis=self._model_axis)

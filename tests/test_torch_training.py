@@ -184,19 +184,24 @@ def test_evaluate_reports_split_metrics(trained):
 
 
 def test_ranking_unported_protocols_raise():
-    """The candidate-list protocol still raises; int8 ranking (ported
-    since) ranks, exactly as the fp32 ranking of the dequantized table."""
-    emb = np.zeros((4, 2), np.float32)
-    trip = np.zeros((1, 3), np.int32)
+    """Both protocols the earlier slices left out now rank: the ogbl
+    candidate-list protocol (the true tail against its row's list, the
+    list's copy of a tie counted half) and int8 ranking, exactly as the
+    fp32 ranking of the dequantized table."""
     fidx = ranking.CSRFilterIndex.build([])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ranking.ranking_metrics(emb, {"rel_diag": np.ones((1, 2))}, trip,
-                                fidx, candidates=np.zeros((1, 3)),
-                                device="cpu")
+    emb = np.eye(4, 2, dtype=np.float32)
+    params = {"rel_diag": np.ones((1, 2), np.float32)}
+    trip = np.array([[0, 0, 0], [1, 0, 1]], np.int32)
+    # row 0: candidates 1 (score 0) and 2, 3 (score 0) below the true 1.0;
+    # row 1: candidate 0 below, its own twin 1 ties (rank 1.5)
+    cands = np.array([[1, 2, 3], [0, 1, 2]], np.int32)
+    got = ranking.ranking_metrics(emb, params, trip, fidx, candidates=cands,
+                                  device="cpu")
+    assert got == {"mrr": 0.5 * (1.0 + 1 / 1.5), "hits@1": 0.5,
+                   "hits@3": 1.0, "hits@10": 1.0}
     emb = np.random.default_rng(0).standard_normal((6, 2)).astype(
         np.float32)
     trip = np.array([[0, 0, 1], [2, 0, 5], [4, 0, 3]], np.int32)
-    params = {"rel_diag": np.ones((1, 2), np.float32)}
     got = ranking.ranking_metrics(emb, params, trip, fidx,
                                   table_dtype="int8", device="cpu")
     from repro_torch.sharding import dequantize_rows, quantize_rows
@@ -236,9 +241,6 @@ def test_cli_int8_runs_to_eval_line():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--spmd"], "item 2"),
-    (["--sharded-transfer"], "item 2"),
-    (["--arch", "rgcn-citation2"], "item 4"),
     (["--arch", "gemma-2b"], "item 7"),
 ])
 def test_cli_unported_options_raise(extra, item):
@@ -299,11 +301,14 @@ def test_full_graph_pipeline_copies_the_batch_once(trained):
 
 
 def test_trainer_unported_config_raises():
-    """spmd still raises; an int8 table (ported since) trains, with the
-    reference's errors for an unknown dtype and for feature mode."""
+    """spmd=True without a process group raises the reference's
+    ValueError (the multi-process step is ported since, and needs one); an
+    int8 table (ported since) trains, with the reference's errors for an
+    unknown dtype and for feature mode."""
     splits = {"train": KnowledgeGraph(np.zeros(1), np.zeros(1), np.ones(1),
                                       2, 1)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(ValueError, match="spmd=True needs an initialised "
+                                         "process group"):
         KGETrainer(splits, TrainConfig(spmd=True), device="cpu")
     with pytest.raises(ValueError, match="table_dtype='int4'"):
         KGETrainer(splits, TrainConfig(table_dtype="int4"), device="cpu")

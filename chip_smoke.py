@@ -154,7 +154,26 @@ Phases, each of which fails the run on error:
    evaluation (the rank step) equal, make_sharded_rank_step == the
    simulated counts in both ranking protocols and at both table dtypes;
    the real and the simulated step times, alternated; launch counts of
-   the spmd runs. The group is destroyed before phase 8.
+   the spmd runs. Then checkpoints under spmd, fp32 and int8: two epochs
+   under --spmd without a break, against epoch 1, ``save_checkpoint`` and
+   a fresh --spmd trainer that restores it and trains epoch 2: per-step
+   losses, parameters and Adam moments bitwise; the file's arrays and
+   manifest == the --no-spmd trainer's after epoch 1; its bytes, the save
+   and restore seconds, the resumed run's launches.
+6g. The comm audit on the card (``repro_torch.analysis``), on phase 6f's
+   group: ``serve[topk]`` and ``serve[topk,int8]`` at FB15k-237 width
+   (filtered) and ogbl-citation2 width (N = 2,927,963), S = 4, 8 queries,
+   k = 10, under the recorder: no collective, no output with the
+   dimension N (no dense (B, N) score matrix), int8 no float32 image of
+   the table; the train step (psum_scatter, fp32 and int8, --use-kernel)
+   and the rank step (both protocols, V 14,541, d 75, B 256) at phase
+   6f's configuration on its one-rank group: collectives recorded, all on
+   one-rank groups, parameters and moments updated in place, the
+   replication rule that names the rank's own block refused by name;
+   every program's outputs bitwise with the recorder on and off; a probe
+   whose (V, d) buffer exists only in its backward fails the audit. One
+   line a program (recorded collectives, rules, violations, launches).
+   The group is destroyed before phase 8.
 7. Profile under ``torch.profiler``: one rwkv6-3b prefill (with the WKV
    kernel's share of it) and one steady decode step; steady serving steps
    of each serving
@@ -2085,14 +2104,16 @@ def two_runs_bitwise(trainer, batch, generators_fn):
     parameters and optimizer state: the losses and the parameters after
     the step must be bitwise equal. Returns the loss."""
     import torch
-    params = [p for _, p in trainer.params.named_parameters()]
-    saved = [p.detach().clone() for p in params]
     state = trainer.opt_state
+    # the step updates the parameters and the Adam moments in place
+    tensors = [p for _, p in trainer.params.named_parameters()] + [
+        t for part in (state.mu, state.nu) for t in part.values()]
+    saved = [t.detach().clone() for t in tensors]
     runs = []
     for _ in range(2):
         with torch.no_grad():
-            for p, s in zip(params, saved):
-                p.copy_(s)
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
         trainer.opt_state = state
         loss = trainer.step(batch, generators_fn())
         runs.append((loss, param_bits(trainer)))
@@ -2526,16 +2547,215 @@ def run_citation2(dev, part, mbs, phase2):
                 ogbl=ogbl, ogbl_s=ogbl_s, batches=batches, seconds=seconds)
 
 
-def run_spmd(dev):
+def spmd_resume(argv):
+    """Phase 6f, checkpoints under spmd, for one table dtype: ``argv``
+    (phase 6f's configuration) under --spmd trains epochs 1-2 without a
+    break; a second --spmd trainer trains epoch 1 and saves a checkpoint;
+    a fresh --spmd trainer restores it and trains epoch 2: per-step
+    losses, parameters, Adam moments and the step counter bitwise the
+    unbroken run's. The checkpoint's arrays and manifest == those of the
+    --no-spmd trainer after epoch 1. Launch counts are read around the
+    resumed run (restore and epoch). Returns the checkpoint's bytes, the
+    save and restore seconds, the resumed epoch's time and launches."""
+    import shutil
+    import torch
+    from repro_torch.launch import spmd_check, train
+
+    def make(extra):
+        return train.make_trainer(train.parse_args(argv + extra))
+
+    directory = os.path.join(CHECKPOINT_DIR, "spmd")
+    shutil.rmtree(directory, ignore_errors=True)
+    with shared_preprocessing():
+        a = make(["--spmd"])
+        hist = [a.train_epoch() for _ in range(2)]
+        a.close()
+        b = make(["--spmd"])
+        b.train_epoch()
+        b.close()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = b.save_checkpoint(os.path.join(directory, "spmd"))
+        save_s = time.perf_counter() - t0
+        del b
+        c = make(["--spmd"])
+        reset_counts()
+        t0 = time.perf_counter()
+        epoch = c.restore(path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        rec = c.train_epoch()
+        launches = launch_counts()
+        c.close()
+        bad = spmd_check.tree_mismatches(a, c)
+        if epoch != 1 or rec["epoch"] != 2 or \
+                rec["losses"] != hist[1]["losses"] or bad:
+            raise AssertionError(
+                f"spmd resume: epoch {epoch}, losses {rec['losses']} vs "
+                f"{hist[1]['losses']}, state {bad}")
+        del a, c
+        sim = make(["--no-spmd"])
+        sim.train_epoch()
+        sim.close()
+        sim_path = sim.save_checkpoint(os.path.join(directory, "sim"))
+        del sim
+    bad = spmd_check.checkpoint_mismatches(path, sim_path)
+    if bad:
+        raise AssertionError(f"spmd checkpoint != --no-spmd's: {bad}")
+    out = dict(checkpoint_bytes=(
+        os.path.getsize(path) + os.path.getsize(path.replace(".npz",
+                                                             ".json"))),
+        save_s=save_s, restore_s=restore_s, t_epoch=rec["t_epoch"],
+        launches=launches, losses=hist[1]["losses"])
+    shutil.rmtree(directory, ignore_errors=True)
+    return out
+
+
+def backward_probe(dev):
+    """Phase 6g's probe: an autograd function that doubles its input and
+    whose backward also makes a ``(V, d)`` buffer (FB15k-237's table
+    shape) that its forward never makes, run forward and backward on the
+    card under the recorder. Returns the audit of a contract forbidding
+    that shape (it must fail) and whether the backward ran on another
+    thread than the caller's."""
+    import threading
+    import torch
+    from repro_torch.analysis import CommContract, CommRecorder, audit_trace
+    threads = []
+
+    class TableInBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            threads.append(threading.get_ident())
+            full = torch.zeros((FB15K["entities"], FB15K["dim"]),
+                               dtype=g.dtype, device=g.device)
+            return g * 2 + full[:g.shape[0], :g.shape[1]]
+
+    x = torch.ones((4, 8), device=dev, requires_grad=True)
+    with CommRecorder() as rec:
+        torch.autograd.grad(TableInBackward.apply(x).sum(), x)
+    torch.cuda.synchronize()
+    report = audit_trace(rec.trace, CommContract(
+        "backward probe", (),
+        forbidden_suffixes=((FB15K["entities"], FB15K["dim"]),)))
+    return report, any(t != threading.get_ident() for t in threads)
+
+
+AUDIT_SERVE_KERNELS = {"fp32": SERVING_KERNELS, "int8": SERVING_INT8_KERNELS}
+AUDIT_TRAIN_KERNELS = ("basis_message", "segment_sum", "scatter_add_onehot")
+AUDIT_RANK_KERNELS = {"all-entities": ("kge_score",), "candidates": ()}
+
+
+def run_comm_audit(dev, card):
+    """Phase 6g: the comm audit on the card (``repro_torch.analysis``).
+    ``serve[topk]`` and ``serve[topk,int8]`` at FB15k-237 width
+    (filtered) and ogbl-citation2 width (unfiltered), S = 4, 8 queries,
+    k = 10: no collective, no dimension V (no dense (B, N) score matrix),
+    int8 no float32 table image. On the one-rank NCCL group of phase 6f,
+    at its configuration: the train step (psum_scatter, fp32 and int8,
+    --use-kernel) and the rank step in both protocols (V 14,541, d 75, B
+    256, 50 candidates), each holding that it recorded collectives, all
+    on one-rank groups, and the in-place rule; the replication rule
+    naming the rank's own block is refused by name. Every program runs
+    once recorded and once not, its outputs bitwise equal. A probe whose
+    (V, d) buffer exists only in its backward must fail the audit (the
+    recorder sees the backward's thread). Launch counts are read around
+    each program. Any violation fails the run."""
+    from repro_torch.analysis import programs
+    from repro_torch.launch import serve, train
+
+    out, t_phase = {"programs": {}}, time.perf_counter()
+
+    def keep(label, report, launches, want):
+        row = report.as_row()
+        row["launches"] = launches
+        row["bitwise"] = not any("changed the program's outputs" in v
+                                 for v in report.violations)
+        out["programs"][label] = row
+        missing = [k for k in want if launches[k] == 0]
+        log(f"[phase 6g] {label}: {'ok' if report.ok else 'FAIL'}; "
+            f"recorded {[(r['kind'], r['ranks'], r['count'], r['wire_bytes']) for r in row['recorded']]}; "
+            f"rules {[(r['rule'], r['count'], r['wire_bytes']) for r in row['rules']]}; "
+            f"violations {report.violations}; refused {row['refused']}; "
+            f"in place {row['in_place']} of {row['min_in_place']}; "
+            f"recorder on == off bitwise: {row['bitwise']}; launches "
+            f"{launches}; {card}")
+        if not report.ok or missing:
+            raise AssertionError(f"phase 6g {label}: violations "
+                                 f"{report.violations}, kernels never "
+                                 f"launched {missing}")
+
+    rng = np.random.default_rng(7)
+    for wlabel, width, filtered in (("fb15k237", FB15K, True),
+                                    ("citation2", CITATION2, False)):
+        for dtype in ("fp32", "int8"):
+            args = serve.parse_args(serve_argv(width, "distmult", 4, 0,
+                                               filtered, 0, dtype))
+            server, _, _ = serve.build_server(args)
+            heads = rng.integers(0, width["entities"], SLOTS)
+            rels = rng.integers(0, width["relations"], SLOTS)
+            name = "serve[topk,int8]" if dtype == "int8" else "serve[topk]"
+            reset_counts()
+            report = programs.audit_server(server, heads, rels, K,
+                                           filtered=filtered, name=name)
+            keep(f"{name} {wlabel} S4", report, launch_counts(),
+                 AUDIT_SERVE_KERNELS[dtype])
+            del server
+    with shared_preprocessing():
+        for dtype in ("fp32", "int8"):
+            tr = train.make_trainer(train.parse_args(
+                SPMD_ARGV + ["--table-dtype", dtype, "--spmd"]))
+            name = "train[psum_scatter" + (",int8]" if dtype == "int8"
+                                           else "]")
+            reset_counts()
+            report = programs.audit_trainer_step(tr, name)
+            keep(name, report, launch_counts(), AUDIT_TRAIN_KERNELS)
+            tr.close()
+    cfg = programs.AuditConfig(
+        num_trainers=4, num_table_shards=1, eval_dim=FB15K["dim"],
+        eval_batch=256, eval_relations=FB15K["relations"],
+        num_candidates=50, rank_entities=FB15K["entities"])
+    for protocol in programs.RANK_PROTOCOLS:
+        reset_counts()
+        report = programs.audit_rank_step(protocol, tr.mesh, cfg, dev)
+        keep(f"rank[{protocol}]", report, launch_counts(),
+             AUDIT_RANK_KERNELS[protocol])
+    del tr
+
+    probe, other_thread = backward_probe(dev)
+    if probe.ok:
+        raise AssertionError("phase 6g: the recorder missed the (V, d) "
+                             "buffer made in a backward")
+    out["backward_probe"] = dict(violations=probe.violations,
+                                 backward_on_other_thread=other_thread)
+    log(f"[phase 6g] backward probe: the recorder saw the (V, d) buffer "
+        f"made only in the backward ({probe.violations[0]}); the backward "
+        f"ran on {'another' if other_thread else 'the calling'} thread")
+    out["launches"] = {n: sum(r["launches"][n] for r in
+                              out["programs"].values())
+                       for n in launch_counts()}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 6g] {len(out['programs'])} programs within contract; "
+        f"{out['seconds']:.1f} s in all")
+    return out
+
+
+def run_spmd(dev, card):
     """Phase 6f: the multi-process step on a NCCL process group of world
     size 1 in this process (a 1 x 1 mesh: 4 trainers grouped on the one
     rank, a 1-shard table), phase 6b's configuration with --use-kernel,
     fp32 and int8, through ``repro_torch.launch.train --spmd``, against
     the same configuration on the simulated step: per-step losses,
     parameters and Adam moments bitwise, the test evaluation equal, and
-    ``make_sharded_rank_step`` == the simulated counts in both protocols.
+    ``make_sharded_rank_step`` == the simulated counts in both protocols;
+    then checkpoints under spmd (:func:`spmd_resume`), fp32 and int8.
     Launch counts are read around the spmd runs' steps and evaluation.
-    The group is destroyed before returning."""
+    Phase 6g (:func:`run_comm_audit`) runs on the same group, which is
+    destroyed before returning."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import spmd_check, train
@@ -2592,6 +2812,23 @@ def run_spmd(dev):
             f"all-entities and candidate protocols, fp32 and int8 tables: "
             f"{rank}")
         out["rank_steps"] = rank
+        del real, sim
+        for dtype in ("fp32", "int8"):
+            r = out[f"resume_{dtype}"] = spmd_resume(
+                SPMD_ARGV + ["--table-dtype", dtype])
+            missing = [k for k in SPMD_KERNELS
+                       if k not in EVAL_KERNELS and r["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"kernels never launched on the "
+                                     f"resumed spmd {dtype} run: {missing}")
+            log(f"[phase 6f] {dtype} table under --spmd: epoch 2 restored "
+                f"from an epoch-1 checkpoint ({r['checkpoint_bytes']} "
+                f"bytes, saved in {r['save_s']:.3f} s, restored in "
+                f"{r['restore_s']:.3f} s): per-step losses, parameters and "
+                f"Adam moments bitwise the unbroken run's; the file == the "
+                f"--no-spmd trainer's; epoch {r['t_epoch']:.3f} s; launches "
+                f"{r['launches']}; {card}")
+        out["audit"] = run_comm_audit(dev, card)
     finally:
         dist.destroy_process_group()
         if os.path.exists(SPMD_RENDEZVOUS):
@@ -3105,7 +3342,7 @@ def main() -> int:
     c2 = run_citation2(dev, part, mbs, phase2)
     # phase 6f: the multi-process step on a NCCL group of one rank (counts
     # reset and read inside run_spmd around the spmd runs)
-    spmd = run_spmd(dev)
+    spmd = run_spmd(dev, card)
     for label in ("fp32", "int8"):
         missing = [k for k in SPMD_KERNELS
                    if spmd[label]["launches"][k] == 0]
@@ -3215,6 +3452,10 @@ def main() -> int:
                    "citation2": c2["launches"][name],
                    "spmd": spmd["fp32"]["launches"][name],
                    "spmd_int8": spmd["int8"]["launches"][name],
+                   "spmd_resume": spmd["resume_fp32"]["launches"][name],
+                   "spmd_resume_int8":
+                       spmd["resume_int8"]["launches"][name],
+                   "audit": spmd["audit"]["launches"][name],
                    "lm": lm_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],

@@ -275,7 +275,7 @@ def sharded_ranking_metrics(entity_emb, decoder_params: Dict,
     proves the collectives and the exact counts but shards nothing yet:
     the block is a view of ``entity_emb``, which every rank holds whole
     after the encode, and in the candidate protocol every rank scores all
-    ``B × (1 + C)`` lanes (ROADMAP Queue 1 item 5)."""
+    ``B × (1 + C)`` lanes (ROADMAP Queue 1 item 2d)."""
     if table_dtype not in TABLE_DTYPES:
         raise ValueError(
             f"table_dtype={table_dtype!r} not in {TABLE_DTYPES}")

@@ -335,9 +335,12 @@ def fused_sharded_gather(table: torch.Tensor, local_ids: torch.Tensor,
     into the ``S·rows`` stacked rows, when the caller has it."""
     s, rows, d = table.shape
     flat, any_owned = flat_gather_plan(local_ids, owned, rows)
-    return _GatherRows.apply(table.reshape(s * rows, d),
-                             flat.to(table.device),
-                             any_owned.to(table.device), check, plan)
+    flat, any_owned = flat.to(table.device), any_owned.to(table.device)
+    if not wants_grad(table):
+        # serving and ranking: the stack itself, never a flat view of it
+        return fused_gather(table, flat, any_owned, check=check)
+    return _GatherRows.apply(table.reshape(s * rows, d), flat, any_owned,
+                             check, plan)
 
 
 def masked_take(table: torch.Tensor, local_ids: torch.Tensor,
@@ -356,13 +359,12 @@ def dequant_sharded_gather(codes: torch.Tensor, scales: torch.Tensor,
     """``(V, d)`` fp32 rows of an int8 ``(S, rows, d)`` code stack with
     ``(S, rows)`` scales from an ``(S, V)`` plan: the plan collapsed by
     :func:`flat_gather_plan` (where it lies) and one ``fused_dequant_gather``
-    — only the V gathered rows are ever dequantized. Bitwise the reference's
+    over the stack itself (no flat view of it) — only the V gathered rows
+    are ever dequantized. Bitwise the reference's
     dequantize-then-gather (``ref.dequant_gather_ref``). No gradient."""
-    s, rows, d = codes.shape
-    flat, any_owned = flat_gather_plan(local_ids, owned, rows)
-    return fused_dequant_gather(
-        codes.reshape(s * rows, d), scales.reshape(s * rows),
-        flat.to(codes.device), any_owned.to(codes.device), check=check)
+    flat, any_owned = flat_gather_plan(local_ids, owned, codes.shape[1])
+    return fused_dequant_gather(codes, scales, flat.to(codes.device),
+                                any_owned.to(codes.device), check=check)
 
 
 def quantized_sharded_gather(table: torch.Tensor, local_ids: torch.Tensor,

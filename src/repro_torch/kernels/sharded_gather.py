@@ -82,13 +82,34 @@ def _library():
     return _build.load("sharded_gather", _SIGNATURES)
 
 
+def flat_rows(x: torch.Tensor, flat_ids: torch.Tensor,
+              lead: int) -> torch.Tensor:
+    """Rows ``flat_ids`` of ``x`` over its ``lead`` leading axes read as
+    one: of an ``(R, ...)`` table (``lead`` 1), or of an ``(S, rows, ...)``
+    stack (``lead`` 2) as its ``S·rows`` flat rows, indexed by shard and
+    row so that no flattened ``(S·rows, ...)`` view of the stack is made
+    (the comm audit's replication rule holds serving to that)."""
+    if lead == 1:
+        return x[flat_ids]
+    rows = x.shape[1]
+    return x[torch.div(flat_ids, rows, rounding_mode="floor"),
+             flat_ids % rows]
+
+
+def _table_rows(table: torch.Tensor) -> int:
+    """Flat rows of an ``(R, d)`` table or an ``(S, rows, d)`` stack."""
+    return table.shape[0] * (table.shape[1] if table.dim() == 3 else 1)
+
+
 def fused_gather_plain(table_flat: torch.Tensor, flat_ids: torch.Tensor,
                        any_owned: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: ``(R, d)`` table, ``(V,)`` int64 flat rows,
-    ``(V,)`` bool ownership → ``(V, d)``, zero rows where no shard owns
-    the slot."""
+    """Plain PyTorch version: ``(R, d)`` table (or ``(S, rows, d)`` stack,
+    read as its flat rows), ``(V,)`` int64 flat rows, ``(V,)`` bool
+    ownership → ``(V, d)``, zero rows where no shard owns the slot."""
     zero = torch.zeros((), dtype=table_flat.dtype, device=table_flat.device)
-    return torch.where(any_owned[:, None], table_flat[flat_ids], zero)
+    return torch.where(any_owned[:, None],
+                       flat_rows(table_flat, flat_ids, table_flat.dim() - 1),
+                       zero)
 
 
 def _bad_slot_flag(device: torch.device) -> torch.Tensor:
@@ -134,13 +155,13 @@ def _gather(entry: str, counter, table_flat: torch.Tensor,
             check: bool) -> torch.Tensor:
     """Check the operands and launch the C entry point ``entry`` on CUDA
     tensors, adding one to ``counter.launches`` when given."""
-    if table_flat.dim() != 2 or flat_ids.dim() != 1:
-        raise ValueError("fused_gather: table_flat must be 2-D and flat_ids "
-                         "1-D")
-    r, d = table_flat.shape
+    if table_flat.dim() not in (2, 3) or flat_ids.dim() != 1:
+        raise ValueError("fused_gather: table_flat must be 2-D (or a 3-D "
+                         "stack) and flat_ids 1-D")
+    r, d = _table_rows(table_flat), table_flat.shape[-1]
     v = flat_ids.shape[0]
     _build.require("fused_gather", "table_flat", table_flat, torch.float32,
-                   (r, d))
+                   table_flat.shape)
     _build.require("fused_gather", "flat_ids", flat_ids, torch.int64, (v,))
     _build.require("fused_gather", "any_owned", any_owned, torch.bool, (v,))
     out = torch.empty((v, d), dtype=torch.float32, device=table_flat.device)
@@ -167,7 +188,9 @@ def fused_gather(table_flat: torch.Tensor, flat_ids: torch.Tensor,
                  any_owned: torch.Tensor, *, check: bool = True
                  ) -> torch.Tensor:
     """``out[v] = any_owned[v] ? table_flat[flat_ids[v]] : 0`` — the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors. ``check``:
+    kernel for CUDA tensors, the plain version for CPU tensors.
+    ``table_flat`` is ``(R, d)``, or an ``(S, rows, d)`` stack taken as its
+    ``S·rows`` flat rows (the kernel reads the same memory). ``check``:
     wait for the gather and raise on a flat id outside the table (else
     see :func:`raise_if_flagged`)."""
     if _build.on_cpu("fused_gather", table_flat, flat_ids, any_owned):
@@ -196,10 +219,13 @@ def fused_dequant_gather_plain(codes_flat: torch.Tensor,
                                scales_flat: torch.Tensor,
                                flat_ids: torch.Tensor,
                                any_owned: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: ``(R, d)`` int8 codes, ``(R,)`` fp32 scales,
+    """Plain PyTorch version: ``(R, d)`` int8 codes, ``(R,)`` fp32 scales
+    (or an ``(S, rows, d)`` / ``(S, rows)`` stack, read as flat rows),
     ``(V,)`` int64 flat rows, ``(V,)`` bool ownership → ``(V, d)`` fp32,
     zero rows where no shard owns the slot."""
-    rows = codes_flat[flat_ids].float() * scales_flat[flat_ids][:, None]
+    lead = codes_flat.dim() - 1
+    rows = (flat_rows(codes_flat, flat_ids, lead).float()
+            * flat_rows(scales_flat, flat_ids, lead)[:, None])
     zero = torch.zeros((), dtype=torch.float32, device=codes_flat.device)
     return torch.where(any_owned[:, None], rows, zero)
 
@@ -210,12 +236,15 @@ def _dequant_gather(entry: str, counter, codes_flat: torch.Tensor,
     """Check the operands and launch the C entry point ``entry`` on CUDA
     tensors, adding one to ``counter.launches`` when given."""
     name = "fused_dequant_gather"
-    if codes_flat.dim() != 2 or flat_ids.dim() != 1:
-        raise ValueError(f"{name}: codes_flat must be 2-D and flat_ids 1-D")
-    r, d = codes_flat.shape
+    if codes_flat.dim() not in (2, 3) or flat_ids.dim() != 1:
+        raise ValueError(f"{name}: codes_flat must be 2-D (or a 3-D stack) "
+                         f"and flat_ids 1-D")
+    r, d = _table_rows(codes_flat), codes_flat.shape[-1]
     v = flat_ids.shape[0]
-    _build.require(name, "codes_flat", codes_flat, torch.int8, (r, d))
-    _build.require(name, "scales_flat", scales_flat, torch.float32, (r,))
+    _build.require(name, "codes_flat", codes_flat, torch.int8,
+                   codes_flat.shape)
+    _build.require(name, "scales_flat", scales_flat, torch.float32,
+                   codes_flat.shape[:-1])
     _build.require(name, "flat_ids", flat_ids, torch.int64, (v,))
     _build.require(name, "any_owned", any_owned, torch.bool, (v,))
     out = torch.empty((v, d), dtype=torch.float32, device=codes_flat.device)
@@ -244,8 +273,9 @@ def fused_dequant_gather(codes_flat: torch.Tensor, scales_flat: torch.Tensor,
                          check: bool = True) -> torch.Tensor:
     """``out[v] = any_owned[v] ? codes_flat[flat_ids[v]] ·
     scales_flat[flat_ids[v]] : 0`` in fp32 — the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors. ``check`` as in
-    :func:`fused_gather`."""
+    tensors, the plain version for CPU tensors. ``codes_flat`` and
+    ``scales_flat`` may be an ``(S, rows, d)`` / ``(S, rows)`` stack, as
+    in :func:`fused_gather`. ``check`` as in :func:`fused_gather`."""
     if _build.on_cpu("fused_dequant_gather", codes_flat, scales_flat,
                      flat_ids, any_owned):
         return fused_dequant_gather_plain(codes_flat, scales_flat, flat_ids,

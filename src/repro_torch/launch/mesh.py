@@ -149,6 +149,24 @@ def derive_opt_state_specs(opt_state, param_specs: Mapping[str, str]):
     return type(opt_state)(*(one(x) for x in opt_state))
 
 
+def row_block(whole: torch.Tensor, mesh: ProcessMesh) -> torch.Tensor:
+    """This rank's ``(1, rows, d)`` block (a view) of a whole ``(S, rows,
+    d)`` stack."""
+    i = mesh.model_index
+    return whole[i:i + 1]
+
+
+def gather_row_blocks(block: torch.Tensor, mesh: ProcessMesh
+                      ) -> torch.Tensor:
+    """The whole ``(S, rows, d)`` stack from every model rank's ``(1, rows,
+    d)`` block, on every rank of the model group (``all_gather``): the
+    inverse of :func:`row_block`. Collective over the model group."""
+    whole = block.new_empty((mesh.model,) + tuple(block.shape[1:]))
+    dist.all_gather_into_tensor(whole, block.contiguous(),
+                                group=mesh.model_group)
+    return whole
+
+
 def place_row_blocks(model: torch.nn.Module, specs: Mapping[str, str],
                      mesh: ProcessMesh) -> None:
     """Keep only this rank's row block of every row-block parameter, in
@@ -156,6 +174,5 @@ def place_row_blocks(model: torch.nn.Module, specs: Mapping[str, str],
     own ``(1, rows, d)`` block of the table from then on."""
     for name, spec in specs.items():
         if spec == ROW_BLOCK:
-            i = mesh.model_index
-            block = getattr(model, name).detach()[i:i + 1].clone()
+            block = row_block(getattr(model, name).detach(), mesh).clone()
             setattr(model, name, torch.nn.Parameter(block))

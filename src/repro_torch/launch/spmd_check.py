@@ -29,7 +29,11 @@ with the cases it held on success. The functions are the same checks
 ``chip_smoke.py`` runs on the card. With ``--train-from DIR`` it runs no
 check: it trains the cases of ``DIR`` from the parameters there and
 reports the losses (:func:`train_from`), for a caller to hold against
-another implementation.
+another implementation. With ``--resume DIR`` it holds only checkpoints
+under spmd (:func:`check_resume`): a resumed run bitwise the unbroken
+one, the file ``==`` the simulated trainer's, and a simulated checkpoint
+at twice the table shards resumed on the mesh; the files stay under
+``DIR`` for the caller.
 """
 from __future__ import annotations
 
@@ -173,6 +177,111 @@ def compare_rank_steps(real, sim, num_candidates: int = 50,
     return out
 
 
+def tree_mismatches(a, b) -> List[str]:
+    """Paths of the checkpoint trees (``KGETrainer._checkpoint_tree``: the
+    parameters, Adam moments and step counter) of trainers ``a`` and ``b``
+    whose bits differ."""
+    from repro_torch.training.checkpoint import tree_leaves_with_path
+    pa = dict(tree_leaves_with_path(a._checkpoint_tree()))
+    pb = dict(tree_leaves_with_path(b._checkpoint_tree()))
+    bad = sorted(set(pa) ^ set(pb))
+    for k in sorted(set(pa) & set(pb)):
+        x, y = pa[k].detach(), pb[k].detach()
+        if x.shape != y.shape or not torch.equal(
+                x.reshape(-1).view(torch.uint8),
+                y.reshape(-1).view(torch.uint8)):
+            bad.append(k)
+    return bad
+
+
+def checkpoint_mismatches(path: str, other: str) -> List[str]:
+    """The arrays (by key) and manifest fields of two checkpoints that are
+    not ``==``, dtypes included."""
+    from repro_torch.training.checkpoint import read_metadata
+    with np.load(path) as z, np.load(other) as w:
+        a, b = dict(z), dict(w)
+    bad = sorted(set(a) ^ set(b))
+    bad += [k for k in sorted(set(a) & set(b)) if a[k].dtype != b[k].dtype
+            or not np.array_equal(a[k], b[k])]
+    if read_metadata(path) != read_metadata(other):
+        bad.append("manifest")
+    return bad
+
+
+def compare_resume(splits, cfg, device, directory: str) -> Dict:
+    """Checkpoints under spmd: ``cfg`` on the multi-process step trained two
+    epochs without a break, against epoch 1, ``save_checkpoint`` into
+    ``directory/spmd`` and a new spmd trainer that restores it and trains
+    epoch 2: epoch 2's per-step losses and the state after it bitwise
+    (:func:`tree_mismatches`). The checkpoint ``==`` the simulated
+    trainer's at epoch 1 (arrays and manifest). For an fp32 table also: a
+    simulated trainer at twice the table shards saves epoch 1, and a new
+    spmd trainer restores it (the layout converted) and trains epoch 2
+    bitwise the unbroken run. Raises ``AssertionError`` on a difference;
+    returns the losses, the spmd checkpoint's path and bytes."""
+    from repro_torch.training import KGETrainer
+
+    rank = dist.get_rank()
+    real = dataclasses.replace(cfg, spmd=True)
+    sim = dataclasses.replace(cfg, spmd=False, gather_exchange=None)
+
+    def run(config, epochs, restore=None, save=None):
+        tr = KGETrainer(splits, config, device=device)
+        try:
+            if restore is not None:
+                tr.restore(restore)
+            hist = tr.fit(epochs)
+            path = tr.save_checkpoint(save) if save is not None else None
+        finally:
+            tr.close()
+        return tr, hist, path
+
+    unbroken, hist, _ = run(real, 2)
+    want = hist[1]["losses"]
+    _, _, path = run(real, 1, save=os.path.join(directory, "spmd"))
+    resumed, got, _ = run(real, 1, restore=path)
+    bad = tree_mismatches(unbroken, resumed)
+    if got[0]["losses"] != want or got[0]["epoch"] != 2 or bad:
+        raise AssertionError(f"resumed spmd epoch 2 {got[0]['losses']} != "
+                             f"unbroken {want}; state {bad}")
+    _, _, sim_path = run(sim, 1, save=os.path.join(directory,
+                                                   f"sim_rank{rank}"))
+    bad = checkpoint_mismatches(path, sim_path)
+    if bad:
+        raise AssertionError(f"spmd checkpoint != simulated: {bad}")
+    out = {"losses": want, "path": path, "bytes": os.path.getsize(path)}
+    if cfg.table_dtype == "fp32":
+        wide = dataclasses.replace(sim, num_table_shards=2 *
+                                   cfg.num_table_shards)
+        _, _, wide_path = run(wide, 1, save=os.path.join(
+            directory, f"sim_wide_rank{rank}"))
+        resumed, got, _ = run(real, 1, restore=wide_path)
+        bad = tree_mismatches(unbroken, resumed)
+        if got[0]["losses"] != want or bad:
+            raise AssertionError(
+                f"a {wide.num_table_shards}-shard simulated checkpoint "
+                f"resumed on the spmd step: {got[0]['losses']} != {want}; "
+                f"state {bad}")
+        out["wide_losses"] = got[0]["losses"]
+    return out
+
+
+def check_resume(device: torch.device, table_shards: int,
+                 directory: str) -> Dict:
+    """:func:`compare_resume` at the fp32 and int8 tables on the
+    initialised process group."""
+    from repro_torch.data import synthetic_fb15k
+    from repro_torch.training import TrainConfig
+
+    splits = synthetic_fb15k(scale=0.01, seed=3)
+    base = TrainConfig(num_trainers=4, hidden_dim=8, batch_size=256,
+                       epochs=2, seed=0, num_table_shards=table_shards,
+                       pipeline="serial")
+    return {dtype: compare_resume(
+        splits, dataclasses.replace(base, table_dtype=dtype), device,
+        os.path.join(directory, dtype)) for dtype in ("fp32", "int8")}
+
+
 def cli_lines(argv: Sequence[str]) -> List[str]:
     """The loss and metric lines ``launch.train`` prints for ``argv`` (the
     times cut out); this rank prints them only if it is rank 0."""
@@ -270,6 +379,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="instead of the checks, train the cases of "
                          "DIR/config.json from given parameters "
                          "(train_from)")
+    ap.add_argument("--resume", metavar="DIR", default=None,
+                    help="instead of the checks, hold checkpoints under "
+                         "spmd (check_resume), written under DIR")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -281,8 +393,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     dist.init_process_group(backend_for(device),
                             init_method=args.init_method, **kw)
     try:
-        cases = (train_from(args.train_from, device) if args.train_from
-                 else check_all(device, args.table_shards, args.cli))
+        if args.train_from:
+            cases = train_from(args.train_from, device)
+        elif args.resume:
+            cases = check_resume(device, args.table_shards, args.resume)
+        else:
+            cases = check_all(device, args.table_shards, args.cli)
         dist.barrier()
     finally:
         dist.destroy_process_group()

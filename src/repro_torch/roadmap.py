@@ -7,8 +7,6 @@ item, instead of silently doing something else.
 from __future__ import annotations
 
 ITEMS = {
-    "spmd_checkpoint": "ROADMAP Queue 1 item 2b: checkpoints of the "
-                       "multi-process step",
     "lm_train": "ROADMAP Queue 1 item 7a: LM training (loss_fn, "
                 "make_train_step, train_lm, TokenStream and the WKV "
                 "backward)",

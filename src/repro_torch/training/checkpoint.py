@@ -85,6 +85,11 @@ def _like(arr: np.ndarray, leaf):
     return np.asarray(arr).astype(np.asarray(leaf).dtype, copy=False)
 
 
+def checkpoint_path(directory: str, step: int) -> str:
+    """The ``.npz`` path of the checkpoint of ``step`` in ``directory``."""
+    return os.path.join(directory, f"ckpt_{step:08d}.npz")
+
+
 def save_checkpoint(directory: str, step: int, tree: Tree,
                     metadata: Optional[Dict] = None, keep: int = 3) -> str:
     """Write ``tree`` as ``ckpt_{step:08d}.npz`` and its manifest, then keep
@@ -92,7 +97,7 @@ def save_checkpoint(directory: str, step: int, tree: Tree,
     ``.npz`` path."""
     os.makedirs(directory, exist_ok=True)
     arrays = {k: _to_numpy(v) for k, v in tree_leaves_with_path(tree)}
-    path = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    path = checkpoint_path(directory, step)
     np.savez(path, **arrays)
     manifest = {"step": step, "keys": sorted(arrays),
                 "metadata": metadata or {}}

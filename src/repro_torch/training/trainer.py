@@ -16,13 +16,12 @@ The trainer composes four seams, as the reference does:
 * ``training.evaluation`` — streamed encoding + filtered ranking (sharded
   over the entity table's row blocks when it is sharded).
 
-Everything runs on ``device`` (default ``cuda``). Options of the reference
-that the port has not reached raise ``NotImplementedError`` naming their
-ROADMAP item (``repro_torch.roadmap``): checkpoints under ``spmd``.
-Timing mirrors the paper's Fig. 6 breakdown: ``t_get_compute_graph`` is
-the host batch construction left on the critical path, ``t_host_build``
-all of it, ``overlap_fraction`` the share the pipeline hid behind the
-device step.
+Everything runs on ``device`` (default ``cuda``). Checkpoints are the
+reference's files, also under ``spmd`` (the row blocks gathered to one
+file and placed back on the ranks). Timing mirrors the paper's Fig. 6
+breakdown: ``t_get_compute_graph`` is the host batch construction left on
+the critical path, ``t_host_build`` all of it, ``overlap_fraction`` the
+share the pipeline hid behind the device step.
 """
 from __future__ import annotations
 
@@ -41,20 +40,20 @@ from repro_torch.data.pipeline import (
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sharded_gather import raise_if_flagged
 from repro_torch.launch.mesh import (
-    derive_opt_state_specs, fit_spmd_mesh, kge_param_specs,
-    make_process_mesh, place_row_blocks, world_size,
+    ROW_BLOCK, derive_opt_state_specs, fit_spmd_mesh, gather_row_blocks,
+    kge_param_specs, make_process_mesh, place_row_blocks, row_block,
+    world_size,
 )
 from repro_torch.models.kge import (
     KGEConfig, fullgraph_loss, init_kge_params, minibatch_loss,
 )
 from repro_torch.models.rgcn import RGCNConfig
-from repro_torch.roadmap import not_ported
 from repro_torch.sharding.embedding import (
     SIM_EXCHANGES, SPMD_EXCHANGES, TABLE_DTYPES,
 )
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training.checkpoint import (
-    read_metadata, restore_checkpoint, save_checkpoint,
+    checkpoint_path, read_metadata, restore_checkpoint, save_checkpoint,
     tree_leaves_with_path,
 )
 from repro_torch.training.distributed import (
@@ -358,22 +357,25 @@ class KGETrainer:
     # generators come from), so that a resumed run draws what the run
     # without a break draws
     # ------------------------------------------------------------------ #
-    def _checkpoint_tree(self) -> Dict:
+    def _checkpoint_tree(self, whole=None) -> Dict:
         """``{"params", "opt"}`` in the reference trainer's layout (the
         reference's parameter tree, ``mu`` and ``nu`` in it too), the
-        leaves the trainer's own tensors."""
-        return {"params": kge_tree((n, p.detach()) for n, p in
-                                   self.params.named_parameters()),
+        leaves the trainer's own tensors. Under spmd ``whole`` maps each
+        row-block leaf (this rank's block of the entity table and of its
+        moments) to its whole-table form."""
+        specs = self.param_specs or {}
+
+        def leaves(named):
+            return kge_tree(
+                (n, whole(t.detach()) if whole is not None and
+                 specs.get(n) == ROW_BLOCK else t.detach())
+                for n, t in named)
+
+        return {"params": leaves(self.params.named_parameters()),
                 "opt": opt_lib.OptState(
                     step=self.opt_state.step,
-                    mu=kge_tree(self.opt_state.mu.items()),
-                    nu=kge_tree(self.opt_state.nu.items()))}
-
-    def _require_single_process(self, what: str) -> None:
-        if self.mesh is not None:
-            raise not_ported(f"{what} under spmd (the row blocks gathered "
-                             f"to one file and placed back on the ranks)",
-                             "spmd_checkpoint")
+                    mu=leaves(self.opt_state.mu.items()),
+                    nu=leaves(self.opt_state.nu.items()))}
 
     def save_checkpoint(self, directory: str, keep: int = 3) -> str:
         """One checkpoint per call, stamped with the current epoch, in the
@@ -381,16 +383,28 @@ class KGETrainer:
         (``params/entity_embedding``, ``opt/mu/layers/0/bases``, ...) and
         the manifest's ``metadata`` holds ``epoch`` and ``key``, the raw
         ``PRNGKey(seed + 1)`` the reference trainer holds (``[0, seed +
-        1]``), so either trainer resumes the other's run. Under spmd it
-        raises, before writing anything."""
-        self._require_single_process("save_checkpoint")
+        1]``), so either trainer resumes the other's run.
+
+        Under spmd every rank calls it: the entity table's row blocks and
+        their Adam moments are gathered over the model group
+        (``launch.mesh.gather_row_blocks``), rank 0 (data 0, model 0)
+        writes the file the simulated trainer writes and prunes old ones
+        (``keep``), and every rank returns its path after a barrier."""
         if not 0 <= self._seed < 2 ** 32:
             raise ValueError(f"seed {self._seed - 1} has no [0, seed + 1] "
                              f"key")
         meta = {"epoch": int(self._epoch), "key": [0, int(self._seed)]}
-        return save_checkpoint(directory, self._epoch,
-                               self._checkpoint_tree(), metadata=meta,
-                               keep=keep)
+        if self.mesh is None:
+            return save_checkpoint(directory, self._epoch,
+                                   self._checkpoint_tree(), metadata=meta,
+                                   keep=keep)
+        tree = self._checkpoint_tree(
+            lambda block: gather_row_blocks(block, self.mesh))
+        if self.mesh.rank == 0:
+            save_checkpoint(directory, self._epoch, tree, metadata=meta,
+                            keep=keep)
+        torch.distributed.barrier()
+        return checkpoint_path(directory, self._epoch)
 
     def restore(self, path: str) -> int:
         """Resume from a checkpoint of :meth:`save_checkpoint` (or of the
@@ -398,9 +412,15 @@ class KGETrainer:
         model's parameters and the optimizer state, whose objects the step
         holds (the entity table converts across layouts and shard counts),
         then the epoch and the generator seed come from the metadata.
-        Returns the epoch. Under spmd it raises."""
-        self._require_single_process("restore")
-        like = self._checkpoint_tree()
+        Returns the epoch.
+
+        Under spmd every rank reads the file (across hosts ``path`` must
+        be on storage every host sees), converts the table to the
+        trainer's layout and shard count, and keeps its own row block of
+        the table and of its moments (``launch.mesh.row_block``)."""
+        like = self._checkpoint_tree(None if self.mesh is None else (
+            lambda block: block.new_empty((self.mesh.model,)
+                                          + tuple(block.shape[1:]))))
         step, tree = restore_checkpoint(
             path, like, entity_rows=self.train_kg.num_entities)
         _, meta = read_metadata(path)
@@ -411,8 +431,12 @@ class KGETrainer:
                 f"(seed, epoch, trainer[, step]) and continue only a key "
                 f"of the form [0, seed + 1]")
         with torch.no_grad():
-            for (_, dst), (_, src) in zip(tree_leaves_with_path(like),
-                                          tree_leaves_with_path(tree)):
+            for (_, dst), (_, src) in zip(
+                    tree_leaves_with_path(self._checkpoint_tree()),
+                    tree_leaves_with_path(tree)):
+                if dst.shape != src.shape:
+                    # a row-block leaf came back whole: this rank's block
+                    src = row_block(src, self.mesh)
                 dst.copy_(src)
         self._epoch = int(meta.get("epoch", step))
         if key is not None:

@@ -15,10 +15,14 @@ Against the reference: 2 ranks as (1, 2) from ``repro.KGETrainer``'s
 initial parameters (``--train-from``), within ``rtol=1e-3, atol=1e-4`` of
 its spmd trainer on two forced host devices.
 
+Checkpoints under spmd (``--resume``): 2 ranks as (1, 2) and 4 as (2,
+2), a resumed run bitwise the unbroken one, the file == the simulated
+trainer's, and the reference's trainer restoring the file.
+
 In this process: the mesh rule, the placement, the per-rank batch
-selection, ``--sharded-transfer`` on the simulated step, and the errors
-(``spmd=True`` without a process group; checkpoints under spmd, on a
-1-rank gloo group).
+selection, ``--sharded-transfer`` on the simulated step, the errors
+(``spmd=True`` without a process group) and a checkpoint round trip on a
+1-rank gloo group.
 """
 import dataclasses
 import json
@@ -27,10 +31,14 @@ import subprocess
 import sys
 import time
 
+import jax
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from repro.data import synthetic_fb15k as j_synthetic_fb15k
+from repro.training import KGETrainer as JKGETrainer
+from repro.training import TrainConfig as JTrainConfig
 
 from repro_torch.data import synthetic_fb15k
 from repro_torch.data.pipeline import BatchShardings
@@ -38,6 +46,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import spmd_check
 from repro_torch.sharding import SPMD_EXCHANGES
 from repro_torch.training import KGETrainer, TrainConfig
+from repro_torch.training.checkpoint import tree_leaves_with_path
 from repro_torch.training.optimizer import adam, sgd
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -321,7 +330,12 @@ def test_one_rank_mesh_steps_and_refuses_checkpoints(one_rank_group,
                                                      tmp_path):
     """On a 1 x 1 mesh: the real step == the simulated one for the int8
     table (its exchange runs on the one rank), spmd=None stays simulated
-    on one rank, and a checkpoint under spmd raises before writing."""
+    on one rank, an exchange the spmd step lacks is refused, and a
+    checkpoint under spmd (refused before checkpoints of the spmd step
+    were ported) round-trips: the file == the simulated trainer's, and a
+    new spmd trainer restores it (epoch and seed scrambled first) to every
+    parameter, Adam moment and the step counter bitwise, the epoch and
+    the seed."""
     splits = synthetic_fb15k(scale=0.01, seed=3)
     cfg = TrainConfig(num_trainers=2, hidden_dim=8, batch_size=64,
                       table_dtype="int8", gather_exchange="alltoall")
@@ -331,13 +345,56 @@ def test_one_rank_mesh_steps_and_refuses_checkpoints(one_rank_group,
     assert len(out["real"]["losses"]) == 2
     assert KGETrainer(splits, dataclasses.replace(cfg, gather_exchange=None),
                       device="cpu").mesh is None
-    directory = tmp_path / "ckpt"
-    for call in (lambda: real.save_checkpoint(str(directory)),
-                 lambda: real.restore(str(directory))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2b"):
-            call()
-    assert not directory.exists()
     with pytest.raises(ValueError, match="not available on the spmd step"):
         KGETrainer(splits, dataclasses.replace(cfg, spmd=True,
                                                gather_exchange="fused"),
                    device="cpu")
+    path = real.save_checkpoint(str(tmp_path / "spmd"))
+    assert path == str(tmp_path / "spmd" / "ckpt_00000000.npz")
+    sim_path = sim.save_checkpoint(str(tmp_path / "sim"))
+    assert spmd_check.checkpoint_mismatches(path, sim_path) == []
+    fresh = KGETrainer(splits, dataclasses.replace(cfg, spmd=True),
+                       device="cpu")
+    fresh._epoch, fresh._seed = 5, 999
+    assert fresh.restore(path) == 0 and fresh._seed == real._seed
+    assert spmd_check.tree_mismatches(fresh, real) == []
+    fresh.close()
+
+
+@pytest.mark.parametrize("world,table_shards", [(2, 2), (4, 2)])
+def test_spmd_checkpoints_over_gloo(tmp_path, world, table_shards):
+    """Checkpoints under spmd on every rank (``spmd_check --resume``, fp32
+    and int8): epoch 2 resumed from an epoch-1 checkpoint bitwise the
+    unbroken run, the file == the simulated trainer's, and an fp32
+    checkpoint of the simulated trainer at 4 shards resumed on the 2-shard
+    mesh bitwise too. Here: the ranks agree, the spmd file == each rank's
+    simulated file, and the reference's trainer restores the spmd file
+    (the cross-package restore) to its arrays bitwise."""
+    directory = tmp_path / "ckpt"
+    reports = spawn(tmp_path, world, table_shards,
+                    extra=["--resume", str(directory)])
+    cases = reports[0]["cases"]
+    assert all(r["cases"] == cases for r in reports)
+    assert set(cases) == {"fp32", "int8"}
+    assert cases["fp32"]["wide_losses"] == cases["fp32"]["losses"]
+    for dtype, case in cases.items():
+        path = case["path"]
+        assert path == str(directory / dtype / "spmd" / "ckpt_00000001.npz")
+        for r in range(world):
+            sim = directory / dtype / f"sim_rank{r}" / "ckpt_00000001.npz"
+            assert spmd_check.checkpoint_mismatches(path, str(sim)) == []
+        jtr = JKGETrainer(j_synthetic_fb15k(scale=0.01, seed=3),
+                          JTrainConfig(num_trainers=4, hidden_dim=8,
+                                       batch_size=256, seed=0,
+                                       num_table_shards=table_shards,
+                                       table_dtype=dtype))
+        assert jtr.restore(path) == 1
+        restored = dict(tree_leaves_with_path(jax.tree_util.tree_map(
+            np.asarray, {"params": jtr.params, "opt": jtr.opt_state})))
+        jtr.close()
+        with np.load(path) as z:
+            arrays = dict(z)
+        assert set(restored) == set(arrays)
+        for k, a in arrays.items():
+            assert restored[k].dtype == a.dtype and \
+                np.array_equal(restored[k], a), (dtype, k)

@@ -145,14 +145,21 @@ Phases, each of which fails the run on error:
    vertex-state scatter_add_onehot at d = 32, each against its plain
    version and bitwise its first kernel, timed. The three runs share one
    preprocessing of the graph.
-6f. The multi-process step on a NCCL process group of world size 1 in
-   this process (``file://`` rendezvous under ``build/``; a 1 x 1 mesh,
-   the 4 trainers grouped on the one rank): phase 6b's configuration with
-   a 1-shard table and --use-kernel, fp32 and int8, through
-   ``repro_torch.launch.train --spmd``: two steps' losses, parameters and
-   Adam moments bitwise the simulated step's (--no-spmd), the test
-   evaluation (the rank step) equal, make_sharded_rank_step == the
-   simulated counts in both ranking protocols and at both table dtypes;
+6f. Each rank's own pipeline first: phase 6b's mini-batch pipeline,
+   serial and async, built as data rank i of a 4 x 1 mesh (i = 0..3, no
+   process group), each rank's first 8 batches bitwise the whole
+   pipeline's block and its step count the whole's (the serial rank's
+   epoch run to its end); each rank's host build and wall time per step
+   beside the whole's. Then the multi-process step on a NCCL process
+   group of world size 1 in this process (``file://`` rendezvous under
+   ``build/``; a 1 x 1 mesh, the 4 trainers grouped on the one rank):
+   phase 6b's configuration with a 1-shard table and --use-kernel, fp32
+   and int8, through ``repro_torch.launch.train --spmd``: two steps'
+   losses, parameters and Adam moments bitwise the simulated step's
+   (--no-spmd), the test evaluation (each rank's row block of the
+   embeddings, the rank step) equal, make_sharded_rank_step over the
+   rank's row block == the simulated counts in both ranking protocols
+   and at both table dtypes;
    the real and the simulated step times, alternated; launch counts of
    the spmd runs. Then checkpoints under spmd, fp32 and int8: two epochs
    under --spmd without a break, against epoch 1, ``save_checkpoint`` and
@@ -165,9 +172,10 @@ Phases, each of which fails the run on error:
    (filtered) and ogbl-citation2 width (N = 2,927,963), S = 4, 8 queries,
    k = 10, under the recorder: no collective, no output with the
    dimension N (no dense (B, N) score matrix), int8 no float32 image of
-   the table; the train step (psum_scatter, fp32 and int8, --use-kernel)
-   and the rank step (both protocols, V 14,541, d 75, B 256) at phase
-   6f's configuration on its one-rank group: collectives recorded, all on
+   the table; the train step (psum_scatter, fp32 and int8, --use-kernel),
+   the test evaluation (``eval[all-entities]``, fp32) and the rank step
+   (both protocols, V 14,541, d 75, B 256) at phase 6f's configuration
+   on its one-rank group: collectives recorded, all on
    one-rank groups, parameters and moments updated in place, the
    replication rule that names the rank's own block refused by name;
    every program's outputs bitwise with the recorder on and off; a probe
@@ -2611,6 +2619,87 @@ def spmd_resume(argv):
     return out
 
 
+RANK_PIPELINE_STEPS = 8      # phase 6f: steps each per-rank pipeline is held
+RANK_PIPELINE_DATA = 4       # phase 6f: a 4 x 1 mesh, one trainer a rank
+
+
+def per_rank_pipelines(trainer, card):
+    """Phase 6f, each rank builds only its own trainers' batches: phase
+    6b's mini-batch pipeline (``trainer``'s partitions, budgets, 4-shard
+    table layout), serial and async, built whole and as data rank ``i``
+    of a 4 x 1 mesh (``BatchShardings(4, 1, i, 0)``, no process group),
+    ``i`` in 0..3. Each rank's first 8 device batches bitwise ``select``
+    of the whole pipeline's; each rank's step count (``num_steps``, and
+    the serial rank's host epoch run to its end) == the whole's. Host
+    build per steady step (``PipelineStats.host_build_s``: the partition
+    batches this process built) and wall time per step (build, stack,
+    plan and copy) of each, whole and per rank. Returns them."""
+    import torch
+    from repro_torch.data.pipeline import BatchShardings, make_input_pipeline
+    pre, cfg = trainer.pre, trainer.cfg
+    steps = RANK_PIPELINE_STEPS
+
+    def pipe(kind, shardings=None):
+        return make_input_pipeline(
+            kind, pre.partitions, batch_size=cfg.batch_size,
+            num_negatives=cfg.num_negatives, num_hops=cfg.num_hops,
+            budget=pre.budget, seed=cfg.seed, sampler=cfg.negative_sampler,
+            csrs=pre.csrs, prefetch=cfg.prefetch,
+            table_layout=pre.table_layout, dedup_gather=cfg.gather_dedup,
+            device=trainer.device, shardings=shardings)
+
+    def window(p):
+        t0 = time.perf_counter()
+        it = p.device_batches(1)
+        got = [b for _, b in zip(range(steps), it)]
+        it.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = p.last_stats
+        return got, {"build_ms": 1e3 * st.host_build_s / max(
+            st.num_batches - 1, 1), "wall_ms": 1e3 * wall / len(got),
+            "num_steps": p.num_steps}
+
+    out = {}
+    for kind in ("serial", "async"):
+        whole, w = window(pipe(kind))
+        res = {"whole": w, "ranks": []}
+        for i in range(RANK_PIPELINE_DATA):
+            sh = BatchShardings(RANK_PIPELINE_DATA, 1, i, 0)
+            p = pipe(kind, sh)
+            got, r = window(p)
+            if len(got) != len(whole) or r["num_steps"] != w["num_steps"]:
+                raise AssertionError(f"rank {i} {kind} pipeline: "
+                                     f"{len(got)} batches, {r['num_steps']}"
+                                     f" steps; whole {w['num_steps']}")
+            for step, (g, b) in enumerate(zip(got, whole)):
+                b = sh.select(b)
+                bad = sorted(k for k in b if k not in g or not torch.equal(
+                    g[k], b[k]))
+                if bad or set(g) != set(b):
+                    raise AssertionError(f"rank {i} {kind} step {step}: "
+                                         f"{bad} differ from the whole "
+                                         f"pipeline's block")
+            if kind == "serial":
+                r["epoch_steps"] = sum(1 for _ in p.epoch_batches(1))
+                if r["epoch_steps"] != w["num_steps"]:
+                    raise AssertionError(
+                        f"rank {i}'s epoch took {r['epoch_steps']} steps, "
+                        f"the whole stream's {w['num_steps']}")
+            res["ranks"].append(r)
+        out[kind] = res
+        log(f"[phase 6f] {kind} pipeline as data rank i of a "
+            f"{RANK_PIPELINE_DATA} x 1 mesh (no process group): the first "
+            f"{steps} batches bitwise the whole pipeline's block, "
+            f"{w['num_steps']} steps an epoch on every rank; host build "
+            f"per step, ms: whole {w['build_ms']:.3f}, ranks "
+            f"{[round(x['build_ms'], 3) for x in res['ranks']]}; wall per "
+            f"step (build, stack, plan, copy), ms: whole "
+            f"{w['wall_ms']:.3f}, ranks "
+            f"{[round(x['wall_ms'], 3) for x in res['ranks']]}; {card}")
+    return out
+
+
 def backward_probe(dev):
     """Phase 6g's probe: an autograd function that doubles its input and
     whose backward also makes a ``(V, d)`` buffer (FB15k-237's table
@@ -2648,6 +2737,7 @@ def backward_probe(dev):
 AUDIT_SERVE_KERNELS = {"fp32": SERVING_KERNELS, "int8": SERVING_INT8_KERNELS}
 AUDIT_TRAIN_KERNELS = ("basis_message", "segment_sum", "scatter_add_onehot")
 AUDIT_RANK_KERNELS = {"all-entities": ("kge_score",), "candidates": ()}
+AUDIT_EVAL_KERNELS = ("basis_message", "segment_sum", "kge_score")
 
 
 def run_comm_audit(dev, card):
@@ -2657,8 +2747,9 @@ def run_comm_audit(dev, card):
     k = 10: no collective, no dimension V (no dense (B, N) score matrix),
     int8 no float32 table image. On the one-rank NCCL group of phase 6f,
     at its configuration: the train step (psum_scatter, fp32 and int8,
-    --use-kernel) and the rank step in both protocols (V 14,541, d 75, B
-    256, 50 candidates), each holding that it recorded collectives, all
+    --use-kernel), the fp32 trainer's test evaluation
+    (``eval[all-entities]``) and the rank step in both protocols (V
+    14,541, d 75, B 256, 50 candidates), each holding that it recorded collectives, all
     on one-rank groups, and the in-place rule; the replication rule
     naming the rank's own block is refused by name. Every program runs
     once recorded and once not, its outputs bitwise equal. A probe whose
@@ -2715,6 +2806,12 @@ def run_comm_audit(dev, card):
             report = programs.audit_trainer_step(tr, name)
             keep(name, report, launch_counts(), AUDIT_TRAIN_KERNELS)
             tr.close()
+            if dtype == "fp32":
+                # the test evaluation, each rank over its own row block
+                reset_counts()
+                report = programs.audit_trainer_eval(tr)
+                keep("eval[all-entities]", report, launch_counts(),
+                     AUDIT_EVAL_KERNELS)
     cfg = programs.AuditConfig(
         num_trainers=4, num_table_shards=1, eval_dim=FB15K["dim"],
         eval_batch=256, eval_relations=FB15K["relations"],
@@ -2744,28 +2841,32 @@ def run_comm_audit(dev, card):
     return out
 
 
-def run_spmd(dev, card):
-    """Phase 6f: the multi-process step on a NCCL process group of world
-    size 1 in this process (a 1 x 1 mesh: 4 trainers grouped on the one
-    rank, a 1-shard table), phase 6b's configuration with --use-kernel,
-    fp32 and int8, through ``repro_torch.launch.train --spmd``, against
-    the same configuration on the simulated step: per-step losses,
-    parameters and Adam moments bitwise, the test evaluation equal, and
-    ``make_sharded_rank_step`` == the simulated counts in both protocols;
-    then checkpoints under spmd (:func:`spmd_resume`), fp32 and int8.
-    Launch counts are read around the spmd runs' steps and evaluation.
-    Phase 6g (:func:`run_comm_audit`) runs on the same group, which is
-    destroyed before returning."""
+def run_spmd(dev, card, mb_trainer):
+    """Phase 6f: each rank's own pipeline first (:func:`per_rank_pipelines`
+    on ``mb_trainer``, phase 6b's main trainer; no process group). Then
+    the multi-process step on a NCCL process group of world size 1 in
+    this process (a 1 x 1 mesh: 4 trainers grouped on the one rank, a
+    1-shard table), phase 6b's configuration with --use-kernel, fp32 and
+    int8, through ``repro_torch.launch.train --spmd``, against the same
+    configuration on the simulated step: per-step losses, parameters and
+    Adam moments bitwise, the test evaluation equal, and
+    ``make_sharded_rank_step`` over the rank's row block == the simulated
+    counts in both protocols; then checkpoints under spmd
+    (:func:`spmd_resume`), fp32 and int8. Launch counts are read around
+    the spmd runs' steps and evaluation. Phase 6g (:func:`run_comm_audit`)
+    runs on the same group, which is destroyed before returning."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import spmd_check, train
 
+    t_phase = time.perf_counter()
+    pipelines = per_rank_pipelines(mb_trainer, card)
     os.makedirs(os.path.dirname(SPMD_RENDEZVOUS), exist_ok=True)
     if os.path.exists(SPMD_RENDEZVOUS):
         os.remove(SPMD_RENDEZVOUS)
     dist.init_process_group("nccl", init_method=f"file://{SPMD_RENDEZVOUS}",
                             world_size=1, rank=0)
-    out, t_phase = {}, time.perf_counter()
+    out = {"rank_pipelines": pipelines}
     try:
         for dtype in ("fp32", "int8"):
             argv = SPMD_ARGV + ["--table-dtype", dtype]
@@ -2808,9 +2909,9 @@ def run_spmd(dev, card):
                 f" ms, simulated {[round(1e3 * x, 3) for x in times['sim']]}"
                 f" ms; launches {launches}")
         rank = spmd_check.compare_rank_steps(real, sim)
-        log(f"[phase 6f] make_sharded_rank_step == simulated counts, "
-            f"all-entities and candidate protocols, fp32 and int8 tables: "
-            f"{rank}")
+        log(f"[phase 6f] make_sharded_rank_step over the rank's row block "
+            f"== simulated counts, all-entities and candidate protocols, "
+            f"fp32 and int8 tables: {rank}")
         out["rank_steps"] = rank
         del real, sim
         for dtype in ("fp32", "int8"):
@@ -3342,7 +3443,7 @@ def main() -> int:
     c2 = run_citation2(dev, part, mbs, phase2)
     # phase 6f: the multi-process step on a NCCL group of one rank (counts
     # reset and read inside run_spmd around the spmd runs)
-    spmd = run_spmd(dev, card)
+    spmd = run_spmd(dev, card, main_tr)
     for label in ("fp32", "int8"):
         missing = [k for k in SPMD_KERNELS
                    if spmd[label]["launches"][k] == 0]

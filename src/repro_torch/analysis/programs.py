@@ -17,6 +17,13 @@ HLO):
 * ``rank[<protocol>]``: ``eval.sharded.make_sharded_rank_step``, both
   protocols. Contract: the true-score and integer-count ``all_reduce`` s
   on the ``model`` axis, exact bytes; no dimension ``V``.
+* ``eval[all-entities]``: ``KGETrainer.evaluate("test")`` under spmd, the
+  streamed encode and the filtered ranking of both directions. Contract:
+  the encode's exchange (per partition) and the ranking's head-row,
+  true-score and count ``all_reduce`` s (per test batch and direction),
+  all on the ``model`` axis, exact bytes; no output with the dimension
+  ``V`` (nor ``S·rows``): each rank holds only its row block of the
+  embeddings. The reference has no such program.
 * ``serve[topk]``, ``serve[topk,int8]``: ``serving.kge.ShardedKGEServer.
   topk_tails`` (the head gather, every shard's ``kge_score`` and top-k,
   the merge). Contract: no collective, no dimension ``V`` (the dense
@@ -51,6 +58,14 @@ rank[all-entities]     3 all-reduce ``2·B·(4 + 8 + 8)``: the counts are
 rank[candidates]       3 all-reduce ``2·B·(4 + 8 + 8)``: the true score
                        is lane 0 of the candidates' own product (2
                        all-reduce ``2·2·B·4``, the true score an input)
+eval[all-entities]     per partition (``P``) a reduce-scatter
+                       ``(V_p'/S)·d·4`` and an all-gather ``V_p'·d·4``
+                       (``V_p'`` the padded vertex count, padded to a
+                       multiple of ``S``); per test batch of ``b`` queries
+                       and direction 4 all-reduce ``2·b·(4·d + 4 + 8 +
+                       8)``: ``8·ceil(T/256)`` all-reduce of
+                       ``4·T·(4·d + 20)`` over ``T`` test triplets (no
+                       reference program)
 serve[topk(,int8)]     none
 =====================  ===============================================
 
@@ -64,8 +79,9 @@ On a mesh whose model axis is one rank (``S = 1``) the rank's block is the
 whole table: the replication rule naming it is refused by name
 (``CommContract.refused``), the collectives are all degenerate, and
 ``min_recorded`` keeps a recorder that sees nothing from passing. The
-train and rank programs need an initialised process group whose ranks fit
-the mesh (``launch.mesh.fit_spmd_mesh``); the serve programs need none.
+train, rank and eval programs need an initialised process group whose
+ranks fit the mesh (``launch.mesh.fit_spmd_mesh``); the serve programs
+need none.
 Run them with ``python -m repro_torch.launch.audit``.
 """
 from __future__ import annotations
@@ -145,10 +161,10 @@ def _mesh_axes(mesh) -> Tuple[Tuple[str, int], ...]:
 # train step
 # ---------------------------------------------------------------------- #
 def _build_trainer(cfg: AuditConfig, exchange: str, dedup: bool,
-                   table_dtype: str, device):
+                   table_dtype: str, device, scale: Optional[float] = None):
     from repro_torch.data import synthetic_fb15k
     from repro_torch.training import KGETrainer, TrainConfig
-    splits = synthetic_fb15k(scale=cfg.data_scale, seed=cfg.seed)
+    splits = synthetic_fb15k(scale=scale or cfg.data_scale, seed=cfg.seed)
     return KGETrainer(splits, TrainConfig(
         num_trainers=cfg.num_trainers,
         num_hops=cfg.num_hops,
@@ -411,6 +427,106 @@ def audit_rank_step(protocol: str, mesh,
 
 
 # ---------------------------------------------------------------------- #
+# evaluation over the embeddings' row blocks
+# ---------------------------------------------------------------------- #
+EVAL_BATCH = 256    # eval.ranking.ranking_metrics' queries per batch
+# the eval program's synthetic_fb15k scale: V = 290, a count no
+# partition's padded vertex count (a multiple of 8) can equal
+EVAL_SCALE = 0.02
+
+
+def eval_contract(tr, name: str, mesh=None) -> CommContract:
+    """The contract of ``tr.evaluate("test")`` on ``mesh`` (default the
+    trainer's own): the encode's exchange once per partition and the
+    ranking's four all-reduces per test batch and direction, on the
+    ``model`` axis with exact bytes, and no output with the dimension
+    ``V`` or ``S·rows``."""
+    from repro_torch.sharding.embedding import ShardedTableLayout
+    mesh = mesh or tr.mesh
+    s = mesh.model
+    d = int(tr.cfg.hidden_dim)
+    v = int(tr.train_kg.num_entities)
+    layout = ShardedTableLayout(v, s)
+    padded = tr.pre.padded
+    p, v_p = padded.num_partitions, padded.padded_vertices
+    v_pad = -(-v_p // s) * s
+    t = int(tr.splits["test"].num_edges)
+    batches = -(-t // EVAL_BATCH)
+    legit = [d, layout.rows_per_shard, v_p, v_pad, v_pad // s,
+             padded.padded_edges, t, min(t, EVAL_BATCH), t % EVAL_BATCH,
+             int(tr.train_kg.num_relations)]
+    rules: List[CollectiveRule] = []
+    forbidden = tuple(sorted({v, layout.padded_rows}))
+    refused: Tuple[str, ...] = ()
+    if s == 1:
+        forbidden, refused = (), (
+            f"replication: no dimension {v} — with a model axis of one "
+            f"rank the rank's block is the whole table",)
+    else:
+        exchange = tr.cfg.gather_exchange or "psum_scatter"
+        if exchange != "psum_scatter" or tr.cfg.table_dtype != "fp32" or \
+                tr.kge_cfg.rgcn.feature_dim is not None:
+            raise ValueError(
+                f"{name}: the eval contract is derived for the fp32 table "
+                f"on the default psum_scatter exchange")
+        _guard_dims(name, legit, forbidden)
+        rules = [
+            CollectiveRule(
+                "reduce-scatter", ("model",), min_count=p, max_count=p,
+                expected_bytes=float(p * (v_pad // s) * d * 4),
+                note="the encode's exchange, one a partition"),
+            CollectiveRule(
+                "all-gather", ("model",), min_count=p, max_count=p,
+                expected_bytes=float(p * v_pad * d * 4),
+                note="the encode's exchange, one a partition"),
+            CollectiveRule(
+                "all-reduce", ("model",), min_count=8 * batches,
+                max_count=8 * batches,
+                expected_bytes=4.0 * t * (4 * d + 4 + 2 * _COUNT_BYTES),
+                note="head rows (f32), true score (f32) and the int64 "
+                     "counts, per test batch and direction")]
+    return CommContract(
+        name=name, mesh_axes=_mesh_axes(mesh), rules=tuple(rules),
+        forbidden_dims=forbidden, refused=refused, min_recorded=1,
+        notes=f"V={v} d={d} P={p} V_p={v_p} T={t} rows="
+              f"{layout.rows_per_shard}")
+
+
+def audit_trainer_eval(tr, name: str = "eval[all-entities]") -> AuditReport:
+    """Audit ``tr.evaluate("test")`` of an spmd trainer: run it under the
+    recorder, then again without it (the metrics equal)."""
+    if tr.mesh is None:
+        raise ValueError(f"{name}: the trainer runs the simulated step; "
+                         f"the audit needs spmd")
+
+    def run(recorder=None):
+        with recorder if recorder is not None else contextlib.nullcontext():
+            metrics = tr.evaluate("test")
+        return {k: torch.tensor(x, dtype=torch.float64)
+                for k, x in metrics.items()}
+
+    recorder = CommRecorder()
+    on = run(recorder)
+    off = run()
+    report = audit_trace(recorder.trace, eval_contract(tr, name))
+    _hold_unchanged(report, on, off)
+    return report
+
+
+def audit_eval_step(cfg: Optional[AuditConfig] = None,
+                    device=None) -> AuditReport:
+    """Build the spmd trainer at ``cfg``'s sizes (the default exchange, an
+    fp32 table, ``EVAL_SCALE``'s graph) and audit its test evaluation."""
+    cfg = cfg or AuditConfig()
+    tr = _build_trainer(cfg, "psum_scatter", False, "fp32", device,
+                        scale=EVAL_SCALE)
+    try:
+        return audit_trainer_eval(tr)
+    finally:
+        tr.close()
+
+
+# ---------------------------------------------------------------------- #
 # sharded top-k serve step
 # ---------------------------------------------------------------------- #
 def serve_contract(server, batch: int, k: int, name: str) -> CommContract:
@@ -482,15 +598,15 @@ def audit_serve_step(cfg: Optional[AuditConfig] = None,
 # runner
 # ---------------------------------------------------------------------- #
 def run_audit(cfg: Optional[AuditConfig] = None,
-              programs: Sequence[str] = ("train", "rank", "serve"),
+              programs: Sequence[str] = ("train", "rank", "eval", "serve"),
               exchanges: Optional[Sequence[str]] = None,
               dedups: Sequence[bool] = (False, True),
               device=None, log: Optional[Callable[[str], None]] = None
               ) -> List[AuditReport]:
     """Audit every requested program on this rank; one report per program
-    (all ok ⇔ the port's communication contracts hold here). ``train``
-    and ``rank`` need the initialised process group (every rank runs the
-    same sequence)."""
+    (all ok ⇔ the port's communication contracts hold here). ``train``,
+    ``rank`` and ``eval`` need the initialised process group (every rank
+    runs the same sequence)."""
     from repro_torch.sharding.embedding import SPMD_EXCHANGES
 
     cfg = cfg or AuditConfig()
@@ -530,6 +646,9 @@ def run_audit(cfg: Optional[AuditConfig] = None,
         for protocol in RANK_PROTOCOLS:
             note(f"running rank[{protocol}] ...")
             reports.append(audit_rank_step(protocol, mesh, cfg, dev))
+    if "eval" in programs:
+        note("running eval[all-entities] ...")
+        reports.append(audit_eval_step(cfg, device=device))
     if "serve" in programs:
         note("running serve[topk] ...")
         reports.append(audit_serve_step(cfg, device=device))

@@ -263,6 +263,14 @@ def plan_budgets(
     )
 
 
+def num_edge_minibatches(part: SelfSufficientPartition,
+                         batch_size: int) -> int:
+    """The batches :func:`iterate_edge_minibatches` yields for ``part`` in
+    an epoch: ``ceil(core edges / batch_size)``, known before any is
+    built."""
+    return -(-int(np.count_nonzero(part.core_edge_mask)) // batch_size)
+
+
 def iterate_edge_minibatches(
     rng: np.random.Generator,
     part: SelfSufficientPartition,

@@ -30,14 +30,24 @@ collator also attaches each batch's ``ShardedGatherPlan`` (keys
 ``shard_local_ids`` / ``shard_owned``, and ``shard_inverse`` when
 deduplicated), after checking that every gathered id lies in the table.
 
-Per-rank transfer (``BatchShardings``, the reference's placement on a
-``data`` × ``model`` mesh): on a rank of the multi-process step the copy
-takes only this rank's trainers' slice of a stacked batch (the data axis)
-and only its own row of the gather plan's shard axis (the model axis);
-every rank builds the whole stacked batch on the host, so the plans are
-the same arrays everywhere. On one process (``--sharded-transfer`` on the
-simulated step) the mesh is 1 × 1 and the transfer copies everything: the
-same bits, the reference's contract on one device.
+Per-rank build (``BatchShardings``, the reference's placement on a
+``data`` × ``model`` mesh): on a rank of the multi-process step the
+pipeline runs only this rank's trainers' partitions (the data axis's
+block, ``ProcessMesh.trainers``), stacks and plans only their rows, and
+copies only its own row of the gather plan's shard axis (the model
+axis). Each partition's stream depends on (seed, epoch, partition) alone,
+so a rank's rows are bitwise those rows of the whole stacked batch; the
+ranks of one model group build the same trainers and agree on the
+deduplicated plan's bucket without a message (it changes no bit of a
+step: padded slots are unowned and ``inverse`` never points at them).
+Every partition's batch count is ``ceil(core edges / batch size)``, so
+each rank computes the epoch's step count, the zip-shortest over all
+partitions, from the partition sizes every rank holds, with no
+collective, and stops there even where its own partitions hold more
+batches: no rank's collective waits for a step another rank never
+takes. On one process (``--sharded-transfer`` on the simulated step) the
+mesh is 1 × 1 and the pipeline builds and copies everything: the same
+bits, the reference's contract on one device.
 
 Timing contract (``PipelineStats``, the reference's): the steady-state
 clock starts at the first consumed batch; ``warmup_s`` is the wait for
@@ -60,7 +70,7 @@ from repro_torch.core.expansion import (
 )
 from repro_torch.core.minibatch import (
     BatchBudget, EdgeMiniBatch, _PartitionCSR, iterate_edge_minibatches,
-    stack_minibatches,
+    num_edge_minibatches, stack_minibatches,
 )
 from repro_torch.kernels.rgcn_message import segment_plan_host
 from repro_torch.sharding.embedding import (
@@ -87,6 +97,13 @@ class BatchShardings:
     def of(cls, mesh) -> "BatchShardings":
         return cls(mesh.data, mesh.model, mesh.data_index, mesh.model_index)
 
+    def trainers(self, num_partitions: int) -> range:
+        """The partitions (trainers) this rank builds and runs: the data
+        axis's contiguous block. ``ProcessMesh.trainers`` reads this rule,
+        so the step runs exactly the trainers the pipeline built."""
+        k = num_partitions // self.data
+        return range(self.data_index * k, (self.data_index + 1) * k)
+
     def check(self, num_partitions: int,
               table_layout: Optional[ShardedTableLayout]) -> None:
         """Fail fast on layouts the mesh cannot split evenly."""
@@ -102,15 +119,25 @@ class BatchShardings:
 
     def select(self, arrays: Dict[str, np.ndarray]
                ) -> Dict[str, np.ndarray]:
-        """This rank's block of every stacked array (views, no copy)."""
+        """This rank's block of every array stacked over ALL trainers
+        (views, no copy): its trainers' rows, then :meth:`select_model`."""
         out = {}
         for key, v in arrays.items():
-            k = v.shape[0] // self.data
-            v = v[self.data_index * k:(self.data_index + 1) * k]
-            if key in PLAN_BATCH_KEYS:
+            r = self.trainers(v.shape[0])
+            out[key] = v[r.start:r.stop]
+        return self.select_model(out)
+
+    def select_model(self, arrays: Dict[str, np.ndarray]
+                     ) -> Dict[str, np.ndarray]:
+        """This rank's block of a batch that holds only its own trainers'
+        rows (views, no copy): its row of the gather plan's shard axis."""
+        out = dict(arrays)
+        for key in PLAN_BATCH_KEYS:
+            if key in out:
+                v = out[key]
                 m = v.shape[1] // self.model
-                v = v[:, self.model_index * m:(self.model_index + 1) * m]
-            out[key] = v
+                out[key] = v[:, self.model_index * m:
+                             (self.model_index + 1) * m]
         return out
 
 
@@ -119,7 +146,8 @@ class PipelineStats:
     """Per-epoch host-side timing of one pipeline run (the reference's
     contract): ``warmup_s`` is the wait for the first batch,
     ``host_build_s`` / ``exposed_wait_s`` cover the steady state after
-    it."""
+    it. On a rank of the multi-process step they count this rank's build
+    only: its own trainers' partitions."""
 
     host_build_s: float = 0.0    # build time of consumed steady-state batches
     exposed_wait_s: float = 0.0  # construction time on the critical path
@@ -236,7 +264,10 @@ def to_device_batch(mb: EdgeMiniBatch, device: torch.device,
 class _MinibatchPipelineBase:
     """Shared state of the serial and async pipelines: the partitions, the
     batch shape, the per-(seed, epoch, partition) streams, the device and
-    the sharded table's layout."""
+    the sharded table's layout. ``own`` are the partitions this process
+    builds (all of them, or its rank's block with ``shardings``);
+    ``num_steps`` is the epoch's step count, the fewest batches of any
+    partition."""
 
     def __init__(
         self,
@@ -257,6 +288,10 @@ class _MinibatchPipelineBase:
             shardings.check(len(partitions), table_layout)
         self.shardings = shardings
         self.partitions = list(partitions)
+        self.own = (range(len(self.partitions)) if shardings is None else
+                    shardings.trainers(len(self.partitions)))
+        self.num_steps = min(num_edge_minibatches(p, batch_size)
+                             for p in self.partitions)
         self.batch_size = batch_size
         self.num_negatives = num_negatives
         self.num_hops = num_hops
@@ -264,7 +299,8 @@ class _MinibatchPipelineBase:
         self.seed = seed
         self.sampler = sampler
         self.csrs = list(csrs) if csrs is not None else [
-            _PartitionCSR(p) for p in self.partitions]
+            _PartitionCSR(p) if i in self.own else None
+            for i, p in enumerate(self.partitions)]
         self.table_layout = table_layout
         self.dedup_gather = dedup_gather
         self.device = torch.device(device)
@@ -285,31 +321,38 @@ class _MinibatchPipelineBase:
             self.num_hops, self.budget, self.csrs[i], self.sampler)
 
     def _host_batch(self, mb: EdgeMiniBatch) -> Dict[str, np.ndarray]:
-        """The arrays this process copies: the whole stacked batch, or its
-        rank's block with ``shardings``."""
+        """The arrays this process copies: the stacked batch of its own
+        partitions, and with ``shardings`` its row of the plan's shard
+        axis."""
         arrays = host_batch(mb, self.table_layout, self.dedup_gather)
         if self.shardings is None:
             return arrays
-        return self.shardings.select(arrays)
+        return self.shardings.select_model(arrays)
 
     def close(self) -> None:
         """Workers are per-epoch: nothing to release."""
 
 
+def _ended(i: int, step: int, steps: int) -> RuntimeError:
+    return RuntimeError(f"partition {i}'s stream ended at step {step} of "
+                        f"the epoch's {steps}")
+
+
 class SerialMinibatchPipeline(_MinibatchPipelineBase):
-    """Reference implementation: builds every partition's batch inline,
-    so all host work is exposed (``overlap_fraction == 0``)."""
+    """Reference implementation: builds each of its partitions' batches
+    inline, so all host work is exposed (``overlap_fraction == 0``)."""
 
     def epoch_batches(self, epoch: int) -> Iterator[EdgeMiniBatch]:
         stats = self._stats = PipelineStats()
-        iters = [self.partition_stream(epoch, i)
-                 for i in range(len(self.partitions))]
-        while True:
+        iters = [(i, self.partition_stream(epoch, i)) for i in self.own]
+        for step in range(self.num_steps):
             t0 = time.perf_counter()
-            try:
-                mbs = [next(it) for it in iters]
-            except StopIteration:
-                break
+            mbs = []
+            for i, it in iters:
+                mb = next(it, None)
+                if mb is None:
+                    raise _ended(i, step, self.num_steps)
+                mbs.append(mb)
             dt = time.perf_counter() - t0
             if stats.num_batches == 0:
                 # the serial analogue of pipeline fill: the first batch's
@@ -371,14 +414,15 @@ def _drain(q: "queue.Queue") -> None:
 
 
 class AsyncMinibatchPipeline(_MinibatchPipelineBase):
-    """One background worker per partition feeding a bounded prefetch
-    queue; ``device_batches`` adds a collator thread that stacks, plans
-    and copies the next batch while the device runs the current one.
+    """One background worker per partition of its own feeding a bounded
+    prefetch queue; ``device_batches`` adds a collator thread that stacks,
+    plans and copies the next batch while the device runs the current
+    one.
 
     Yields the bitwise-identical stream to ``SerialMinibatchPipeline``:
     each partition's RNG and batch order live in its own worker, and the
-    collator consumes the queues in partition order, stopping at the
-    first exhausted stream (the serial loop's zip-shortest)."""
+    collator consumes the queues in partition order for the epoch's
+    ``num_steps`` steps."""
 
     def __init__(self, *args, prefetch: int = 2, **kwargs):
         super().__init__(*args, **kwargs)
@@ -388,9 +432,9 @@ class AsyncMinibatchPipeline(_MinibatchPipelineBase):
 
     def _start_workers(self, epoch: int, stop: threading.Event):
         queues: List[queue.Queue] = [
-            queue.Queue(maxsize=self.prefetch) for _ in self.partitions]
+            queue.Queue(maxsize=self.prefetch) for _ in self.own]
 
-        def work(i: int) -> None:
+        def work(j: int, i: int) -> None:
             try:
                 it = self.partition_stream(epoch, i)
                 while not stop.is_set():
@@ -401,16 +445,16 @@ class AsyncMinibatchPipeline(_MinibatchPipelineBase):
                         break
                     # the build time travels with the batch: only consumed
                     # batches count toward host_build_s
-                    if not _put(queues[i],
+                    if not _put(queues[j],
                                 (mb, time.perf_counter() - t0), stop):
                         return
-                _put(queues[i], _END, stop)
+                _put(queues[j], _END, stop)
             except BaseException as exc:  # propagate into the consumer
-                _put(queues[i], _PipelineError(exc), stop)
+                _put(queues[j], _PipelineError(exc), stop)
 
-        threads = [threading.Thread(target=work, args=(i,),
+        threads = [threading.Thread(target=work, args=(j, i),
                                     name=f"pipeline-worker-{i}", daemon=True)
-                   for i in range(len(queues))]
+                   for j, i in enumerate(self.own)]
         for t in threads:
             t.start()
         return queues, threads
@@ -423,15 +467,14 @@ class AsyncMinibatchPipeline(_MinibatchPipelineBase):
         for t in threads:
             t.join(timeout=5.0)
 
-    @staticmethod
-    def _collate(queues, stop: threading.Event):
+    def _collate(self, queues, stop: threading.Event):
         """Zip one batch per partition queue (partition order), stacked on
-        the trainer axis; stop at the first exhausted stream. Yields
+        the trainer axis, for the epoch's ``num_steps`` steps. Yields
         ``(stacked, build_s, wait_s)``."""
-        while True:
+        for step in range(self.num_steps):
             mbs = []
             wait = build = 0.0
-            for q in queues:
+            for i, q in zip(self.own, queues):
                 t0 = time.perf_counter()
                 item = _get(q, stop)
                 wait += time.perf_counter() - t0
@@ -439,7 +482,9 @@ class AsyncMinibatchPipeline(_MinibatchPipelineBase):
                     raise RuntimeError(
                         "input pipeline worker failed") from item.exc
                 if item is _END:
-                    return
+                    if stop.is_set():
+                        return
+                    raise _ended(i, step, self.num_steps)
                 mb, dt = item
                 build += dt
                 mbs.append(mb)
@@ -579,7 +624,8 @@ def edge_plans_host(src: np.ndarray, rel: np.ndarray, dst: np.ndarray,
 
 class FullGraphPipeline:
     """One full-edge batch per epoch, resident on ``device`` (with
-    ``shardings``, a rank's block of trainers). With a
+    ``shardings``, a rank's block of trainers, the only partitions it
+    plans). With a
     row-sharded table the encoder plans the gather in-graph (the plan of
     ``local_to_global`` is the same every epoch). The resident batch also
     carries every partition's edge plans (:func:`edge_plans_host`) and a
@@ -591,7 +637,12 @@ class FullGraphPipeline:
                  plan_sizes: PlanSizes,
                  shardings: Optional[BatchShardings] = None):
         self.device = torch.device(device)
-        h = self._host = padded_fields(padded)
+        h = padded_fields(padded)
+        if shardings is not None:
+            # this rank's partitions first: only their rows are planned
+            shardings.check(padded.num_partitions, None)
+            own = shardings.trainers(padded.num_partitions)
+            h = {k: v[own.start:own.stop] for k, v in h.items()}
         plans = [edge_plans_host(h["src"][i], h["rel"][i], h["dst"][i],
                                  h["edge_mask"][i],
                                  h["local_to_global"].shape[1],
@@ -602,9 +653,7 @@ class FullGraphPipeline:
             h["plan_table"] = np.stack([
                 segment_plan_host(g, None, plan_sizes.table_rows)
                 for g in h["local_to_global"]])
-        if shardings is not None:
-            shardings.check(padded.num_partitions, None)
-            self._host = shardings.select(h)
+        self._host = h       # no gather plan: nothing on the model axis
         self._device: Optional[Dict[str, torch.Tensor]] = None
         self._stats = PipelineStats()
 

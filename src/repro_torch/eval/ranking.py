@@ -276,7 +276,8 @@ def ranking_metrics(entity_emb, decoder_params: Dict,
                     batch_size: int = 256,
                     decoder: Union[str, Decoder] = "distmult",
                     num_shards: int = 1, table_dtype: str = "fp32",
-                    device=None, rank_step=None) -> Dict[str, float]:
+                    device=None, rank_step=None,
+                    num_entities: Optional[int] = None) -> Dict[str, float]:
     """Filtered MRR / Hits@k, tail-corruption direction. All-entities
     protocol (``candidates=None``): every batch of ``batch_size`` queries
     is one ``kge_score`` launch over all N candidates in the decoder's
@@ -292,14 +293,16 @@ def ranking_metrics(entity_emb, decoder_params: Dict,
     table off the device, and the metrics are exactly the dense ones over
     the dequantized table. So does a ``rank_step``
     (``eval.sharded.make_sharded_rank_step``): the ranks of its model axis
-    rank together, each over its own row block."""
+    rank together, each over its own row block, which is then
+    ``entity_emb`` (``(1, rows, d)``, of a table of ``num_entities``
+    rows)."""
     if num_shards > 1 or table_dtype != "fp32" or rank_step is not None:
         from repro_torch.eval.sharded import sharded_ranking_metrics
         return sharded_ranking_metrics(
             entity_emb, decoder_params, test_triplets, filter_index,
             max(num_shards, 1), hits_ks=hits_ks, batch_size=batch_size,
             decoder=decoder, candidates=candidates, table_dtype=table_dtype,
-            device=device, rank_step=rank_step)
+            device=device, rank_step=rank_step, num_entities=num_entities)
     if device is None and isinstance(entity_emb, torch.Tensor):
         device = entity_emb.device
     dev = resolve_device(device)
@@ -346,15 +349,18 @@ def evaluate_both_directions(
     hits_ks: Sequence[int] = (1, 3, 10),
     decoder: Union[str, Decoder] = "distmult", num_shards: int = 1,
     table_dtype: str = "fp32", device=None,
-    rank_step=None) -> Dict[str, float]:
+    rank_step=None, num_entities: Optional[int] = None) -> Dict[str, float]:
     """Mean of tail corruption on (s, r, t) and on the inverse triplets
     (t, r + R, s), i.e. head corruption. The decoder's relation tables
     cover the doubled vocabulary; one CSR filter index over all splits
-    (inverse relations included) serves both directions."""
+    (inverse relations included) serves both directions. With a
+    ``rank_step`` ``entity_emb`` is this rank's ``(1, rows, d)`` row block
+    of a ``num_entities``-row table (:func:`ranking_metrics`)."""
     fidx = CSRFilterIndex.build(
         [g.with_inverse_relations() for g in filter_graphs])
     kw = dict(decoder=decoder, num_shards=num_shards,
-              table_dtype=table_dtype, device=device, rank_step=rank_step)
+              table_dtype=table_dtype, device=device, rank_step=rank_step,
+              num_entities=num_entities)
     m_fwd = ranking_metrics(entity_emb, decoder_params, test_kg.triplets(),
                             fidx, hits_ks, **kw)
     inv = np.stack([test_kg.dst, test_kg.rel + num_relations_base,

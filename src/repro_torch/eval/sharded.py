@@ -250,7 +250,9 @@ def sharded_ranking_metrics(entity_emb, decoder_params: Dict,
                             decoder: Union[str, Decoder] = "distmult",
                             candidates: Optional[np.ndarray] = None,
                             table_dtype: str = "fp32",
-                            device=None, rank_step=None) -> Dict[str, float]:
+                            device=None, rank_step=None,
+                            num_entities: Optional[int] = None
+                            ) -> Dict[str, float]:
     """Filtered MRR / Hits@k with candidate-axis-sharded ranking, the
     ``num_shards > 1`` twin of ``ranking.ranking_metrics``, in either
     protocol: the table is row-sharded once, and per test batch the heads
@@ -269,13 +271,18 @@ def sharded_ranking_metrics(entity_emb, decoder_params: Dict,
 
     ``rank_step`` (a :func:`make_sharded_rank_step` of the same decoder and
     protocol, on a model axis of ``num_shards`` ranks) runs the
-    multi-process path: this rank scores against only its own table
-    block, bias blocks and plans; its heads come through its block's
-    masked gather summed over the axis; the step sums the counts. It
-    proves the collectives and the exact counts but shards nothing yet:
-    the block is a view of ``entity_emb``, which every rank holds whole
-    after the encode, and in the candidate protocol every rank scores all
-    ``B × (1 + C)`` lanes (ROADMAP Queue 1 item 2d)."""
+    multi-process path. ``entity_emb`` is then this rank's ``(1, rows,
+    d)`` row block of a table of ``num_entities`` rows
+    (``training.evaluation.encode_entity_block``), and no ``(N, d)``
+    array reaches the device: the layout comes from ``num_entities``;
+    this rank scores against only its own block, bias blocks and plans
+    (the int8 codes are its block's, row-wise the whole table's); its
+    heads come through its block's masked gather summed over the axis;
+    the step sums the counts. In the candidate protocol every rank scores
+    all ``B × (1 + C)`` lanes from its block, as the reference does, for
+    fixed shapes. With a ``rank_step``, an array of any other shape than
+    the block's (a whole matrix among them) is refused; which rank's rows
+    a block of the right shape holds is the caller's to get right."""
     if table_dtype not in TABLE_DTYPES:
         raise ValueError(
             f"table_dtype={table_dtype!r} not in {TABLE_DTYPES}")
@@ -292,15 +299,27 @@ def sharded_ranking_metrics(entity_emb, decoder_params: Dict,
     if device is None and isinstance(entity_emb, torch.Tensor):
         device = entity_emb.device
     dev = resolve_device(device)
-    emb = torch.as_tensor(entity_emb, dtype=torch.float32).to(dev)
-    layout = ShardedTableLayout(emb.shape[0], num_shards)
     dparams = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
                for k, v in decoder_params.items()}
-    table = shard_table(emb, layout)
-    # the shards this process holds: all of them, or its rank's own
-    mine = (slice(None) if rank_step is None else
-            slice(rank_step.axis.index, rank_step.axis.index + 1))
-    table = table[mine]
+    if rank_step is None:
+        emb = torch.as_tensor(entity_emb, dtype=torch.float32).to(dev)
+        layout = ShardedTableLayout(emb.shape[0], num_shards)
+        table = shard_table(emb, layout)
+        mine = slice(None)                 # every shard, in this process
+    else:
+        if num_entities is None:
+            raise ValueError("a rank_step ranks this rank's row block: "
+                             "pass num_entities, the table's rows")
+        layout = ShardedTableLayout(num_entities, num_shards)
+        shape = tuple(entity_emb.shape)
+        if len(shape) != 3 or shape[:2] != (1, layout.rows_per_shard):
+            raise ValueError(
+                f"a rank_step ranks this rank's (1, "
+                f"{layout.rows_per_shard}, d) row block of the "
+                f"{num_entities}-row table, got {shape}")
+        table = torch.as_tensor(entity_emb, dtype=torch.float32).to(dev)
+        i = rank_step.axis.index
+        mine = slice(i, i + 1)             # this rank's shard
     if table_dtype == "int8":
         table = quantize_rows(table)
     prepared = None if table_dtype == "int8" or candidates is not None \

@@ -4,7 +4,7 @@ recorder and check its communication contract on every rank (port of
 
     PYTHONPATH=src python -m repro_torch.launch.audit \\
         --init-method file:///tmp/rendezvous --world-size 4 --rank R \\
-        [--device cpu] [--programs train,rank,serve] \\
+        [--device cpu] [--programs train,rank,eval,serve] \\
         [--exchanges psum_scatter,psum,alltoall] [--dedup both|on|off] \\
         [--json PATH] [--quiet]
 
@@ -14,8 +14,9 @@ over NCCL, one card a rank (``LOCAL_RANK``, else the rank), or with
 ``--device cpu`` over gloo. 2 ranks make a ``1 x 2`` (data x model) mesh,
 4 ranks a ``2 x 2`` one, so both axes carry real collectives. Each
 program (the spmd train step per gather exchange × dedup and the int8
-table, the sharded rank step per protocol, the sharded top-k serve step
-fp32 and int8) runs once under ``analysis.trace.CommRecorder`` and once
+table, the sharded rank step per protocol, the trainer's test evaluation
+over the embeddings' row blocks, the sharded top-k serve step fp32 and
+int8) runs once under ``analysis.trace.CommRecorder`` and once
 without it, and each rank audits its own trace against the program's
 ``CommContract`` (collective whitelist per mesh axis, closed-form wire
 bytes, replication audit, in-place audit, outputs bitwise unchanged by
@@ -48,8 +49,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         description="audit the communication contracts of every "
                     "multi-process program of the port, on every rank")
-    ap.add_argument("--programs", default="train,rank,serve",
-                    help="comma list of train,rank,serve")
+    ap.add_argument("--programs", default="train,rank,eval,serve",
+                    help="comma list of train,rank,eval,serve")
     ap.add_argument("--exchanges", default="",
                     help="comma list of gather-exchange layouts "
                          "(default: every SPMD layout)")
@@ -68,7 +69,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     programs = tuple(p for p in args.programs.split(",") if p)
     device = resolve_device(args.device)
-    grouped = bool({"train", "rank"} & set(programs)) or \
+    grouped = bool({"train", "rank", "eval"} & set(programs)) or \
         args.world_size is not None or "WORLD_SIZE" in os.environ
     if grouped:
         if device.type == "cuda":

@@ -23,6 +23,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.data.pipeline import BatchShardings
 from repro_torch.sharding.embedding import ModelAxis
 
 REPLICATED = "replicated"
@@ -85,9 +86,10 @@ class ProcessMesh:
 
     def trainers(self, num_trainers: int) -> slice:
         """The trainers this rank runs: the data axis splits them into
-        contiguous blocks, as the reference shards the trainer axis."""
-        k = num_trainers // self.data
-        return slice(self.data_index * k, (self.data_index + 1) * k)
+        contiguous blocks, as the reference shards the trainer axis (the
+        rule lives in ``BatchShardings.trainers``, which builds them)."""
+        own = BatchShardings.of(self).trainers(num_trainers)
+        return slice(own.start, own.stop)
 
 
 def make_process_mesh(data: int, model: int,

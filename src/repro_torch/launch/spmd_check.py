@@ -16,11 +16,17 @@ few steps of the FB15k-237 stand-in on the multi-process step and, in the
 same process, on the simulated step; then it holds them together:
 
 * per-step losses equal, and every parameter and Adam moment bitwise the
-  simulated one (this rank's row block of the entity table);
-* the test evaluation (the encode through the exchange, the ranking on
-  the model axis's ranks) equal to the simulated one;
-* ``eval.sharded.make_sharded_rank_step`` equal to the simulated counts in
-  the all-entities and the candidate-list protocols;
+  simulated one (this rank's row block of the entity table), also with
+  the deduplicated gather plan (each rank pads its own trainers' rows to
+  their own bucket) and, on a mesh with a data axis, over a whole epoch
+  (each rank builds only its own trainers' batches and stops at the
+  whole stream's step count);
+* the test evaluation (the encode through the exchange, each rank
+  keeping and ranking its own row block of the embeddings) equal to the
+  simulated one;
+* ``eval.sharded.make_sharded_rank_step`` over the rank's row block
+  (bitwise those rows of the simulated encode) equal to the simulated
+  counts in the all-entities and the candidate-list protocols;
 * with ``--cli``, ``launch.train`` (``--spmd``) printing the losses and
   metrics of the same command on the simulated step.
 
@@ -84,10 +90,11 @@ def state_mismatches(real, sim) -> List[str]:
     return bad
 
 
-def run_steps(trainer, steps: int) -> Dict:
+def run_steps(trainer, steps: Optional[int]) -> Dict:
     """``steps`` updates of ``trainer`` (mini-batch: the first steps of
-    epoch 1; full-graph: one per epoch): the losses and the mean step time
-    (host clock, ending in the loss on the host)."""
+    epoch 1, or all of them with ``None``; full-graph: one per epoch): the
+    losses and the mean step time (host clock, ending in the loss on the
+    host)."""
     losses, t = [], 0.0
 
     def one(batch, epoch, j):
@@ -103,18 +110,46 @@ def run_steps(trainer, steps: int) -> Dict:
                 one(batch, epoch, 0)
     else:
         it = trainer.pipeline.device_batches(1)
-        for j, batch in zip(range(steps), it):
+        for j, batch in enumerate(it):
+            if j == steps:
+                break
             one(batch, 1, j)
         it.close()
-    return {"losses": losses, "step_s": t / max(steps, 1)}
+    return {"losses": losses, "step_s": t / max(len(losses), 1)}
 
 
-def compare_training(splits, cfg, device, steps: int = 2) -> Dict:
-    """``cfg`` trained ``steps`` steps on the multi-process step (every
-    rank of the initialised group) and on the simulated step (in this
-    process): losses equal, the state bitwise (:func:`state_mismatches`),
-    and the test evaluations equal. Raises ``AssertionError`` on a
-    difference; returns the losses, step times, metrics and the trainers."""
+DEDUP_STEPS = 4
+
+
+def plan_widths(trainer, steps: int) -> List[int]:
+    """The gather plan's width (the deduplicated bucket) of each of the
+    first ``steps`` batches of epoch 1 of ``trainer``'s pipeline (none for
+    a dense table, which has no plan)."""
+    it = trainer.pipeline.device_batches(1)
+    widths = [int(b["shard_local_ids"].shape[-1])
+              for _, b in zip(range(steps), it) if "shard_local_ids" in b]
+    it.close()
+    return widths
+
+
+def zip_shortest_steps(trainer, epoch: int = 1) -> int:
+    """The epoch's step count as the whole batch stream gives it: the
+    zip-shortest over every partition's own stream, built here (the
+    count a rank's pipeline computes from the partition sizes must be
+    this one)."""
+    pipe = trainer.pipeline
+    return len(list(zip(*(pipe.partition_stream(epoch, i)
+                          for i in range(len(pipe.partitions))))))
+
+
+def compare_training(splits, cfg, device,
+                     steps: Optional[int] = 2) -> Dict:
+    """``cfg`` trained ``steps`` steps (``None``: mini-batch epoch 1
+    whole) on the multi-process step (every rank of the initialised
+    group) and on the simulated step (in this process): losses equal, the
+    state bitwise (:func:`state_mismatches`), and the test evaluations
+    equal. Raises ``AssertionError`` on a difference; returns the losses,
+    step times, metrics and the trainers."""
     from repro_torch.training import KGETrainer
 
     real = KGETrainer(splits, dataclasses.replace(cfg, spmd=True),
@@ -142,16 +177,28 @@ def compare_training(splits, cfg, device, steps: int = 2) -> Dict:
 
 def compare_rank_steps(real, sim, num_candidates: int = 50,
                        seed: int = 0) -> Dict:
-    """``make_sharded_rank_step`` on ``real``'s model axis against the
-    simulated sharded ranking of ``sim``'s embeddings, in both protocols
-    (the candidate lists drawn from ``numpy.random.default_rng(seed)``),
-    at both table dtypes: the metrics equal. Returns them."""
+    """``make_sharded_rank_step`` on ``real``'s model axis over its row
+    block of the embeddings (``real.encode_entity_block()``, bitwise
+    those rows of ``sim``'s whole matrix) against the simulated sharded
+    ranking of ``sim``'s embeddings, in both protocols (the candidate
+    lists drawn from ``numpy.random.default_rng(seed)``), at both table
+    dtypes: the metrics equal. Returns them."""
     from repro_torch.eval.ranking import CSRFilterIndex
     from repro_torch.eval.sharded import (
         make_sharded_rank_step, sharded_ranking_metrics,
     )
+    from repro_torch.sharding.embedding import (
+        ShardedTableLayout, shard_table,
+    )
     axis = real.mesh.model_axis
     emb = sim.encode_all_entities()
+    block = real.encode_entity_block()
+    whole = shard_table(emb, ShardedTableLayout(emb.shape[0], axis.size))
+    if not torch.equal(block.view(torch.int32),
+                       whole[axis.index:axis.index + 1].view(torch.int32)):
+        raise AssertionError(f"the rank's row block {axis.index} of the "
+                             f"embeddings != those rows of the simulated "
+                             f"encode")
     dparams = {k: v.detach() for k, v in sim.params["decoder"].items()}
     splits = sim.splits
     test = splits["test"].triplets()
@@ -166,8 +213,9 @@ def compare_rank_steps(real, sim, num_candidates: int = 50,
                                       protocol=protocol)
         for dtype in ("fp32", "int8"):
             kw = dict(decoder=sim.cfg.decoder, table_dtype=dtype, **extra)
-            got = sharded_ranking_metrics(emb, dparams, test, fidx,
-                                          axis.size, rank_step=step, **kw)
+            got = sharded_ranking_metrics(block, dparams, test, fidx,
+                                          axis.size, rank_step=step,
+                                          num_entities=emb.shape[0], **kw)
             want = sharded_ranking_metrics(emb, dparams, test, fidx,
                                            axis.size, **kw)
             if got != want:
@@ -311,6 +359,27 @@ def check_all(device: torch.device, table_shards: int, cli: bool) -> Dict:
                                       gather_exchange=ex)
             res = compare_training(splits, cfg, device)
             cases[f"minibatch_{dtype}_{ex}"] = res["real"]["losses"]
+    # the deduplicated plan: each rank pads its trainers' rows to their
+    # own bucket, the simulated step to every trainer's. On a graph large
+    # enough, and batches small enough, for the buckets of a rank's
+    # trainers and of all trainers to differ within the first steps
+    dedup = dataclasses.replace(base, gather_dedup=True, num_hops=1,
+                                batch_size=16)
+    res = compare_training(synthetic_fb15k(scale=0.05, seed=3), dedup,
+                           device, steps=DEDUP_STEPS)
+    cases["dedup_fp32"] = res["real"]["losses"]
+    cases["dedup_buckets"] = {k: plan_widths(tr, DEDUP_STEPS) for k, tr in
+                              zip(("rank", "whole"), res["trainers"])}
+    if res["trainers"][0].mesh.data > 1:
+        # a whole epoch: every rank stops at the step count of the whole
+        # stream, whatever its own partitions hold
+        res = compare_training(splits, base, device, steps=None)
+        want = zip_shortest_steps(res["trainers"][1])
+        got = len(res["real"]["losses"])
+        if got != want:
+            raise AssertionError(f"the spmd epoch took {got} steps, the "
+                                 f"whole stream has {want}")
+        cases["epoch_fp32"] = res["real"]["losses"]
     res = compare_training(splits, dataclasses.replace(
         base, batch_size=None, use_kernel=True), device)
     cases["fullgraph_fp32_kernel"] = res["real"]["losses"]

@@ -4,7 +4,7 @@ from repro_torch.training.checkpoint import (
     latest_checkpoint, restore_checkpoint, save_checkpoint,
 )
 from repro_torch.training.evaluation import (
-    encode_all_entities, evaluate_split,
+    encode_all_entities, encode_entity_block, evaluate_split,
 )
 from repro_torch.training.optimizer import adam, apply_updates, sgd
 from repro_torch.training.preprocessing import (
@@ -13,6 +13,6 @@ from repro_torch.training.preprocessing import (
 from repro_torch.training.trainer import KGETrainer, TrainConfig
 
 __all__ = ["latest_checkpoint", "restore_checkpoint", "save_checkpoint",
-           "encode_all_entities", "evaluate_split", "adam",
-           "apply_updates", "sgd", "PreprocessedGraph", "preprocess_graph",
-           "KGETrainer", "TrainConfig"]
+           "encode_all_entities", "encode_entity_block", "evaluate_split",
+           "adam", "apply_updates", "sgd", "PreprocessedGraph",
+           "preprocess_graph", "KGETrainer", "TrainConfig"]

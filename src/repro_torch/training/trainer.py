@@ -8,13 +8,15 @@ The trainer composes four seams, as the reference does:
   once with its scatter plans (built once on the host, so no full-graph
   step builds its own), or the serial / async edge mini-batch pipeline
   (each mini-batch step builds its plans on the card, once per id array);
+  under ``spmd`` each rank builds only its own trainers' batches;
 * ``training.distributed`` — the data-parallel step (per-trainer
   gradients, their mean, one Adam step), simulated in this process or,
   under ``spmd``, real: one process per rank of a ``data`` × ``model``
   process mesh (``launch.mesh``), the entity table's row blocks on the
   model ranks;
 * ``training.evaluation`` — streamed encoding + filtered ranking (sharded
-  over the entity table's row blocks when it is sharded).
+  over the entity table's row blocks when it is sharded; under ``spmd``
+  each rank encodes and ranks only its own row block).
 
 Everything runs on ``device`` (default ``cuda``). Checkpoints are the
 reference's files, also under ``spmd`` (the row blocks gathered to one
@@ -60,7 +62,7 @@ from repro_torch.training.distributed import (
     make_simulated_train_step, make_spmd_train_step, trainer_generators,
 )
 from repro_torch.training.evaluation import (
-    encode_all_entities, evaluate_split,
+    encode_all_entities, encode_entity_block, evaluate_split,
 )
 from repro_torch.training.preprocessing import (
     PreprocessedGraph, preprocess_graph,
@@ -445,17 +447,34 @@ class KGETrainer:
 
     # ------------------------------------------------------------------ #
     def encode_all_entities(self) -> torch.Tensor:
-        """Evaluation-time encoder pass over the TRAINING partitions."""
+        """Evaluation-time encoder pass over the TRAINING partitions: the
+        ``(N, d)`` embeddings (under spmd on every rank of the model
+        axis)."""
         return encode_all_entities(
             self.params, self.kge_cfg, self.train_kg, self.cfg.num_hops,
             features=self.features, partitions=self.pre.partitions,
             padded=self.pre.padded, model_axis=self._model_axis)
 
+    def encode_entity_block(self) -> torch.Tensor:
+        """Under spmd, this rank's ``(1, rows, d)`` row block of
+        :meth:`encode_all_entities`' embeddings, the only rows the rank
+        holds at evaluation (``training.evaluation.encode_entity_block``;
+        every rank of the model axis calls it)."""
+        if self._model_axis is None:
+            raise ValueError("the row block of the embeddings is a rank's "
+                             "of the multi-process step; the simulated "
+                             "trainer encodes them whole")
+        return encode_entity_block(
+            self.params, self.kge_cfg, self.train_kg, self.cfg.num_hops,
+            self._model_axis, features=self.features,
+            partitions=self.pre.partitions, padded=self.pre.padded)
+
     def evaluate(self, split: str = "test") -> Dict[str, float]:
         """Filtered MRR / Hits@k on ``split``: streamed partition encoding,
         then ranking through the ``kge_score`` kernel, dense or (with a
         sharded or int8 table) one block per shard with the counts
-        summed; under spmd each rank ranks its own row block."""
+        summed; under spmd each rank encodes and ranks only its own row
+        block of the embeddings."""
         return evaluate_split(
             self.params, self.kge_cfg, self.splits, split,
             self.cfg.num_hops, self.cfg.decoder, features=self.features,

@@ -12,14 +12,19 @@ Four layers:
   parameter not updated in place, a collective with no group, a recorder
   that saw nothing; and a ``(V, d)`` buffer made only in a backward,
   recorded live;
-* the recorder changes nothing: one train step (a one-rank gloo group in
-  this process) and one serve call, bitwise with and without it;
+* the recorder changes nothing: one train step and one test evaluation
+  (a one-rank gloo group in this process) and one serve call, bitwise
+  with and without it;
+* the evaluation program's must-fail trace: the ``(N, d)`` buffer the
+  evaluation held before each rank kept only its row block (the whole
+  encode, recorded live) is refused by ``eval[all-entities]``'s contract;
 * the CLI spawned over gloo (2 ranks on ``psum_scatter``, 4 ranks on the
   full sweep): every program ok on every rank, and each exchange rule's
   bytes `==` the reference's ``expected_bytes`` for the same program
   (``python -m repro.launch.audit --devices 4``); the two differences
   (the data axis gathers, ``rank[candidates]`` sends three all-reduces)
-  pinned by their own closed forms.
+  and ``eval[all-entities]``, which the reference does not have, pinned
+  by their own closed forms.
 """
 import json
 import os
@@ -357,6 +362,59 @@ def test_recorder_changes_nothing_train_step(tmp_path):
     assert all(r["ranks"] == [0] for r in row["recorded"])
 
 
+def _eval_trainer(**kw):
+    cfg = programs.AuditConfig()
+    return KGETrainer(synthetic_fb15k(scale=programs.EVAL_SCALE, seed=cfg.seed),
+                      TrainConfig(num_trainers=cfg.num_trainers,
+                                  num_hops=cfg.num_hops,
+                                  hidden_dim=cfg.hidden_dim,
+                                  batch_size=cfg.batch_size,
+                                  pipeline="serial", seed=cfg.seed, **kw),
+                      device="cpu")
+
+
+def test_eval_audit_refuses_the_whole_embedding_matrix():
+    """Must fail: the whole ``(N, d)`` embedding matrix that the
+    evaluation held on every rank before each kept only its row block
+    (``encode_all_entities``, recorded live on a 2-shard table) breaks
+    ``eval[all-entities]``'s contract on a 1 x 2 mesh by its replication
+    rule."""
+    from repro_torch.launch.mesh import ProcessMesh
+    tr = _eval_trainer(num_table_shards=2)
+    n, d = tr.train_kg.num_entities, tr.cfg.hidden_dim
+    with CommRecorder() as rec:
+        emb = tr.encode_all_entities()
+    tr.close()
+    assert tuple(emb.shape) == (n, d)
+    contract = programs.eval_contract(tr, "eval[all-entities]",
+                                      mesh=ProcessMesh(1, 2, 0, None, None))
+    assert contract.forbidden_dims == (n,) and not contract.refused
+    report = audit_trace(rec.trace, contract)
+    assert any(f"replicated buffer ({n}, {d})" in v
+               for v in report.violations), report.violations
+
+
+def test_eval_audit_on_a_one_rank_group(tmp_path):
+    """``eval[all-entities]`` on a gloo group of one rank: the metrics
+    bitwise with and without the recorder, the ranking's all-reduces
+    recorded on the one-rank group, and the replication rule refused by
+    name (the rank's block is the whole table)."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        tr = _eval_trainer(spmd=True)
+        report = programs.audit_trainer_eval(tr)
+        tr.close()
+    finally:
+        dist.destroy_process_group()
+    assert report.ok, report.violations
+    row = report.as_row()
+    assert len(row["refused"]) == 1 and "replication" in row["refused"][0]
+    t = tr.splits["test"].num_edges
+    assert [(r["kind"], r["ranks"], r["count"]) for r in row["recorded"]] \
+        == [("all-reduce", [0], 8 * -(-t // programs.EVAL_BATCH))]
+
+
 def test_hold_unchanged_flags_one_bit():
     report = AuditReport("p", contract())
     a = {"x": torch.tensor([1.0, 2.0])}
@@ -451,10 +509,11 @@ def test_audit_cli_two_rank_mesh(tmp_path):
     assert [r["program"] for r in payload["comm_audit"]] == [
         "train[psum_scatter]", "train[psum_scatter,dedup]",
         "train[psum_scatter,int8]", "rank[all-entities]",
-        "rank[candidates]", "serve[topk]", "serve[topk,int8]"]
+        "rank[candidates]", "eval[all-entities]", "serve[topk]",
+        "serve[topk,int8]"]
     assert all(r["ok"] for rows in payload["ranks"] for r in rows), \
         payload["ranks"]
-    assert "audit ok: 7 programs within contract on each of 2 rank(s)" \
+    assert "audit ok: 8 programs within contract on each of 2 rank(s)" \
         in outs[0][1]
 
 
@@ -463,28 +522,42 @@ def test_audit_cli_full_sweep_four_ranks(full_sweep):
     assert all(rc == 0 for rc, _ in outs), outs[0][1][-4000:]
     assert len(payload["ranks"]) == 4
     for rows in payload["ranks"]:
-        assert len(rows) == 11 and all(r["ok"] for r in rows), rows
+        assert len(rows) == 12 and all(r["ok"] for r in rows), rows
         for r in rows:
-            if r["program"].startswith("train["):
+            if r["program"].startswith(("train[", "eval[")):
                 assert r["expected_bytes"] > 0
+            if r["program"].startswith("train["):
                 assert r["in_place"] == r["min_in_place"] > 0
     assert "train[alltoall,dedup] r3" in outs[0][1]
-    assert "audit ok: 11 programs" in outs[0][1]
+    assert "eval[all-entities] r3" in outs[0][1]
+    assert "audit ok: 12 programs" in outs[0][1]
 
 
 def test_exchange_bytes_equal_the_references(full_sweep, reference_audit):
     """Every model-axis rule's recorded and expected bytes `==` the
     reference's ``expected_bytes`` for the same program (the plans are
     the reference's, so U is); the data axis and the rank programs by
-    the port's own closed forms."""
+    the port's own closed forms, and ``eval[all-entities]``, which the
+    reference does not have, by its own."""
     ref = reference_audit()
     payload, _ = full_sweep
     cfg = programs.AuditConfig()
-    assert set(ref) == {r["program"] for r in payload["comm_audit"]}
+    assert set(ref) == {r["program"] for r in payload["comm_audit"]} - {
+        "eval[all-entities]"}
     for rows in payload["ranks"]:
         for row in rows:
-            want = {r["rule"]: r for r in ref[row["program"]]["rules"]}
             got = {r["rule"]: r for r in row["rules"]}
+            if row["program"] == "eval[all-entities]":
+                # model axis only: the encode's exchange per partition,
+                # the ranking's all-reduces per test batch and direction
+                assert set(got) == {"reduce-scatter@model",
+                                    "all-gather@model", "all-reduce@model"}
+                assert all(r["wire_bytes"] == r["expected_bytes"] > 0
+                           for r in got.values())
+                assert got["reduce-scatter@model"]["count"] == \
+                    got["all-gather@model"]["count"] == cfg.num_trainers
+                continue
+            want = {r["rule"]: r for r in ref[row["program"]]["rules"]}
             model = {k for k in want if k.endswith("@model")}
             if row["program"].startswith("train["):
                 assert model == {k for k in got if k.endswith("@model")}

@@ -6,6 +6,13 @@ partition): the port's stream — negatives, comp graphs, stacked batches,
 gather plans with and without dedup — must be ``np.array_equal`` to the
 reference's, and the async pipeline's stream bitwise the serial one's,
 on the host and after the transfer.
+
+A rank's pipeline (``BatchShardings`` of a ``data`` × ``model`` mesh, no
+process group) builds only its own partitions: its batches are bitwise
+the rank's block of the whole pipeline's for a whole epoch (a
+deduplicated plan padded to the rank's own bucket), and it stops at the
+whole stream's step count even where its own partitions hold more
+batches.
 """
 import dataclasses
 
@@ -21,9 +28,11 @@ from repro.sharding.embedding import ShardedTableLayout as JLayout
 from repro_torch.core import (
     expand_all, make_synthetic_kg, partition_graph, plan_budgets,
 )
+from repro_torch.core.minibatch import num_edge_minibatches
 from repro_torch.data.pipeline import (
-    AsyncMinibatchPipeline, PipelineStats, SerialMinibatchPipeline,
-    host_batch, make_input_pipeline, to_device_batch,
+    AsyncMinibatchPipeline, BatchShardings, PipelineStats,
+    SerialMinibatchPipeline, host_batch, make_input_pipeline,
+    to_device_batch,
 )
 from repro_torch.sharding import ShardedTableLayout
 
@@ -182,3 +191,122 @@ def test_out_of_table_ids_raise_before_the_transfer(graphs):
     mb.gather_global[0, 0] = kg.num_entities
     with pytest.raises(ValueError, match="outside the table"):
         to_device_batch(mb, torch.device("cpu"), layout)
+
+
+# ---------------------------------------------------------------------- #
+# A rank's pipeline: only its own partitions
+# ---------------------------------------------------------------------- #
+# (num_hops, batch_size): the default, and a shape whose deduplicated
+# buckets differ between a rank's trainers and all four (1-hop
+# neighbourhoods of 8-edge batches: unique counts near a bucket's edge)
+SHAPES = {"default": (2, 64), "dedup": (1, 8)}
+
+
+@pytest.fixture(scope="module")
+def graphs4():
+    kg, _ = _kgs()
+    out = {}
+    for label, (hops, bs) in SHAPES.items():
+        parts = expand_all(kg, partition_graph(kg, 4, "vertex_cut", seed=0),
+                           hops)
+        out[label] = (parts, plan_budgets(parts, bs, 1, hops, seed=0))
+    return kg, out
+
+
+def _pipe(kind, parts, budget, shardings=None, shape="default", **kw):
+    hops, bs = SHAPES[shape]
+    return make_input_pipeline(kind, parts, batch_size=bs, num_negatives=1,
+                               num_hops=hops, budget=budget, seed=11,
+                               shardings=shardings, **kw)
+
+
+@pytest.mark.parametrize("kind", ["serial", "async"])
+@pytest.mark.parametrize("data,plan", [
+    (2, None), (4, None), (2, "sharded"), (4, "sharded"), (2, "dedup"),
+    (4, "dedup")])
+def test_rank_pipeline_is_the_whole_pipelines_block(graphs4, kind, data,
+                                                    plan):
+    """Rank (d, m) of a ``data`` × ``model`` mesh, without a process
+    group: every batch of a whole epoch bitwise ``select`` of the whole
+    pipeline's (a row-sharded plan split over a 2-rank model axis too).
+    A deduplicated plan is padded to the rank's own bucket: its columns
+    are the whole plan's first ones, and the whole plan's further columns
+    are unowned padding."""
+    kg, shapes = graphs4
+    shape = "dedup" if plan == "dedup" else "default"
+    parts, budget = shapes[shape]
+    model = 2 if plan == "sharded" else 1
+    kw = dict(shape=shape) if plan is None else dict(
+        shape=shape, table_layout=ShardedTableLayout(kg.num_entities, 2),
+        dedup_gather=plan == "dedup")
+    whole = list(_pipe(kind, parts, budget, **kw).device_batches(1))
+    assert len(whole) == min(num_edge_minibatches(p, SHAPES[shape][1])
+                             for p in parts) > 1
+    narrower = 0
+    for d in range(data):
+        for m in range(model):
+            sh = BatchShardings(data, model, d, m)
+            pipe = _pipe(kind, parts, budget, sh, **kw)
+            assert list(pipe.own) == list(sh.trainers(4))
+            got = list(pipe.device_batches(1))
+            assert len(got) == len(whole)
+            for g, w in zip(got, whole):
+                w = sh.select(w)
+                assert set(g) == set(w)
+                for k in g:
+                    a, b = g[k], w[k]
+                    if plan == "dedup" and k in ("shard_local_ids",
+                                                 "shard_owned"):
+                        # the sentinel id -1: no shard owns it, local 0
+                        u = a.shape[-1]
+                        narrower += u < b.shape[-1]
+                        assert not w["shard_owned"][..., u:].any()
+                        assert not w["shard_local_ids"][..., u:].any()
+                        b = b[..., :u]
+                    assert a.dtype == b.dtype and torch.equal(a, b), k
+    if plan == "dedup":
+        assert narrower > 0      # some rank's bucket is its own
+
+
+def test_rank_pipeline_stops_at_the_global_step_count(graphs4):
+    """Partitions whose batch counts differ: every rank, serial and
+    async, yields the whole stream's zip-shortest count, a rank whose own
+    partitions hold more batches included."""
+    _, shapes = graphs4
+    parts, budget = shapes["default"]
+    sizes = [int(p.core_edge_mask.sum()) for p in parts]
+    bs = next(b for b in range(16, 129) if len(
+        {-(-n // b) for n in sizes}) > 1)
+    counts = [num_edge_minibatches(p, bs) for p in parts]
+    pipe_kw = dict(_kw(budget), batch_size=bs)
+    whole = len(list(zip(*(SerialMinibatchPipeline(
+        parts, **pipe_kw).partition_stream(1, i) for i in range(4)))))
+    assert whole == min(counts) > 0
+    assert any(n > whole for n in counts)
+    for kind in ("serial", "async"):
+        for d in range(4):
+            pipe = make_input_pipeline(kind, parts, shardings=BatchShardings(
+                4, 1, d, 0), **pipe_kw)
+            assert pipe.num_steps == whole
+            assert sum(1 for _ in pipe.epoch_batches(1)) == whole, (kind, d)
+            assert pipe.last_stats.num_batches == whole
+
+
+@pytest.mark.parametrize("kind", ["serial", "async"])
+def test_rank_pipeline_streams_only_its_own_partitions(graphs4, kind):
+    parts, budget = graphs4[1]["default"]
+    for data in (2, 4):
+        for d in range(data):
+            pipe = _pipe(kind, parts, budget, BatchShardings(data, 1, d, 0))
+            seen, stream = [], pipe.partition_stream
+
+            def wrapped(epoch, i, stream=stream, seen=seen):
+                seen.append(i)
+                return stream(epoch, i)
+
+            pipe.partition_stream = wrapped
+            for it in (pipe.epoch_batches(1), pipe.device_batches(2)):
+                assert sum(1 for _ in it) == pipe.num_steps
+            k = 4 // data
+            assert sorted(seen) == sorted(2 * list(range(d * k,
+                                                         (d + 1) * k)))

@@ -8,21 +8,27 @@ every rank of the ``data`` × ``model`` mesh the module trains a few steps
 for every exchange (``psum_scatter``, ``psum``, ``alltoall``) at the fp32
 and int8 tables, and a full-graph run through the kernel encoder, and
 holds the losses, the parameters and the Adam moments bitwise against the
-simulated step, the test evaluation, ``make_sharded_rank_step`` in both
-ranking protocols, and (``--cli``) ``launch.train --spmd`` against
-``--no-spmd``. The meshes: 2 ranks as (2, 1) and (1, 2), 4 ranks as (2, 2).
-Against the reference: 2 ranks as (1, 2) from ``repro.KGETrainer``'s
-initial parameters (``--train-from``), within ``rtol=1e-3, atol=1e-4`` of
-its spmd trainer on two forced host devices.
+simulated step (also with the deduplicated gather plan, each rank's
+bucket its own trainers', and over a whole epoch on a mesh with a data
+axis, each rank building only its own trainers' batches), the test
+evaluation (each rank ranking its own row block of the embeddings),
+``make_sharded_rank_step`` in both ranking protocols, and (``--cli``)
+``launch.train --spmd`` against ``--no-spmd``. The meshes: 2 ranks as (2,
+1) and (1, 2), 4 ranks as (2, 2). Against the reference: 2 ranks as (1,
+2) and as (2, 1) from ``repro.KGETrainer``'s initial parameters
+(``--train-from``), within ``rtol=1e-3, atol=1e-4`` of its spmd trainer
+on two forced host devices.
 
 Checkpoints under spmd (``--resume``): 2 ranks as (1, 2) and 4 as (2,
 2), a resumed run bitwise the unbroken one, the file == the simulated
 trainer's, and the reference's trainer restoring the file.
 
 In this process: the mesh rule, the placement, the per-rank batch
-selection, ``--sharded-transfer`` on the simulated step, the errors
-(``spmd=True`` without a process group) and a checkpoint round trip on a
-1-rank gloo group.
+selection, a deduplicated plan's bucket changing no bit of a trainer's
+loss and gradients, ``--sharded-transfer`` on the simulated step, the
+errors (``spmd=True`` without a process group, a whole matrix given to
+the rank step's ranking) and a checkpoint round trip on a 1-rank gloo
+group.
 """
 import dataclasses
 import json
@@ -126,6 +132,27 @@ def test_real_step_bitwise_simulated_over_gloo(tmp_path, world,
     assert set(cases["rank_steps"]) == {
         f"{p}_{d}" for p in ("all-entities", "candidates")
         for d in ("fp32", "int8")}
+    # the deduplicated plan (a sharded table's): on the (2, 2) mesh some
+    # rank's own bucket is narrower than all trainers' at some step, and
+    # the step is bitwise
+    assert len(cases["dedup_fp32"]) == spmd_check.DEDUP_STEPS
+    assert all(r["cases"]["dedup_fp32"] == cases["dedup_fp32"]
+               for r in reports)
+    buckets = [r["cases"]["dedup_buckets"] for r in reports]
+    assert all(b["whole"] == buckets[0]["whole"] for b in buckets)
+    narrower = any(a < w for b in buckets
+                   for a, w in zip(b["rank"], b["whole"]))
+    assert narrower == (table_shards > 1 and world // table_shards > 1)
+    # a whole epoch on a mesh with a data axis, at the whole stream's
+    # step count (held inside the check), its first steps the 2-step runs'
+    if world // table_shards > 1:
+        epoch = cases["epoch_fp32"]
+        assert len(epoch) > 2 and all(r["cases"]["epoch_fp32"] == epoch
+                                      for r in reports)
+        assert epoch[:2] == cases[next(k for k in cases if k.startswith(
+            "minibatch_fp32"))]
+    else:
+        assert "epoch_fp32" not in cases
     if world == 2:
         assert len(cases["cli"]) == 2 and "test_mrr" in cases["cli"][1]
         assert reports[1]["cases"]["cli"] == []      # rank 1 prints nothing
@@ -147,7 +174,8 @@ splits = synthetic_fb15k(**spec["data"])
 out = {}
 for label, fields in spec["cases"].items():
     tr = KGETrainer(splits, TrainConfig(**fields))
-    assert tr._spmd and dict(tr.mesh.shape) == {"data": 1, "model": 2}
+    s = fields["num_table_shards"]
+    assert tr._spmd and dict(tr.mesh.shape) == {"data": 2 // s, "model": s}
     def save(name):
         np.savez(f"{directory}/{label}_{name}", **flatten_tree(
             jax.tree_util.tree_map(np.asarray, tr.params)))
@@ -163,18 +191,21 @@ LOSS_TOL = dict(rtol=1e-3, atol=1e-4)
 
 def test_real_step_near_reference_over_gloo(tmp_path):
     """The multi-process step on 2 gloo ranks as a (1, 2) mesh, with the
-    ``psum_scatter`` exchange at the fp32 and int8 tables, against
-    ``repro.KGETrainer(spmd=True)`` on a forced 2-device mesh from the
-    reference's initial parameters at dropout 0: each rank's epoch loss,
-    and its parameters (its row block of the entity table), within
-    ``rtol=1e-3, atol=1e-4`` of the reference's, and moved from the
-    start by more than that."""
+    ``psum_scatter`` exchange at the fp32 and int8 tables, and as a (2, 1)
+    mesh (a dense table, each rank building and running one trainer's
+    batches), against ``repro.KGETrainer(spmd=True)`` on a forced 2-device
+    mesh from the reference's initial parameters at dropout 0: each
+    rank's epoch loss, and its parameters (its row block of a sharded
+    entity table), within ``rtol=1e-3, atol=1e-4`` of the reference's,
+    and moved from the start by more than that."""
     base = dict(num_trainers=2, epochs=1, hidden_dim=8, batch_size=64,
                 num_negatives=1, learning_rate=0.01, seed=0, dropout=0.0,
                 num_table_shards=2, gather_exchange="psum_scatter",
                 spmd=True)
-    spec = {"data": {"scale": 0.01, "seed": 3},
-            "cases": {d: dict(base, table_dtype=d) for d in ("fp32", "int8")}}
+    cases = {d: dict(base, table_dtype=d) for d in ("fp32", "int8")}
+    cases["fp32_data2"] = dict(base, num_table_shards=1,
+                               gather_exchange=None)
+    spec = {"data": {"scale": 0.01, "seed": 3}, "cases": cases}
     (tmp_path / "config.json").write_text(json.dumps(spec))
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
                JAX_PLATFORMS="cpu", XLA_FLAGS=(os.environ.get(
@@ -192,8 +223,9 @@ def test_real_step_near_reference_over_gloo(tmp_path):
     reports = spawn(tmp_path, 2, 2, extra=["--train-from", str(tmp_path)])
     for r, report in enumerate(reports):
         got = report["cases"]
-        assert set(got) == set(want) == {"fp32", "int8"}
+        assert set(got) == set(want) == set(cases)
         for label in want:
+            sharded = cases[label]["num_table_shards"] > 1
             assert got[label]["num_batches"] == want[label]["num_batches"]
             np.testing.assert_allclose(got[label]["loss"],
                                        want[label]["loss"], **LOSS_TOL)
@@ -206,8 +238,8 @@ def test_real_step_near_reference_over_gloo(tmp_path):
                 mine = dict(z)
             assert set(mine) == set(final)
             for name, p in mine.items():
-                # the entity table is row-sharded: this rank's block
-                block = (lambda a: a[r:r + 1]) if \
+                # a row-sharded entity table: this rank's block
+                block = (lambda a: a[r:r + 1]) if sharded and \
                     name == "entity_embedding" else (lambda a: a)
                 assert not np.allclose(p, block(start[name]), **LOSS_TOL), \
                     (label, name)
@@ -283,6 +315,72 @@ def test_batch_shardings_select_this_ranks_blocks():
         BatchShardings(2, 1).check(3, None)
     with pytest.raises(ValueError, match="3 table shards"):
         BatchShardings(1, 2).check(2, ShardedTableLayout(10, 3))
+
+
+@pytest.mark.parametrize("table_dtype,exchange", [
+    ("fp32", "fused"), ("fp32", "masked_sum"), ("int8", None)])
+def test_dedup_bucket_changes_no_bit(table_dtype, exchange):
+    """A deduplicated gather plan padded to a wider bucket (64 more
+    columns of the sentinel id, which no shard owns and ``inverse`` never
+    points at) gives every trainer bitwise the same loss, aux metrics and
+    gradients: so a rank may pad its own trainers' rows to their own
+    bucket, with no message to agree on one."""
+    from repro_torch.analysis.programs import first_batch
+    from repro_torch.training.distributed import trainer_grads
+    tr = KGETrainer(synthetic_fb15k(scale=0.01, seed=3), TrainConfig(
+        num_trainers=2, hidden_dim=8, batch_size=64, num_table_shards=2,
+        gather_dedup=True, gather_exchange=exchange,
+        table_dtype=table_dtype, pipeline="serial"), device="cpu")
+    batch = first_batch(tr)
+    tr.close()
+    ids, owned = batch["shard_local_ids"], batch["shard_owned"]
+    pad = ids.shape[:-1] + (64,)
+    wide = dict(batch, shard_local_ids=torch.cat(
+        [ids, torch.zeros(pad, dtype=ids.dtype)], -1), shard_owned=torch.cat(
+        [owned, torch.zeros(pad, dtype=torch.bool)], -1))
+
+    def bits(b):
+        out = []
+        for loss, aux, grads in trainer_grads(tr._minibatch_loss, tr.params,
+                                              b, tr.step_generators(1, 0)):
+            out += [loss, *(aux[k] for k in sorted(aux)), *grads]
+        return [t.reshape(-1).view(torch.int32) for t in out]
+
+    narrow, padded = bits(batch), bits(wide)
+    assert len(narrow) == len(padded)
+    assert all(torch.equal(a, b) for a, b in zip(narrow, padded))
+
+
+def test_rank_step_ranking_refuses_a_whole_matrix(one_rank_group):
+    """``sharded_ranking_metrics`` with a ``rank_step`` ranks this rank's
+    row block of a ``num_entities``-row table: a whole ``(N, d)`` matrix,
+    a block of the wrong rows or a missing ``num_entities`` is refused,
+    not sliced."""
+    from repro_torch.eval.ranking import CSRFilterIndex
+    from repro_torch.eval.sharded import (
+        make_sharded_rank_step, sharded_ranking_metrics,
+    )
+    from repro_torch.sharding.embedding import ModelAxis
+    group = dist.new_group([0])
+    step = make_sharded_rank_step(ModelAxis(group, 0, 1))
+    rng = np.random.default_rng(0)
+    emb = torch.from_numpy(rng.standard_normal((30, 4)).astype(np.float32))
+    dparams = {"rel_diag": rng.standard_normal((3, 4)).astype(np.float32)}
+    test = np.stack([rng.integers(0, 30, 8), rng.integers(0, 3, 8),
+                     rng.integers(0, 30, 8)], 1)
+    fidx = CSRFilterIndex.build([])
+    kw = dict(rank_step=step, device="cpu")
+    for table, n, match in ((emb, 30, "row block"),
+                            (emb[None, :20], 30, "row block"),
+                            (emb[None], None, "num_entities")):
+        with pytest.raises(ValueError, match=match):
+            sharded_ranking_metrics(table, dparams, test, fidx, 1,
+                                    num_entities=n, **kw)
+    # the block of a one-rank axis is the whole table: the simulated
+    # ranking's metrics
+    assert sharded_ranking_metrics(emb[None], dparams, test, fidx, 1,
+                                   num_entities=30, **kw) == \
+        sharded_ranking_metrics(emb, dparams, test, fidx, 1, device="cpu")
 
 
 @pytest.mark.parametrize("batch_size", [None, 64])

@@ -8,10 +8,11 @@ Phases, each of which fails the run on error:
 1. Build: compile the five CUDA sources from ``src/repro_torch/csrc`` with
    ``nvcc -Xptxas -v`` for ``sm_90a`` (one process per source, all at
    once); each kernel's registers, shared memory and spills.
-2. Kernel vs plain: each of the eight kernels against its plain PyTorch
+2. Kernel vs plain: each of the nine kernels (the eight TPU kernels'
+   ports and the WKV gradient) against its plain PyTorch
    version on the card, with its time, its plain version's time, one
    PyTorch library call's time (where one computes the function) and the
-   least time the card could take; all eight kernels, each redesigned,
+   least time the card could take; the eight ports, each redesigned,
    also bitwise against their first kernels (``*_v1``), timed beside them:
    kge_score, topk and fused_gather at the serving shapes, kge_score also
    at the mini-batch ranking shape (B = 256) and, register-tiled, bitwise
@@ -68,7 +69,13 @@ Phases, each of which fails the run on error:
    and against the plain chunked form and the sequential oracle: finite,
    two runs bitwise equal; hd = 128, which the first kernel refuses,
    against the plain form and the oracle; and a block above the card's
-   shared memory (hd = 256) refused.
+   shared memory (hd = 256) refused. wkv_chunked_backward (the gradient)
+   at the rwkv6-3b training shape (BH = 2 x 40 heads, S = 2,048, hd = 64)
+   and at ragged shapes (S not a multiple of the checkpoint interval, hd =
+   8, 16, 30, 32) against the plain gradient (autograd through the
+   sequential oracle) taken in fp64 from the same fp32 inputs, within the
+   bound derived beside WKV_BWD_EXTRA; two runs bitwise equal; hd = 128
+   refused.
 3. Serving, FB15k-237 width (N=14,541, R=474, d=75): 200 Zipf(1.3) requests
    through ``repro_torch.launch.serve`` with distmult and transe at 1 and 4
    table shards, filtered, cache 256, 8 slots, k=10; sharded == dense.
@@ -209,7 +216,18 @@ Phases, each of which fails the run on error:
    likewise against the bf16 prefill of that prompt; the bf16 prefill's
    time and model-FLOP rate against 989 TFLOP/s, a bf16 decode step's
    time. Cut against the reference's ``prefill_32k`` shape: B = 4 (not 32), S = 2,048 (not
-   32,768); the model's depth and widths are whole.
+   32,768); the model's depth and widths are whole. Then, after phase 7
+   has released the phase-8 weights, (f) LM training at full width: fp32
+   weights drawn on the card (seed 0), remat on (the config's); one
+   step's loss and gradients of ``loss_fn`` with the WKV kernels against
+   the plain chunked form (loss within LM_TRAIN_LOSS_RTOL, every leaf
+   within LM_TRAIN_GRAD_REL_L2); three ``make_train_step`` Adam steps on
+   ``TokenStream`` batches at B = 2, S = 2,048: finite losses, each step's
+   time on CUDA events and its model-FLOP rate against the 67 TFLOP/s
+   fp32 peak, wkv_chunked launched 64 times a step (forward and the remat
+   recompute) and wkv_chunked_backward 32, nothing else, and the peak
+   device memory under the card's 80 GB; then one more step profiled
+   (device busy, idle share, the WKV kernels' time, the top operations).
 
 Then one JSON line with the kernels, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -312,6 +330,44 @@ LM_LOGIT_TOL = dict(rtol=1e-3, atol=1e-3)
 # (tests/test_kernels.py:186-187)
 WKV_TOL = dict(rtol=1e-4, atol=1e-4)
 WKV_ULPS_PER_STEP = 8    # against the plain chunked form: see check_wkv
+# wkv_chunked_backward against the plain gradient taken in fp64 from the
+# same fp32 inputs: |kernel - plain| <= gamma_n * M elementwise, with M the
+# plain gradient of the inputs' absolute values (|r|, |k|, |v|, |u|, |g|,
+# the same decays) in fp64, which is each output's sum of |terms|, and
+# gamma_n = n u / (1 - n u), n = 4 S + 2 P + 8 (P = hd rounded up to 4).
+# Every output is one chain of fp32 roundings: the state or G carried over
+# at most S steps (a product and an fmaf a step), each step's decay e^{lw}
+# within 2 u of exact (at most S of them in a product), the sum over 4
+# columns in a thread and P / 4 partials, and the bonus term's chain of hd
+# fmafs and two products; the fp64 side's own error is below 2^-40 M.
+WKV_BWD_EXTRA = 8
+# phase 8f: rwkv6-3b training cut against the reference's train_4k shape
+# (B = 256, S = 4,096; launch/specs.py:34) to B = 2, S = 2,048 on one card:
+# the fp32 parameters, gradients and Adam moments take 49.2 GB of its 80,
+# and the logits (B S 65,536 fp32) and the blocks' inputs grow with B S.
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 2, 2048, 3
+LM_TRAIN_LR = 3e-3     # the reference's --lr default (launch/train.py)
+# phase 8f (a): the loss and each gradient leaf of one step, the WKV
+# kernels against the plain chunked form, fp32 through 32 layers in other
+# summation orders: the reference's loss gate for the chunked form
+# (rel 1e-4, tests/test_perf_variants.py:52), and each leaf within 1e-3
+# of the plain one in relative L2 norm (a wrong term in any of the five
+# WKV gradients moves a leaf by O(1)); the elementwise share of the
+# reference's per-layer gradient gate (rtol 5e-3, atol 1e-4) is printed.
+LM_TRAIN_LOSS_RTOL = 1e-4
+LM_TRAIN_GRAD_REL_L2 = 1e-3
+# phase 8f (b): the first step's change of every leaf of at most this many
+# elements (the vectors, decay_A and decay_B: 11.7 M) against the
+# dict-wide adam update + apply_updates of (a)'s kernel gradients. Adam's
+# first step is -lr g / (|g| + eps), about lr sign(g) an element, so two
+# gradients a few ulps apart may still flip the sign of an element whose
+# gradient is near 0, by 2 lr: 1e-2 in relative L2 allows some 25 flips
+# in decay_A's 5.2 M elements, and a wrong learning rate, moment or sign
+# misses it by 10x or more.
+LM_TRAIN_HELD_NUMEL = 1 << 23
+LM_TRAIN_UPDATE_REL_L2 = 1e-2
+LM_TRAIN_PEAK_PREDICTED_GB = (55, 65)     # PERF.md's prediction for 8f
+CARD_BYTES = 80e9
 
 # each kernel's pallas_call in the JAX package
 REPLACES = {
@@ -323,6 +379,8 @@ REPLACES = {
     "segment_sum": "src/repro/kernels/rgcn_message.py:152",
     "scatter_add_onehot": "src/repro/kernels/sharded_gather.py:195",
     "wkv_chunked": "src/repro/kernels/wkv_chunk.py:85",
+    # no pallas_call: the reference's VJP of the sequential oracle
+    "wkv_chunked_backward": "src/repro/kernels/ops.py:408",
 }
 SOURCES = {
     "kge_score": "src/repro_torch/csrc/kge_score.cu",
@@ -333,6 +391,7 @@ SOURCES = {
     "segment_sum": "src/repro_torch/csrc/rgcn_message.cu",
     "scatter_add_onehot": "src/repro_torch/csrc/sharded_gather.cu",
     "wkv_chunked": "src/repro_torch/csrc/wkv_chunk.cu",
+    "wkv_chunked_backward": "src/repro_torch/csrc/wkv_chunk.cu",
 }
 SERVING_KERNELS = ("kge_score", "topk", "fused_gather")
 TRAINING_KERNELS = ("basis_message", "segment_sum", "scatter_add_onehot",
@@ -1768,6 +1827,103 @@ def check_wkv(dev, rng):
     return max_err, stats
 
 
+def wkv_bwd_ops(bh, s, hd):
+    """FLOP the WKV gradient needs: per step and state element, the state
+    (a product and a multiply-add), G (the same) and the three
+    contractions dr, dk, dv (a multiply-add each): 12. dlw needs no
+    contraction of its own: with L_t the cumulative log-decay, the loss
+    sees L_t only through r_{t+1} e^{L_t} and k_t e^{-L_t}, so dlw_m is the
+    reverse cumulative sum over t >= m of r_{t+1} dr'_{t+1} - k_t dk'_t
+    (dr', dk' without their bonus terms), O(hd) a step. The kernel takes
+    dlw by the direct contraction, 2 hd^2 a step more than this."""
+    return 12 * bh * s * hd * hd
+
+
+def check_wkv_backward(dev, rng):
+    """wkv_chunked_backward at the rwkv6-3b training shape (BH = 2 batch
+    rows x 40 heads, S = 2,048, hd = 64) and at ragged shapes, against the
+    plain gradient (autograd through the sequential oracle) taken in fp64
+    from the same fp32 inputs, elementwise within the bound derived beside
+    WKV_BWD_EXTRA; every output finite, two runs bitwise equal; hd = 128
+    refused. Returns
+    (max |kernel - plain|, per-case errors with the times at the training
+    shape)."""
+    import torch
+    from repro_torch.kernels.wkv_chunk import (
+        wkv_chunked_backward, wkv_chunked_backward_plain,
+    )
+    cases = [("train", LM_TRAIN_B * 40, LM_TRAIN_S, 64),
+             ("S ragged", 7, 1000, 64), ("BH=1, S<segment", 1, 13, 64),
+             ("hd=8", 5, 77, 8), ("hd=16", 9, 130, 16), ("hd=30", 4, 50, 30),
+             ("hd=32", 3, 96, 32)]
+    names = ("dr", "dk", "dv", "dlog_decay", "du")
+    max_err, stats = 0.0, {}
+    for label, bh, s, hd in cases:
+        x = wkv_inputs(dev, rng, bh, s, hd)
+        g = torch.from_numpy(rng.normal(size=(bh, s, hd)).astype(
+            np.float32)).to(dev)
+        got = wkv_chunked_backward(*x, g)
+        got2 = wkv_chunked_backward(*x, g)
+        want = wkv_chunked_backward_plain(*(t.double() for t in x),
+                                          g.double())
+        r, k, v, lw, u = (t.double() for t in x)
+        mag = wkv_chunked_backward_plain(r.abs(), k.abs(), v.abs(), lw,
+                                         u.abs(), g.double().abs())
+        torch.cuda.synchronize()
+        n = 4 * s + 2 * (-(-hd // 4) * 4) + WKV_BWD_EXTRA
+        gamma = n * U32 / (1 - n * U32)
+        case = dict(BH=bh, S=s, hd=hd, gamma=gamma)
+        for name, a, a2, b, m in zip(names, got, got2, want, mag):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"wkv_chunked_backward {label}: "
+                                     f"non-finite {name}")
+            if not same_bits(a, a2):
+                raise AssertionError(f"wkv_chunked_backward {label}: two "
+                                     f"runs differ in {name}")
+            err = (a.double() - b).abs()
+            tol = gamma * m + 1e-30
+            if bool((err > tol).any()):
+                i = int(torch.argmax(err / tol))
+                raise AssertionError(
+                    f"wkv_chunked_backward {label}: {name} element {i} "
+                    f"|kernel - plain fp64| {float(err.flatten()[i])} > "
+                    f"{float(tol.flatten()[i])}")
+            case[name] = dict(max_abs_err=float(err.max()),
+                              bound_share=float((err / tol).max()))
+            max_err = max(max_err, float(err.max()))
+        stats[label] = case
+        log(f"[phase 2] wkv_chunked_backward {label} (BH={bh}, S={s}, "
+            f"hd={hd}): within gamma_{n} = {gamma:.3g} of each output's "
+            f"sum |terms| of the fp64 plain gradient; largest share of the "
+            f"bound " + ", ".join(f"{nm} {case[nm]['bound_share']:.2e}"
+                                  for nm in names)
+            + "; finite, two runs bitwise equal")
+        if label == "train":
+            nbytes = 4 * (9 * bh * s * hd + 2 * bh * hd)
+            b_ms, b_by = bound_ms(nbytes, wkv_bwd_ops(bh, s, hd))
+            ms, call_ms = timed(lambda: wkv_chunked_backward(*x, g))
+            # autograd through 2,048 steps: too many device operations for
+            # the profiler's windows, CUDA events only
+            plain_ms = time_ms(lambda: wkv_chunked_backward_plain(*x, g),
+                               reps=2, warmup=1)
+            case.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            log(f"[phase 2] wkv_chunked_backward {label}: {ms:.4f} ms "
+                f"({call_ms:.4f} ms per call, {ms / b_ms:.1f}x its bound), "
+                f"plain (autograd through the sequential oracle, fp32) "
+                f"{plain_ms:.1f} ms per call, no single library call; bound "
+                f"{b_ms:.6f} ms ({b_by})")
+        del x, g, got, got2, want, mag
+    x = wkv_inputs(dev, rng, 2, 16, 128)
+    try:
+        wkv_chunked_backward(*x, x[0])
+    except ValueError as e:
+        log(f"[phase 2] wkv_chunked_backward hd=128 refused: {e}")
+    else:
+        raise AssertionError("wkv_chunked_backward: hd=128 did not raise")
+    return max_err, stats
+
+
 # ---------------------------------------------------------------------- #
 # phase 8: rwkv6-3b prefill and greedy serving at full width
 # ---------------------------------------------------------------------- #
@@ -1935,15 +2091,6 @@ def run_lm(dev, rng):
     return res, state
 
 
-def tree_to(tree, dtype):
-    """The LM parameter tree with every leaf cast to ``dtype``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_to(v, dtype) for v in tree]
-    return tree.to(dtype)
-
-
 def run_lm_bf16(params, cfg, prefill_k, prefill_p, batch, lk, tok_b, want,
                 step_batch, windows):
     """Phase 8e: the fp32 weights rounded to bf16 (what
@@ -1966,7 +2113,7 @@ def run_lm_bf16(params, cfg, prefill_k, prefill_p, batch, lk, tok_b, want,
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.nn import transformer as T
     dev = lk.device
-    p16 = tree_to(params, torch.bfloat16)
+    p16 = T.map_tree(params, lambda t: t.to(torch.bfloat16))
     res = dict(bf16_param_bytes=sum(t.numel() * t.element_size()
                                     for _, t in T.leaves(p16)))
     reset_counts()
@@ -2068,6 +2215,201 @@ def profile_lm(state):
             lambda: state["serve_step"](state["params"], state["cache"],
                                         state["step_batch"]))
     return out
+
+
+def first_update_check(optimizer, grads, start, params):
+    """Each leaf of ``grads``: ``params`` after the first train step
+    against ``start`` + ``optimizer.update`` (the dict-wide form) of
+    ``grads`` from ``start``, the difference relative to the update's L2
+    norm within
+    LM_TRAIN_UPDATE_REL_L2. Returns the largest relative L2, its leaf and
+    the share of elements whose bits agree."""
+    import torch
+    want, _ = optimizer.update(grads, optimizer.init(start), start)
+    worst, worst_name, same, total = 0.0, "", 0, 0
+    for name, u in want.items():
+        expect = start[name] + u
+        same += int((params[name].view(torch.int32)
+                     == expect.view(torch.int32)).sum())
+        total += u.numel()
+        rel = float((params[name] - expect).norm()
+                    / u.norm().clamp_min(1e-30))
+        if rel >= worst:
+            worst, worst_name = rel, name
+    out = dict(leaves=len(want), elements=total, worst_rel_l2=worst,
+               worst_leaf=worst_name, bitwise_share=same / max(total, 1))
+    if worst > LM_TRAIN_UPDATE_REL_L2:
+        raise AssertionError(f"phase 8f: the first step moved {worst_name} "
+                             f"{worst} in relative L2 from adam.update "
+                             f"of the same gradients")
+    log(f"[phase 8f] the first step's change of {len(want)} leaves "
+        f"({total} elements) against adam.update + apply_updates of (a)'s "
+        f"gradients: largest relative L2 {worst:.3g} ({worst_name}, gate "
+        f"{LM_TRAIN_UPDATE_REL_L2}), bits equal in {out['bitwise_share']:.6f}"
+        f" of the elements")
+    return out
+
+
+def run_lm_train(dev, card):
+    """Phase 8f: rwkv6-3b training at full width (32 layers, d 2,560,
+    3,073,313,280 fp32 parameters drawn on the card from seed 0, remat on),
+    TF32 off. (a) one step's loss and gradients, the WKV kernels
+    ("chunked_kernel") against the plain chunked form, within
+    LM_TRAIN_LOSS_RTOL and LM_TRAIN_GRAD_REL_L2. (b) LM_TRAIN_STEPS
+    make_train_step Adam steps on TokenStream batches (B = 2, S = 2,048,
+    seed 0): finite losses, each step's time on CUDA events and its
+    model-FLOP rate; the first step's change of the small leaves against
+    adam.update of (a)'s gradients (first_update_check). (c) each step launches wkv_chunked 64 times (32
+    layers, each recomputed in the backward) and wkv_chunked_backward 32
+    times, and no other kernel. (d) the peak device memory of the steps,
+    under the card's 80 GB, printed beside PERF.md's prediction. Then one
+    more step under the profiler: device busy, idle share, the WKV
+    kernels' time and the top device operations."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.specs import InputShape, model_flops
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.nn import transformer as T
+    from repro_torch.training.optimizer import adam
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch(LM_ARCH)
+    if not cfg.remat:
+        raise AssertionError(f"{LM_ARCH}: remat is off")
+    kcfg = dataclasses.replace(cfg, rwkv_mode="chunked_kernel")
+    pcfg = dataclasses.replace(cfg, rwkv_mode="chunked")
+    res = dict(allocated_before_bytes=torch.cuda.memory_allocated())
+    params = T.init_params(cfg, generator=torch.Generator(device=dev)
+                           .manual_seed(0), device=dev, dtype=torch.float32)
+    res["params"] = T.count_params(params)
+    if res["params"] != 3_073_313_280:
+        raise AssertionError(f"{LM_ARCH}: {res['params']} parameters")
+    stream = TokenStream(cfg.vocab_size, LM_TRAIN_B, LM_TRAIN_S, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(stream)
+                .items()} for _ in range(LM_TRAIN_STEPS)]
+    # (a) kernel against plain, one step's loss and gradients
+    lk, _, gk = loss_and_grads(params, kcfg, batches[0])
+    lp, _, gp = loss_and_grads(params, pcfg, batches[0])
+    torch.cuda.synchronize()
+    res["grad_loss_kernel"], res["grad_loss_plain"] = float(lk), float(lp)
+    if not (np.isfinite(res["grad_loss_kernel"]) and abs(
+            res["grad_loss_kernel"] - res["grad_loss_plain"])
+            <= LM_TRAIN_LOSS_RTOL * abs(res["grad_loss_plain"])):
+        raise AssertionError(f"phase 8f: loss kernel {float(lk)!r} vs "
+                             f"plain {float(lp)!r}")
+    held = {n: g.clone() for n, g in gk.items()
+            if g.numel() <= LM_TRAIN_HELD_NUMEL}
+    worst, worst_name, gate_share = 0.0, "", 0.0
+    for name in list(gk):       # leaf by leaf, each freed after
+        a, b = gk.pop(name), gp.pop(name)
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"phase 8f: gradient {name} not finite")
+        d = a - b
+        rel = float(d.norm() / b.norm().clamp_min(1e-30))
+        gate_share = max(gate_share, float(
+            (d.abs_() / (1e-4 + 5e-3 * b.abs())).max()))
+        if rel >= worst:
+            worst, worst_name = rel, name
+        del a, b, d
+        if rel > LM_TRAIN_GRAD_REL_L2:
+            raise AssertionError(f"phase 8f: gradient {name} kernel vs "
+                                 f"plain relative L2 {rel} > "
+                                 f"{LM_TRAIN_GRAD_REL_L2}")
+    del gk, gp
+    res.update(grad_worst_leaf=worst_name, grad_worst_rel_l2=worst,
+               grad_reference_gate_share=gate_share)
+    log(f"[phase 8f] one step at B={LM_TRAIN_B}, S={LM_TRAIN_S}: loss kernel "
+        f"{res['grad_loss_kernel']!r} vs plain chunked "
+        f"{res['grad_loss_plain']!r} (rel {LM_TRAIN_LOSS_RTOL}); every "
+        f"gradient leaf within relative L2 {LM_TRAIN_GRAD_REL_L2} (largest "
+        f"{worst:.3g}, {worst_name}); largest elementwise share of the "
+        f"reference's per-layer gate (rtol 5e-3, atol 1e-4) {gate_share:.3g}")
+    # (b)-(d) the main path: make_train_step, counts around each step
+    gc.collect()
+    torch.cuda.empty_cache()
+    optimizer = adam(LM_TRAIN_LR)
+    opt_state = optimizer.init(dict(T.leaves(params)))
+    step = make_train_step(kcfg, optimizer)
+    start_of = {n: t.clone() for n, t in T.leaves(params) if n in held}
+    flop = model_flops(cfg, InputShape("train", LM_TRAIN_S, LM_TRAIN_B,
+                                       "train"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reset_counts()
+        start.record()
+        params, opt_state, m = step(params, opt_state, batch)
+        end.record()
+        end.synchronize()
+        counts = launch_counts()
+        ms = start.elapsed_time(end)
+        steps.append(dict(loss=float(m["loss"]), nll=float(m["nll"]),
+                          moe_aux=float(m["moe_aux"]), ms=ms,
+                          tflops=flop / ms / 1e9, launches=counts))
+        others = {k: v for k, v in counts.items()
+                  if k not in ("wkv_chunked", "wkv_chunked_backward") and v}
+        if (counts["wkv_chunked"] != 2 * cfg.num_layers
+                or counts["wkv_chunked_backward"] != cfg.num_layers
+                or others):
+            raise AssertionError(f"phase 8f step {i}: launches {counts}, "
+                                 f"expected wkv_chunked "
+                                 f"{2 * cfg.num_layers} and "
+                                 f"wkv_chunked_backward {cfg.num_layers}")
+        if not np.isfinite(steps[-1]["loss"]):
+            raise AssertionError(f"phase 8f step {i}: loss "
+                                 f"{steps[-1]['loss']}")
+        if i == 0:
+            res["first_update"] = first_update_check(
+                optimizer, held, start_of, dict(T.leaves(params)))
+            del held, start_of
+        log(f"[phase 8f] step {i}: loss {steps[-1]['loss']:.6f}, "
+            f"{ms:.1f} ms = {steps[-1]['tflops']:.2f} TFLOP/s of model "
+            f"FLOPs ({flop:.4g} a step), {steps[-1]['tflops'] / 67:.3f} of "
+            f"the 67 TFLOP/s fp32 peak; launches wkv_chunked "
+            f"{counts['wkv_chunked']}, wkv_chunked_backward "
+            f"{counts['wkv_chunked_backward']}; {card}")
+    peak = torch.cuda.max_memory_allocated()
+    if int(opt_state.step) != LM_TRAIN_STEPS or peak >= CARD_BYTES:
+        raise AssertionError(f"phase 8f: optimizer step "
+                             f"{int(opt_state.step)}, peak {peak} bytes")
+    lo, hi = LM_TRAIN_PEAK_PREDICTED_GB
+    res.update(steps=steps, flop_per_step=flop, peak_bytes=peak,
+               param_bytes=sum(t.numel() * t.element_size()
+                               for _, t in T.leaves(params)))
+    log(f"[phase 8f] {LM_TRAIN_STEPS} make_train_step steps: losses "
+        f"{[round(x['loss'], 6) for x in steps]}, step ms "
+        f"{[round(x['ms'], 1) for x in steps]}; peak device memory "
+        f"{peak / 1e9:.2f} GB (predicted {lo}-{hi} GB; parameters "
+        f"{res['param_bytes'] / 1e9:.2f} GB, with gradients and two "
+        f"moments {4 * res['param_bytes'] / 1e9:.2f} GB) of the card's "
+        f"{CARD_BYTES / 1e9:.0f} GB; {card}")
+    # where a step's time goes: one more step, on the next batch, under the
+    # profiler (not one of the counted steps)
+    extra = {k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+    w = profiled(lambda: step(params, opt_state, extra), 1, host=False)
+    top = sorted(w["by_name"].items(), key=lambda kv: -kv[1])[:8]
+    res["profile"] = dict(
+        step_ms=w["wall_us"] / 1e3, device_ms_per_step=w["busy_us"] / 1e3,
+        idle_share=1.0 - w["busy_us"] / w["wall_us"],
+        device_events=w["count"],
+        wkv_ms={n: t / 1e3 for n, t in w["by_name"].items() if "wkv_" in n},
+        top_device_ms_per_step={n: t / 1e3 for n, t in top})
+    log(f"[phase 8f] a profiled step: {res['profile']['step_ms']:.1f} ms, "
+        f"device busy {res['profile']['device_ms_per_step']:.1f} ms, idle "
+        f"share {res['profile']['idle_share']:.4f}, {w['count']} device "
+        f"events; WKV kernels, ms: {res['profile']['wkv_ms']}; top "
+        f"{res['profile']['top_device_ms_per_step']}")
+    del params, opt_state, step, batches, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------- #
@@ -3110,6 +3452,7 @@ def main() -> int:
     phase2["segment_sum"] = (seg_err, seg_stats)
     phase2["scatter_add_onehot"] = check_scatter_add(dev, rng, mbs)
     phase2["wkv_chunked"] = check_wkv(dev, rng)
+    phase2["wkv_chunked_backward"] = check_wkv_backward(dev, rng)
     log("[phase 2] kge_score and basis_message within their stated bounds; "
         "topk, fused_gather and fused_dequant_gather bitwise equal to their "
         "plain versions; kge_score, topk, fused_gather, "
@@ -3119,7 +3462,9 @@ def main() -> int:
         "segment_sum deg == plain, agg within its bound, runs bitwise "
         "equal; scatter_add_onehot within its bound, non-hit rows 0, runs "
         "bitwise equal; wkv_chunked within its bounds of the plain chunked "
-        "form and the sequential oracle, finite, runs bitwise equal")
+        "form and the sequential oracle, finite, runs bitwise equal; "
+        "wkv_chunked_backward within its bound of the fp64 plain gradient, "
+        "finite, runs bitwise equal")
 
     # phases 3-4: the serving path; counts read around exactly these runs
     reset_counts()
@@ -3532,13 +3877,21 @@ def main() -> int:
         f"{h['t_warmup']:.4f} s; {h['num_batches']} steps, "
         f"{1e3 * h['t_device_step'] / h['num_batches']:.2f} ms per step")
 
+    # phase 8f: LM training at full width, once phase 7 has released the
+    # phase-8 weights; counts reset and read inside run_lm_train around
+    # each step
+    lm_train = run_lm_train(dev, card)
+    lm_train_launches = {n: sum(st["launches"][n] for st in lm_train["steps"])
+                         for n in KERNELS}
+
     kernels = []
     # each kernel's head shape: the mini-batch path's where it runs there
     heads = {"kge_score": "rank_S4", "topk": "citation2_S1",
              "fused_gather": "minibatch_S4",
              "fused_dequant_gather": "minibatch_S4",
              "basis_message": "minibatch", "segment_sum": "minibatch",
-             "scatter_add_onehot": "h_dst", "wkv_chunked": "prefill"}
+             "scatter_add_onehot": "h_dst", "wkv_chunked": "prefill",
+             "wkv_chunked_backward": "train"}
     for name, head_shape in heads.items():
         max_err, stats = phase2[name]
         head = stats[head_shape]
@@ -3557,7 +3910,8 @@ def main() -> int:
                    "spmd_resume_int8":
                        spmd["resume_int8"]["launches"][name],
                    "audit": spmd["audit"]["launches"][name],
-                   "lm": lm_launches[name]}
+                   "lm": lm_launches[name],
+                   "lm_train": lm_train_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),
@@ -3608,7 +3962,7 @@ def main() -> int:
                        "resume": resume,
                        "citation2": c2, "spmd": spmd,
                        "embedding_max_abs_diff": emb_err,
-                       "lm": lm,
+                       "lm": lm, "lm_train": lm_train,
                        "profile": profiles,
                        "total_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"[profiler] {WINDOWS['taken']} windows, {WINDOWS['incomplete']} "

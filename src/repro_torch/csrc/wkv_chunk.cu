@@ -7,7 +7,8 @@
 //             + (sum_d r u k) v + (r e^{l_exc}) S_in
 //     S_out = e^{l_tot} . S_in + (k e^{l_tot - l_inc})^T v
 //
-// with the (hd, hd) state S zero at the row's first chunk.
+// with the (hd, hd) state S zero at the row's first chunk. Its gradient,
+// wkv_chunked_backward_f32, is the last kernel of this file.
 //
 // Replaces the Pallas TPU kernel repro/kernels/wkv_chunk.py::wkv_chunked
 // (pallas_call at wkv_chunk.py:85), which kept the state of 8 rows in VMEM
@@ -746,6 +747,290 @@ cudaError_t launch_all(const float* r, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------- //
+// the backward (wkv_chunked_backward_f32)
+// ---------------------------------------------------------------------- //
+// The VJP of the sequential recurrence (S_{-1} = 0, w_t = e^{lw_t}):
+//
+//     out_t = r_t (S_{t-1} + diag(u) k_t^T v_t),  S_t = diag(w_t) S_{t-1}
+//                                                       + k_t^T v_t
+//
+// for the output cotangent g. With G_t = dL/dS_t, G_{S-1} = 0, in reverse
+// time order:
+//     dr_t[i]  = sum_j g_t[j] S_{t-1}[i,j] + u[i] k_t[i] (g_t . v_t)
+//     dk_t[i]  = sum_j G_t[i,j] v_t[j]     + u[i] r_t[i] (g_t . v_t)
+//     dv_t[j]  = sum_i k_t[i] G_t[i,j]     + g_t[j] (sum_i r_t[i] u[i] k_t[i])
+//     dlw_t[i] = w_t[i] sum_j G_t[i,j] S_{t-1}[i,j]
+//     du[i]    = sum_t r_t[i] k_t[i] (g_t . v_t)
+//     G_{t-1}  = diag(w_t) G_t + r_t^T g_t
+//
+// Replaces no Pallas kernel: the reference differentiates its kernel
+// through jax.vjp of the sequential oracle (repro/kernels/ops.py:408-414),
+// which XLA compiles into one scan. Without a compiler, autograd through
+// the per-token loop would launch some 20 operations a step.
+//
+// One block per row, (P / 4)^2 threads for P = hd rounded up to 4 (256 at
+// hd = 64); thread (ti, tj) holds the 4 x 4 tile of S and of G at rows
+// 4 ti .. 4 ti + 3 and columns 4 tj .. 4 tj + 3 in registers. A forward
+// sweep writes the state entering every seg_len-step segment to the
+// caller's scratch. The reverse sweep then takes the segments last to
+// first: it stages the segment's inputs in shared memory and, for each
+// step t, replays S_{t-1} from the segment's checkpoint in registers
+// (seg_len / 2 updates a step on average) - never S_{t-1} = (S_t - k v) /
+// w_t, which blows up for decays near 0. Each thread's row sums (dr, dk,
+// dlw over its 4 columns) and column sums (dv over its 4 rows) go to
+// shared memory, double-buffered by step parity so a step takes one
+// barrier; one thread per (output, index) adds the P / 4 partials in tile
+// order. Every sum has a fixed order and there are no atomics, so two
+// calls give the same bits.
+//
+// What bounds it on an H100: the work it needs is 12 hd^2 FLOP a step and
+// row (the state, the G update and the dr, dk, dv contractions, 2 hd^2
+// each; dlw needs no contraction of its own, since it is the reverse
+// cumulative sum of r_{t+1} dr'_{t+1} - k_t dk'_t over the bonus-free dr'
+// and dk', O(hd) a step): 8.1 GFLOP at BH = 80, S = 2,048, hd = 64,
+// 0.12 ms at the 67 TFLOP/s fp32 peak, against 0.11 ms for the 377 MB it
+// must move. This kernel takes dlw by the direct contraction, 2 hd^2 more
+// a step, and this first design is far from either bound: 80 blocks for
+// 132 SMs, each walking its 2,048 steps one barrier at a time, and the
+// replays multiply the state work by about seg_len / 2. seg_len, the steps
+// between two state checkpoints, is the caller's (the Python wrapper's
+// BACKWARD_SEGMENT), which sizes the checkpoint scratch by it.
+constexpr int BWD_MAX_HD = 64;    // (64 / 4)^2 = 256 threads a block
+
+struct BwdLayout {
+  int P, NQ, rp, sr, sk, sv, sw, sg, gv, bk, su, sdu, red, red_buf, total;
+};
+
+// Shared memory, offsets in floats, every array 16-byte aligned: the
+// segment's r, k, v, w = e^{lw} and g (seg_len, P), zero past hd; its
+// g . v and sum r u k (seg_len); u and the du sums (P); two reduction
+// buffers, each the row partials (3, NQ, P + 4) - the pitch P + 4 keeps
+// the 8 lanes of a float4 store phase on 8 different bank groups - then
+// the column partials (NQ, P).
+__host__ __device__ __forceinline__ BwdLayout bwd_layout(int hd,
+                                                        int seg_len) {
+  BwdLayout L;
+  L.P = (hd + 3) & ~3;
+  L.NQ = L.P >> 2;
+  L.rp = L.P + 4;
+  const int tile = seg_len * L.P;
+  L.sr = 0;
+  L.sk = tile;
+  L.sv = 2 * tile;
+  L.sw = 3 * tile;
+  L.sg = 4 * tile;
+  L.gv = 5 * tile;
+  L.bk = L.gv + seg_len;
+  L.su = L.bk + seg_len;
+  L.sdu = L.su + L.P;
+  L.red = L.sdu + L.P;
+  L.red_buf = 3 * L.NQ * L.rp + L.NQ * L.P;
+  L.total = L.red + 2 * L.red_buf;
+  return L;
+}
+
+__device__ __forceinline__ void st4(float* p, float a, float b, float c,
+                                    float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+// S <- diag(w) S + k^T v on a thread's tile, one fmaf an element.
+__device__ __forceinline__ void state_step(float (&st)[4][4],
+                                           const float4& w, const float4& k,
+                                           const float4& v) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      st[a][c] = fmaf(at(w, a), st[a][c], at(k, a) * at(v, c));
+}
+
+// Stage steps t0 .. t0 + n - 1 of a row into shared memory, zero past hd
+// (w = e^{lw}); with g == nullptr only k, v and w (the forward sweep).
+__device__ __forceinline__ void stage(float* smem, const BwdLayout& L,
+                                      const float* r, const float* k,
+                                      const float* v, const float* lw,
+                                      const float* g, int64_t off, int n,
+                                      int hd, int tid, int nt) {
+  for (int x = tid; x < n * L.P; x += nt) {
+    const int a = x / L.P, j = x - a * L.P;
+    const bool in = j < hd;
+    const int64_t gi = off + static_cast<int64_t>(a) * hd + j;
+    smem[L.sk + x] = in ? k[gi] : 0.0f;
+    smem[L.sv + x] = in ? v[gi] : 0.0f;
+    smem[L.sw + x] = in ? expf(lw[gi]) : 0.0f;
+    if (g != nullptr) {
+      smem[L.sr + x] = in ? r[gi] : 0.0f;
+      smem[L.sg + x] = in ? g[gi] : 0.0f;
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(256)
+wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ lw,
+               const float* __restrict__ u, const float* __restrict__ g,
+               float* __restrict__ dr, float* __restrict__ dk,
+               float* __restrict__ dv, float* __restrict__ dlw,
+               float* __restrict__ du, float* __restrict__ ckpt, int S,
+               int hd_arg, int seg_len) {
+  extern __shared__ __align__(16) float smem[];
+  const int hd = HD ? HD : hd_arg;
+  const BwdLayout L = bwd_layout(hd, seg_len);
+  const int P = L.P, NQ = L.NQ, nt = NQ * NQ;
+  const int tid = threadIdx.x;
+  const int ti = tid / NQ, tj = tid - ti * NQ;
+  const int r0 = 4 * ti, c0 = 4 * tj;
+  const int row = blockIdx.x;
+  const int nseg = (S + seg_len - 1) / seg_len;
+  const int64_t base = static_cast<int64_t>(row) * S * hd;
+  float* ck_row = ckpt + static_cast<int64_t>(row) * nseg * P * P;
+
+  for (int j = tid; j < P; j += nt) {
+    smem[L.su + j] = j < hd ? u[static_cast<int64_t>(row) * hd + j] : 0.0f;
+    smem[L.sdu + j] = 0.0f;
+  }
+
+  // forward sweep: the state entering each segment
+  float st[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) st[a][c] = 0.0f;
+  for (int seg = 0; seg < nseg; ++seg) {
+    const int t0 = seg * seg_len, n = min(seg_len, S - t0);
+    float* ck = ck_row + static_cast<int64_t>(seg) * P * P;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      st4(ck + (r0 + a) * P + c0, st[a][0], st[a][1], st[a][2], st[a][3]);
+    if (seg == nseg - 1) break;          // the last segment's end: unused
+    __syncthreads();
+    stage(smem, L, r, k, v, lw, nullptr, base + static_cast<int64_t>(t0) * hd,
+          n, hd, tid, nt);
+    __syncthreads();
+    for (int p = 0; p < n; ++p)
+      state_step(st, ld4(smem + L.sw + p * P + r0),
+                 ld4(smem + L.sk + p * P + r0), ld4(smem + L.sv + p * P + c0));
+  }
+
+  // reverse sweep
+  float gg[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) gg[a][c] = 0.0f;
+  int buf = 0;
+  for (int seg = nseg - 1; seg >= 0; --seg) {
+    const int t0 = seg * seg_len, n = min(seg_len, S - t0);
+    const int64_t off = base + static_cast<int64_t>(t0) * hd;
+    __syncthreads();                     // the last segment's reads done
+    stage(smem, L, r, k, v, lw, g, off, n, hd, tid, nt);
+    float ck[4][4];
+    const float* cks = ck_row + static_cast<int64_t>(seg) * P * P;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float4 q = ld4(cks + (r0 + a) * P + c0);
+      ck[a][0] = q.x;
+      ck[a][1] = q.y;
+      ck[a][2] = q.z;
+      ck[a][3] = q.w;
+    }
+    __syncthreads();
+    // per step: g . v and sum_i r u k, each an fmaf chain in index order
+    for (int s = tid; s < n; s += nt) {
+      float gv = 0.0f, bk = 0.0f;
+      for (int j = 0; j < hd; ++j) {
+        gv = fmaf(smem[L.sg + s * P + j], smem[L.sv + s * P + j], gv);
+        bk = fmaf(smem[L.sr + s * P + j] * smem[L.su + j],
+                  smem[L.sk + s * P + j], bk);
+      }
+      smem[L.gv + s] = gv;
+      smem[L.bk + s] = bk;
+    }
+    __syncthreads();
+    for (int s = n - 1; s >= 0; --s) {
+      // S_{t-1}: the checkpoint with steps 0 .. s-1 of the segment
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) st[a][c] = ck[a][c];
+      for (int p = 0; p < s; ++p)
+        state_step(st, ld4(smem + L.sw + p * P + r0),
+                   ld4(smem + L.sk + p * P + r0),
+                   ld4(smem + L.sv + p * P + c0));
+      const float4 gc = ld4(smem + L.sg + s * P + c0);
+      const float4 vc = ld4(smem + L.sv + s * P + c0);
+      const float4 kr = ld4(smem + L.sk + s * P + r0);
+      const float4 rr = ld4(smem + L.sr + s * P + r0);
+      const float4 wr = ld4(smem + L.sw + s * P + r0);
+      float pr[4], pk[4], pl[4], pv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        pr[a] = 0.0f;
+        pk[a] = 0.0f;
+        pl[a] = 0.0f;
+        pv[a] = 0.0f;
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          pr[a] = fmaf(at(gc, c), st[a][c], pr[a]);
+          pk[a] = fmaf(gg[a][c], at(vc, c), pk[a]);
+          pl[a] = fmaf(gg[a][c], st[a][c], pl[a]);
+        }
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int a = 0; a < 4; ++a) pv[c] = fmaf(at(kr, a), gg[a][c], pv[c]);
+      float* red = smem + L.red + buf * L.red_buf;
+      st4(red + (0 * NQ + tj) * L.rp + r0, pr[0], pr[1], pr[2], pr[3]);
+      st4(red + (1 * NQ + tj) * L.rp + r0, pk[0], pk[1], pk[2], pk[3]);
+      st4(red + (2 * NQ + tj) * L.rp + r0, pl[0], pl[1], pl[2], pl[3]);
+      st4(red + 3 * NQ * L.rp + ti * P + c0, pv[0], pv[1], pv[2], pv[3]);
+      // G_{t-1} = diag(w_t) G_t + r_t^T g_t
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          gg[a][c] = fmaf(at(wr, a), gg[a][c], at(rr, a) * at(gc, c));
+      __syncthreads();
+      // one thread per (output, index): the partials in tile order, then
+      // the bonus terms
+      const int64_t o = off + static_cast<int64_t>(s) * hd;
+      const float gvs = smem[L.gv + s];
+      for (int x = tid; x < 4 * P; x += nt) {
+        const int q = x / P, i = x - q * P;
+        if (i >= hd) continue;
+        float acc = 0.0f;
+        if (q < 3) {
+          for (int m = 0; m < NQ; ++m) acc += red[(q * NQ + m) * L.rp + i];
+        } else {
+          for (int m = 0; m < NQ; ++m) acc += red[3 * NQ * L.rp + m * P + i];
+        }
+        const float ri = smem[L.sr + s * P + i], ki = smem[L.sk + s * P + i];
+        const float ui = smem[L.su + i];
+        if (q == 0) {
+          dr[o + i] = acc + ui * ki * gvs;
+        } else if (q == 1) {
+          dk[o + i] = acc + ui * ri * gvs;
+          smem[L.sdu + i] += ri * ki * gvs;
+        } else if (q == 2) {
+          dlw[o + i] = smem[L.sw + s * P + i] * acc;
+        } else {
+          dv[o + i] = acc + smem[L.bk + s] * smem[L.sg + s * P + i];
+        }
+      }
+      buf ^= 1;
+    }
+  }
+  __syncthreads();
+  for (int j = tid; j < hd; j += nt)
+    du[static_cast<int64_t>(row) * hd + j] = smem[L.sdu + j];
+}
+
 }  // namespace
 
 // Returns a cudaError_t, or WKV_SMEM_TOO_LARGE (the Python wrapper's
@@ -812,5 +1097,58 @@ extern "C" int wkv_chunked_f32_v1(const void* r, const void* k, const void* v,
       static_cast<const float*>(r), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(lw),
       static_cast<const float*>(u), static_cast<float*>(out), S, hd, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward of the sequential recurrence: dr, dk, dv, dlw (BH, S, hd)
+// and du (BH, hd) from the forward's inputs and the output cotangent g.
+// ckpt (BH, ceil(S / seg_len), P, P), P = hd rounded up to 4, is the
+// caller's scratch, a checkpoint every seg_len steps. S > 0 and BH > 0
+// (the wrapper returns zeros for an empty input), and hd <= BWD_MAX_HD: a
+// block holds the whole (hd, hd) state, 16 elements a thread, in at most
+// 256 threads. WKV_SMEM_TOO_LARGE when a block of hd and seg_len needs
+// more shared memory than the device gives a block.
+extern "C" int wkv_chunked_backward_f32(const void* r, const void* k,
+                                        const void* v, const void* lw,
+                                        const void* u, const void* g,
+                                        void* dr, void* dk, void* dv,
+                                        void* dlw, void* du, void* ckpt,
+                                        int BH, int S, int hd, int seg_len,
+                                        void* stream) {
+  if (hd <= 0 || hd > BWD_MAX_HD || BH <= 0 || S <= 0 || seg_len <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdLayout L = bwd_layout(hd, seg_len);
+  const size_t smem = sizeof(float) * static_cast<size_t>(L.total);
+  if (smem > static_cast<size_t>(max_smem())) return WKV_SMEM_TOO_LARGE;
+  const auto* fr = static_cast<const float*>(r);
+  const auto* fk = static_cast<const float*>(k);
+  const auto* fv = static_cast<const float*>(v);
+  const auto* fl = static_cast<const float*>(lw);
+  const auto* fu = static_cast<const float*>(u);
+  const auto* fg = static_cast<const float*>(g);
+  auto* odr = static_cast<float*>(dr);
+  auto* odk = static_cast<float*>(dk);
+  auto* odv = static_cast<float*>(dv);
+  auto* odl = static_cast<float*>(dlw);
+  auto* odu = static_cast<float*>(du);
+  auto* ck = static_cast<float*>(ckpt);
+  auto st = static_cast<cudaStream_t>(stream);
+  const unsigned threads = static_cast<unsigned>(L.NQ * L.NQ);
+  cudaError_t e;
+  if (hd == 64) {
+    e = cudaFuncSetAttribute(wkv_bwd_kernel<64>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    wkv_bwd_kernel<64><<<static_cast<unsigned>(BH), threads, smem, st>>>(
+        fr, fk, fv, fl, fu, fg, odr, odk, odv, odl, odu, ck, S, hd, seg_len);
+  } else {
+    e = cudaFuncSetAttribute(wkv_bwd_kernel<0>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    wkv_bwd_kernel<0><<<static_cast<unsigned>(BH), threads, smem, st>>>(
+        fr, fk, fv, fl, fu, fg, odr, odk, odv, odl, odu, ck, S, hd, seg_len);
+  }
   return static_cast<int>(cudaGetLastError());
 }

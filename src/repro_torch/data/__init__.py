@@ -1,7 +1,7 @@
-"""KG datasets (real-format loader + synthetic stand-ins) and the input
-pipelines."""
+"""KG datasets (real-format loader + synthetic stand-ins), the LM token
+stream and the input pipelines."""
 from repro_torch.data.datasets import (
-    load_fb15k_format, load_or_synthesize, synthetic_citation2,
+    TokenStream, load_fb15k_format, load_or_synthesize, synthetic_citation2,
     synthetic_fb15k,
 )
 from repro_torch.data.pipeline import (
@@ -10,7 +10,7 @@ from repro_torch.data.pipeline import (
     to_device_batch,
 )
 
-__all__ = ["load_fb15k_format", "load_or_synthesize", "synthetic_citation2",
+__all__ = ["TokenStream", "load_fb15k_format", "load_or_synthesize", "synthetic_citation2",
            "synthetic_fb15k", "AsyncMinibatchPipeline", "FullGraphPipeline",
            "PipelineStats", "PlanSizes", "SerialMinibatchPipeline",
            "eval_partition_batches", "make_input_pipeline",

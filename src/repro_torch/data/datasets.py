@@ -1,5 +1,5 @@
-"""KG dataset loading + synthetic benchmark graphs (port of
-``repro/data/datasets.py``; the LM token stream is not ported).
+"""KG dataset loading, synthetic benchmark graphs and the LM token stream
+(port of ``repro/data/datasets.py``).
 
 * FB15k-237-format loader: ``train.txt``/``valid.txt``/``test.txt`` TSV of
   ``head<TAB>relation<TAB>tail`` surface forms (the standard distribution
@@ -8,6 +8,8 @@
   same *shape characteristics* (relation count, skew, feature presence) at
   reduced scale, drawn with the reference's numpy calls so the same seed
   gives the same splits; real files drop in transparently.
+* ``TokenStream`` — deterministic synthetic LM batches, the reference's
+  numpy draws.
 """
 from __future__ import annotations
 
@@ -84,3 +86,32 @@ def load_or_synthesize(name: str, data_root: Optional[str] = None,
     if name == "ogbl-citation2":
         return synthetic_citation2(**kw)
     raise ValueError(f"unknown dataset {name!r}")
+
+
+class TokenStream:
+    """Deterministic synthetic LM token batches: the reference's numpy
+    draws in its order, so a seed gives the reference's batches. Each is
+    ``{"tokens", "labels"}``, ``(batch_size, seq_len)`` int32, the labels
+    the tokens shifted by one."""
+
+    def __init__(self, vocab_size: int, batch_size: int, seq_len: int,
+                 seed: int = 0):
+        self.vocab_size = vocab_size
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        self._rng = np.random.default_rng(seed)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        # a Markov-ish stream, so the loss has structure to learn: every
+        # odd position follows from the even one before it
+        base = self._rng.integers(
+            0, self.vocab_size, (self.batch_size, self.seq_len + 1))
+        base[:, 1::2] = (base[:, 0::2][:, : base[:, 1::2].shape[1]]
+                         * 31 + 7) % self.vocab_size
+        return {
+            "tokens": base[:, :-1].astype(np.int32),
+            "labels": base[:, 1:].astype(np.int32),
+        }

@@ -22,6 +22,10 @@ version:
 * ``wkv_chunked`` — the chunked RWKV-6 WKV: every chunk's local terms at
   once, then a scan of the states, then the cross term (replaces
   ``repro/kernels/wkv_chunk.py::wkv_chunked``).
+* ``wkv_chunked_backward`` — its gradient, the VJP of the sequential
+  recurrence, a block per row walking back from state checkpoints (replaces
+  no Pallas kernel: the reference takes ``jax.vjp`` of
+  ``repro/kernels/ref.py::wkv_chunk_ref``).
 
 ``ops`` holds the public wrappers, ``ref`` the references under the JAX
 package's names, ``_build`` the ``nvcc`` build and ``ctypes`` loader. A
@@ -45,7 +49,10 @@ from repro_torch.kernels.sharded_gather import (
     fused_gather_plain, scatter_add_onehot, scatter_add_onehot_plain,
 )
 from repro_torch.kernels.topk import topk_plain, topk_scores
-from repro_torch.kernels.wkv_chunk import wkv_chunked, wkv_chunked_plain
+from repro_torch.kernels.wkv_chunk import (
+    wkv_chunked, wkv_chunked_backward, wkv_chunked_backward_plain,
+    wkv_chunked_plain,
+)
 
 # every kernel wrapper of the port; each counts its launches in
 # ``wrapper.launches``
@@ -55,7 +62,8 @@ KERNELS = {"kge_score": kge_score, "topk": topk_scores,
            "basis_message": basis_message,
            "segment_sum": segment_sum,
            "scatter_add_onehot": scatter_add_onehot,
-           "wkv_chunked": wkv_chunked}
+           "wkv_chunked": wkv_chunked,
+           "wkv_chunked_backward": wkv_chunked_backward}
 
 __all__ = ["ops", "ref", "EPILOGUES", "NORM_EPS", "KERNELS",
            "apply_epilogue", "kge_score", "kge_score_plain",
@@ -68,4 +76,5 @@ __all__ = ["ops", "ref", "EPILOGUES", "NORM_EPS", "KERNELS",
            "basis_message",
            "basis_message_plain", "segment_sum", "segment_sum_plain",
            "rgcn_message_basis", "wkv_chunked", "wkv_chunked_plain",
+           "wkv_chunked_backward", "wkv_chunked_backward_plain",
            "wkv_chunked_op"]

@@ -22,8 +22,7 @@ from repro_torch.kernels.sharded_gather import (
     fused_dequant_gather, fused_gather, scatter_add_onehot,
 )
 from repro_torch.kernels.topk import topk_scores
-from repro_torch.kernels.wkv_chunk import wkv_chunked
-from repro_torch.roadmap import not_ported
+from repro_torch.kernels.wkv_chunk import wkv_chunked, wkv_chunked_backward
 from repro_torch.sharding.embedding import quantize_rows
 
 
@@ -386,6 +385,24 @@ def quantized_sharded_gather(table: torch.Tensor, local_ids: torch.Tensor,
                                       plan)
 
 
+class _WKVChunked(torch.autograd.Function):
+    """The chunked WKV with its gradient: forward :func:`wkv_chunked`,
+    backward :func:`wkv_chunked_backward` (the kernel for CUDA tensors,
+    autograd through the sequential recurrence for CPU tensors) — the
+    reference's pairing of its kernel with the VJP of
+    ``ref.wkv_chunk_ref`` (``ops.py:405-416``)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_decay, u, chunk):
+        ctx.save_for_backward(r, k, v, log_decay, u)
+        return wkv_chunked(r, k, v, log_decay, u, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*wkv_chunked_backward(*ctx.saved_tensors, g.contiguous()),
+                None)
+
+
 def wkv_chunked_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    log_decay: torch.Tensor, u: torch.Tensor,
                    chunk: int = 64) -> torch.Tensor:
@@ -393,12 +410,7 @@ def wkv_chunked_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bonus ``u`` → ``(BH, S, hd)`` fp32, through :func:`wkv_chunked` (the
     kernel on the card). Any BH and S: the kernel runs a short last chunk
     where the reference pads S to ``chunk`` and BH to 8 with zeros, which
-    gives the same outputs on the real rows.
-
-    Forward only. The reference differentiates through the sequential
-    recurrence (``ops.py:405-413``); that pairing comes with LM training,
-    so an input that requires a gradient raises."""
-    args = (r, k, v, log_decay, u)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        raise not_ported("the gradient of wkv_chunked_op", "lm_train")
-    return wkv_chunked(*(t.float().contiguous() for t in args), chunk=chunk)
+    gives the same outputs on the real rows. Differentiable in all five
+    inputs: the backward is :func:`wkv_chunked_backward`."""
+    args = (t.float().contiguous() for t in (r, k, v, log_decay, u))
+    return _WKVChunked.apply(*args, chunk)

@@ -156,12 +156,15 @@ def wkv_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         S_t   = diag(w_t) S_{t-1} + k_t^T v_t,   w_t = exp(log_decay_t)
 
     The oracle of ``wkv_chunk.wkv_chunked`` and the plain version of its
-    chunked form."""
+    chunked form; autograd through it is the plain version of the gradient
+    (``wkv_chunk.wkv_chunked_backward_plain``). It runs in fp32, or in
+    fp64 for fp64 inputs."""
     bh, s, hd = r.shape
-    r, k, v = r.float(), k.float(), v.float()
-    w = torch.exp(log_decay.float())
-    u = u.float()
-    state = torch.zeros((bh, hd, hd), dtype=torch.float32, device=r.device)
+    dt = torch.promote_types(r.dtype, torch.float32)
+    r, k, v = r.to(dt), k.to(dt), v.to(dt)
+    w = torch.exp(log_decay.to(dt))
+    u = u.to(dt)
+    state = torch.zeros((bh, hd, hd), dtype=dt, device=r.device)
     outs = []
     for t in range(s):
         kv = k[:, t, :, None] * v[:, t, None, :]

@@ -20,6 +20,13 @@ TPU kernel needed BH padded to 8 and S to ``chunk``; a zero-padded tail
 gives the same outputs on the real rows). :func:`wkv_chunked_v1` launches
 the first kernel (a block per row), kept as the bitwise yardstick of the
 column-tiled one.
+
+:func:`wkv_chunked_backward` is the gradient: the VJP of the sequential
+recurrence, as the reference pairs its kernel with ``jax.vjp`` of
+``ref.wkv_chunk_ref``. It launches the CUDA kernel
+``wkv_chunked_backward_f32`` for CUDA tensors (hd up to 64) and runs
+:func:`wkv_chunked_backward_plain`, autograd through ``ref.wkv_chunk_ref``,
+for CPU tensors.
 """
 from __future__ import annotations
 
@@ -33,10 +40,16 @@ _INTS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
 _SIGNATURES = {
     "wkv_chunked_f32": [ctypes.c_void_p] * 9 + _INTS + [ctypes.c_void_p],
     "wkv_chunked_f32_v1": [ctypes.c_void_p] * 6 + _INTS + [ctypes.c_void_p],
+    "wkv_chunked_backward_f32": [ctypes.c_void_p] * 12 + _INTS
+    + [ctypes.c_void_p],
 }
 # the launcher's code for a block above the device's shared memory
 # (csrc's WKV_SMEM_TOO_LARGE)
 _SMEM_TOO_LARGE = -1
+# the backward kernel's largest head size (csrc's BWD_MAX_HD) and the steps
+# between two of its state checkpoints, which the kernel takes as seg_len
+BACKWARD_MAX_HD = 64
+BACKWARD_SEGMENT = 16
 
 
 def _library():
@@ -151,3 +164,68 @@ def wkv_chunked_v1(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("wkv_chunked_v1: CUDA tensors only (the plain "
                          "version is wkv_chunked_plain)")
     return _launch("wkv_chunked_f32_v1", None, r, k, v, log_decay, u, chunk)
+
+
+def wkv_chunked_backward_plain(r: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, log_decay: torch.Tensor,
+                               u: torch.Tensor, g: torch.Tensor):
+    """Plain PyTorch version of the gradient: autograd through the
+    sequential recurrence ``ref.wkv_chunk_ref``, the reference's
+    ``_wkv_bwd`` pairing. ``(BH, S, hd)`` ``r, k, v, log_decay``, ``(BH,
+    hd)`` ``u`` and the output cotangent ``g`` → ``(dr, dk, dv,
+    dlog_decay, du)``, in fp32, or in fp64 for fp64 inputs."""
+    from repro_torch.kernels.ref import wkv_chunk_ref
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in (r, k, v, log_decay, u)]
+        out = wkv_chunk_ref(*xs)
+        if out.numel() == 0:
+            return tuple(torch.zeros_like(t) for t in xs)
+        return torch.autograd.grad(out, xs, g.to(out.dtype))
+
+
+def wkv_chunked_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         log_decay: torch.Tensor, u: torch.Tensor,
+                         g: torch.Tensor):
+    """The gradient of the WKV recurrence for the output cotangent ``g``:
+    ``(BH, S, hd)`` fp32 ``r, k, v, log_decay, g`` and ``(BH, hd)`` ``u``
+    → ``(dr, dk, dv, dlog_decay, du)`` — the CUDA kernel for CUDA tensors
+    (hd up to :data:`BACKWARD_MAX_HD`; deterministic, no float atomics),
+    the plain version for CPU tensors. Any BH and S."""
+    if _build.on_cpu("wkv_chunked_backward", r, k, v, log_decay, u, g):
+        return wkv_chunked_backward_plain(r, k, v, log_decay, u, g)
+    if r.dim() != 3:
+        raise ValueError("wkv_chunked_backward: r, k, v, log_decay and g "
+                         "must be (BH, S, hd)")
+    bh, s, hd = r.shape
+    f32 = torch.float32
+    for name, t in (("r", r), ("k", k), ("v", v), ("log_decay", log_decay),
+                    ("g", g)):
+        _build.require("wkv_chunked_backward", name, t, f32, (bh, s, hd))
+    _build.require("wkv_chunked_backward", "u", u, f32, (bh, hd))
+    if not 1 <= hd <= BACKWARD_MAX_HD:
+        raise ValueError(f"wkv_chunked_backward: hd={hd} is outside 1 .. "
+                         f"{BACKWARD_MAX_HD}: a block holds the whole "
+                         f"(hd, hd) state")
+    grads = [torch.empty_like(t) for t in (r, k, v, log_decay, u)]
+    if bh == 0 or s == 0:
+        return tuple(t.zero_() for t in grads)
+    lib = _library()
+    p = -(-hd // 4) * 4
+    nseg = -(-s // BACKWARD_SEGMENT)
+    with torch.cuda.device(r.device):
+        ckpt = torch.empty((bh, nseg, p, p), dtype=f32, device=r.device)
+        code = lib.wkv_chunked_backward_f32(
+            *(t.data_ptr() for t in (r, k, v, log_decay, u, g, *grads,
+                                     ckpt)),
+            bh, s, hd, BACKWARD_SEGMENT,
+            torch.cuda.current_stream().cuda_stream)
+    if code == _SMEM_TOO_LARGE:
+        raise ValueError(f"wkv_chunked_backward: one block of hd={hd}, "
+                         f"{BACKWARD_SEGMENT} steps a segment needs more "
+                         f"shared memory than this card gives a block")
+    _build.check_launch("wkv_chunked_backward", code)
+    wkv_chunked_backward.launches += 1
+    return tuple(grads)
+
+
+wkv_chunked_backward.launches = 0

@@ -1,9 +1,10 @@
 """Step functions of the LM substrate (port of ``repro/launch/steps.py``).
 
+``loss_and_grads`` — the loss, its aux and every leaf's gradient.
+``train_step`` — those, then one optimizer step, in place.
 ``prefill_step`` — the full-sequence forward (inference prefill) → the
 last position's logits. ``serve_step`` — ONE new token against the
-recurrent state, greedy-sampled (argmax, the first index on ties). The
-training step is not ported yet.
+recurrent state, greedy-sampled (argmax, the first index on ties).
 """
 from __future__ import annotations
 
@@ -11,14 +12,48 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.nn.transformer import ArchConfig, decode_step, prefill
-from repro_torch.roadmap import not_ported
+from repro_torch.nn.transformer import (
+    ArchConfig, decode_step, leaves, loss_fn, map_tree, prefill,
+)
+from repro_torch.training.optimizer import Optimizer, OptState
 
 PyTree = Any
 
 
-def make_train_step(cfg: ArchConfig, optimizer=None) -> Callable:
-    raise not_ported("make_train_step (LM training)", "lm_train")
+def loss_and_grads(params: PyTree, cfg: ArchConfig,
+                   batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                              Dict[str, torch.Tensor]]:
+    """``(loss, aux, grads)`` of one :func:`loss_fn` call: the loss and its
+    aux metrics detached, ``grads`` every leaf's gradient by its dotted
+    name (``leaves``). ``params`` is left as it was."""
+    live = map_tree(params, lambda t: t.detach().requires_grad_())
+    loss, aux = loss_fn(live, cfg, batch)
+    names, xs = zip(*leaves(live))
+    del live
+    grads = dict(zip(names, torch.autograd.grad(loss, xs)))
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+
+def make_train_step(cfg: ArchConfig, optimizer: Optimizer) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "nll", "moe_aux"})``: :func:`loss_and_grads`, then
+    ``optimizer.update_in_place`` leaf by leaf. ``opt_state`` is
+    ``optimizer.init`` of the flat tree ``dict(leaves(params))``. The
+    reference's jitted step donates parameters and moments
+    (``launch/train.py:107``); here they are updated in place and returned,
+    and each gradient is freed once its leaf is applied, so parameters,
+    gradients and moments (4 × 12.3 GB for ``rwkv6-3b`` in fp32) are the
+    step's only full-size state."""
+
+    def train_step(params: PyTree, opt_state: OptState,
+                   batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[PyTree, OptState, Dict[str, torch.Tensor]]:
+        loss, aux, grads = loss_and_grads(params, cfg, batch)
+        opt_state = optimizer.update_in_place(grads, opt_state,
+                                              dict(leaves(params)))
+        return params, opt_state, {"loss": loss, **aux}
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:

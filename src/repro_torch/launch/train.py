@@ -1,4 +1,4 @@
-"""KGE training CLI (port of the KGE half of ``repro/launch/train.py``).
+"""Training CLI (port of ``repro/launch/train.py``): KGE and LM training.
 
 ``--arch rgcn-fb15k237`` runs the paper's distributed KGE training
 (partition → expand → full edge batch, or edge mini-batches with
@@ -13,9 +13,12 @@ int8 table (sharded ranking, one shard included). ``--arch
 rgcn-citation2`` trains the ogbl-citation2 stand-in in feature mode
 (128-d input features, edge mini-batches of 4,096 unless ``--batch-size``
 says otherwise; a sharded or int8 table is refused, as the reference
-refuses it). The flags are the reference's, plus ``--device`` (default
-``cuda``; ``cpu`` runs the kernels' plain versions). The LM architectures
-raise ``NotImplementedError`` naming their ROADMAP item.
+refuses it). Every other ``--arch`` trains the LM (:func:`train_lm`):
+``rwkv6-3b`` reduced (``--reduced`` is always on, as in the reference),
+``--steps`` Adam steps of ``--batch`` x ``--seq`` ``TokenStream`` tokens;
+the architectures the port has not reached raise ``NotImplementedError``
+naming their ROADMAP item. The flags are the reference's, plus
+``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions).
 
 Under ``torchrun`` every rank runs this module: it joins the process group
 torchrun describes (NCCL on ``cuda``, one card per rank, gloo on
@@ -42,6 +45,8 @@ Examples:
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --device cpu --spmd --arch rgcn-fb15k237 --scale 0.01 --trainers 2 \
       --batch-size 64 --table-shards 2 --hidden-dim 8 --epochs 1
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch rwkv6-3b --steps 3 --batch 2 --seq 16
 """
 from __future__ import annotations
 
@@ -50,9 +55,8 @@ import contextlib
 import dataclasses
 import os
 import time
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
-from repro_torch.roadmap import not_ported
 
 # --arch -> the dataset it trains on (the reference's two KGE settings)
 DATASETS = {"rgcn-fb15k237": "fb15k-237", "rgcn-citation2": "ogbl-citation2"}
@@ -65,6 +69,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--trainers", type=int, default=4)
     ap.add_argument("--epochs", type=int, default=10)
+    ap.add_argument("--steps", type=int, default=20,
+                    help="LM training steps")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="LM sequences per step")
+    ap.add_argument("--seq", type=int, default=64,
+                    help="LM tokens per sequence")
+    ap.add_argument("--lr", type=float, default=3e-3,
+                    help="LM Adam learning rate")
     ap.add_argument("--batch-size", type=int, default=-1,
                     help="edge mini-batch size (default: full edge "
                          "batch)")
@@ -116,6 +128,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "basis_message and segment_sum kernels")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cpu runs the kernels' plain PyTorch versions")
+    ap.add_argument("--reduced", action="store_true", default=True,
+                    help="train the LM's reduced configuration (always "
+                         "on, as in the reference)")
     return ap.parse_args(argv)
 
 
@@ -123,9 +138,6 @@ def make_trainer(args: argparse.Namespace):
     """The ``KGETrainer`` the CLI trains for ``args`` (raises
     ``NotImplementedError`` for the architectures the port has not
     reached)."""
-    if args.arch not in DATASETS:
-        raise not_ported(f"--arch {args.arch} (LM training)", "lm_train")
-
     from repro_torch import configs
     from repro_torch.data import load_or_synthesize
     from repro_torch.training import KGETrainer
@@ -229,8 +241,53 @@ def run(args: argparse.Namespace, verbose: bool = True) -> Dict:
     return {"trainer": trainer, "history": history, "metrics": metrics}
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict:
+def train_lm(args: argparse.Namespace) -> List[float]:
+    """LM training, the reference's ``train_lm``: ``args.arch`` (reduced),
+    fp32 weights drawn from seed 0, ``adam(args.lr)``, ``args.steps`` steps
+    of :func:`~repro_torch.launch.steps.make_train_step` on
+    ``TokenStream(vocab, args.batch, args.seq)`` batches. Prints the
+    reference's step lines and returns every step's loss; raises if the
+    last is not finite."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.nn import transformer as T
+    from repro_torch.training.optimizer import adam
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    dev = resolve_device(args.device)
+    params = T.init_params(cfg, generator=torch.Generator(device=dev)
+                           .manual_seed(0), device=dev, dtype=torch.float32)
+    optimizer = adam(args.lr)
+    opt_state = optimizer.init(dict(T.leaves(params)))
+    step = make_train_step(cfg, optimizer)
+    print(f"[train] {cfg.name}: {T.count_params(params):,.0f} params",
+          flush=True)
+    stream = TokenStream(cfg.vocab_size, args.batch, args.seq)
+    losses: List[float] = []
+    for i in range(args.steps):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(stream).items()}
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        if i % max(args.steps // 10, 1) == 0 or i == args.steps - 1:
+            print(f"  step {i:4d} loss={losses[-1]:.4f} "
+                  f"({time.perf_counter() - t0:.2f}s)", flush=True)
+    if not np.isfinite(losses[-1]):
+        raise FloatingPointError("training diverged")
+    return losses
+
+
+def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
+    if not args.arch.startswith("rgcn-"):
+        return train_lm(args)
     with process_group(args.device) as rank:
         return run(args, verbose=rank == 0)
 

@@ -1,8 +1,9 @@
 """The LM substrate (port of ``repro.nn``, the RWKV-6 subset)."""
 from repro_torch.nn.transformer import (
     ArchConfig, count_params, decode_step, forward, init_decode_cache,
-    init_params, prefill, stack_plan,
+    init_params, loss_fn, prefill, stack_plan,
 )
 
 __all__ = ["ArchConfig", "count_params", "decode_step", "forward",
-           "init_decode_cache", "init_params", "prefill", "stack_plan"]
+           "init_decode_cache", "init_params", "loss_fn", "prefill",
+           "stack_plan"]

@@ -8,7 +8,9 @@ are the reference's tree — ``{"embed", "final_norm", "lm_head", "groups":
 [group]}`` with each scanned group's leaves stacked ``(L, ...)`` — as plain
 dicts of tensors; a layer is a view into the stacks. Entry points:
 
-* ``forward`` — full-sequence logits;
+* ``forward`` — full-sequence logits (``train=True`` recomputes each
+  block in the backward when ``cfg.remat``);
+* ``loss_fn`` — the next-token cross entropy of a training step;
 * ``prefill`` — the last position's logits and their argmax (the cache is
   not written, as in the reference);
 * ``decode_step`` — one token against the recurrent state.
@@ -26,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.nn import recurrent as rec
@@ -220,6 +223,26 @@ def layer_params(group: PyTree, i: int) -> PyTree:
     return group[i]
 
 
+def unbind_layers(group: PyTree, n: int) -> List[PyTree]:
+    """The ``n`` layers of a stacked group, views into the stacks, each
+    stack cut by one ``torch.unbind``: its backward stacks the layers'
+    gradients once, where indexing each layer (:func:`layer_params`) would
+    make a full-size gradient of the stack for every layer."""
+    if isinstance(group, dict):
+        cut = {k: unbind_layers(v, n) for k, v in group.items()}
+        return [{k: cut[k][i] for k in group} for i in range(n)]
+    return list(torch.unbind(group, 0))
+
+
+def map_tree(tree: PyTree, fn) -> PyTree:
+    """``tree`` (dicts and lists) with every leaf replaced by ``fn(leaf)``."""
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
 def leaves(tree: PyTree, prefix: str = ""):
     """``(dotted name, tensor)`` of every leaf, in tree order
     (``groups.0.rec.w_r``, …)."""
@@ -276,15 +299,44 @@ def _head(params: PyTree, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     return h @ params["lm_head"]
 
 
-def forward(params: PyTree, cfg: ArchConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
+def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
+            train: bool = False) -> torch.Tensor:
     """Full-sequence forward: ``(B, S)`` tokens → logits ``(B, S, V)``
-    (RWKV has no positional encoding and no auxiliary loss)."""
+    (RWKV has no positional encoding and no auxiliary loss). With
+    ``cfg.remat and train`` each block runs under ``torch.utils.checkpoint``
+    and is recomputed in the backward, the reference's ``jax.checkpoint``
+    around its scanned block (policy "nothing"): only the blocks' inputs
+    are kept for the backward."""
     h = embed_tokens(params, cfg, tokens)
+    remat = cfg.remat and train
     for gparams, (_, n, _) in zip(params["groups"], stack_plan(cfg)):
-        for i in range(n):
-            h = block_apply(layer_params(gparams, i), cfg, h)
+        for lp in unbind_layers(gparams, n):
+            if remat:
+                # the block draws no random numbers: no RNG state to keep
+                h = torch.utils.checkpoint.checkpoint(
+                    block_apply, lp, cfg, h, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                h = block_apply(lp, cfg, h)
     return _head(params, cfg, h)
+
+
+def loss_fn(params: PyTree, cfg: ArchConfig,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy, the body of a training step: ``(total,
+    {"nll", "moe_aux"})`` with ``nll`` the mean of ``logsumexp(logits) -
+    logits[label]`` in fp32 and ``total = nll + router_aux_coef · aux /
+    num_layers``, as in the reference; RWKV blocks have no auxiliary loss,
+    so ``aux`` is 0."""
+    logits = forward(params, cfg, batch["tokens"], train=True).float()
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = torch.mean(logz - gold)
+    aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+    total = nll + cfg.router_aux_coef * aux / max(cfg.num_layers, 1)
+    return total, {"nll": nll, "moe_aux": aux}
 
 
 def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor

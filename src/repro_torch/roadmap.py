@@ -7,9 +7,6 @@ item, instead of silently doing something else.
 from __future__ import annotations
 
 ITEMS = {
-    "lm_train": "ROADMAP Queue 1 item 7a: LM training (loss_fn, "
-                "make_train_step, train_lm, TokenStream and the WKV "
-                "backward)",
     "rglru": "ROADMAP Queue 1 item 7b: the RG-LRU and recurrentgemma",
     "attention": "ROADMAP Queue 1 item 7c: attention and the dense "
                  "decoder architectures",

@@ -84,29 +84,14 @@ def trainer_grads(loss_fn: LossFn, model: nn.Module,
                grads)
 
 
-def moments_in_place(old: OptState, new: OptState) -> OptState:
-    """``new`` holding ``old``'s moment tensors, into which ``new``'s
-    values are copied: the moments keep their storage across a step, as
-    the parameters do, so no second copy of them (the entity table
-    block's among them) outlives it (``analysis.contracts``' in-place
-    audit)."""
-    for part in ("mu", "nu"):
-        mine, theirs = getattr(old, part), getattr(new, part)
-        if mine is None or theirs is None:
-            continue
-        for k, t in mine.items():
-            t.copy_(theirs[k])
-        new = new._replace(**{part: mine})
-    return new
-
-
 def mean_step(model: nn.Module, optimizer: Optimizer, opt_state: OptState,
               per_trainer) -> Tuple[OptState, Dict[str, torch.Tensor]]:
     """The gradients of every trainer (``(loss, aux, grads)`` in trainer
     order) added left to right and divided by their count, then one
-    optimizer step, in place (``p += u`` under ``no_grad``, the
-    reference's ``apply_updates``; the moments copied into their own
-    tensors, :func:`moments_in_place`); the metrics are the trainers'
+    optimizer step, in place (``Optimizer.update_in_place``: the
+    parameters and the moments keep their storage across a step, so no
+    second copy of them, the entity table block's among them, outlives it,
+    ``analysis.contracts``' in-place audit); the metrics are the trainers'
     means."""
     names, params = zip(*model.named_parameters())
     total, losses, aux_sums, num = None, [], {}, 0
@@ -119,11 +104,7 @@ def mean_step(model: nn.Module, optimizer: Optimizer, opt_state: OptState,
         num += 1
     grads = {n: g / num for n, g in zip(names, total)}
     current = {n: p.detach() for n, p in zip(names, params)}
-    updates, new_state = optimizer.update(grads, opt_state, current)
-    with torch.no_grad():
-        for n, p in zip(names, params):
-            p.add_(updates[n])
-        opt_state = moments_in_place(opt_state, new_state)
+    opt_state = optimizer.update_in_place(grads, opt_state, current)
     metrics = {"loss": torch.stack(losses).mean(),
                **{k: v / num for k, v in aux_sums.items()}}
     return opt_state, metrics

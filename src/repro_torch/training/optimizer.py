@@ -6,6 +6,14 @@ reference's optax-like interface: ``init(params) -> state`` and
 ``apply_updates``. They are written out rather than taken from
 ``torch.optim`` so that an update is the reference's formula term by
 term.
+
+``update_in_place(grads, state, params) -> state`` is the same update
+applied leaf by leaf into the parameters and the moments themselves, each
+gradient dropped from ``grads`` once its leaf is applied: the port's
+counterpart of the reference's donated train step (``donate_argnums``).
+It computes every leaf by the same function as ``update``, so its bits are
+``update`` + ``apply_updates``'s, and its temporaries are one leaf's, where
+``update`` makes new moments and updates for the whole tree.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ class OptState(NamedTuple):
 class Optimizer:
     init: Callable[[Params], OptState]
     update: Callable[[Params, OptState, Params], Tuple[Params, OptState]]
+    update_in_place: Callable[[Params, OptState, Params], OptState]
 
 
 def _lr_at(learning_rate: LearningRate, step: torch.Tensor) -> torch.Tensor:
@@ -48,6 +57,43 @@ def global_norm(tree: Params) -> torch.Tensor:
                           for x in tree.values()))
 
 
+def _clip_scale(grads: Params, grad_clip_norm: Optional[float]
+                ) -> Optional[torch.Tensor]:
+    """The factor the gradients are scaled by so that their global norm is
+    at most ``grad_clip_norm`` (None: no clipping)."""
+    if grad_clip_norm is None:
+        return None
+    return torch.clamp_max(grad_clip_norm / (global_norm(grads) + 1e-9), 1.0)
+
+
+def _in_place(leaf: Callable, scalars: Callable, grad_clip_norm=None
+              ) -> Callable:
+    """``update_in_place`` of an optimizer whose update is ``leaf(g, m, v,
+    p, *scalars(state)) -> (m', v', u)`` on every leaf, with ``scalars(state)
+    -> (step, *values shared by every leaf)``."""
+
+    @torch.no_grad()
+    def update_in_place(grads: Params, state: OptState, params: Params
+                        ) -> OptState:
+        scale = _clip_scale(grads, grad_clip_norm)
+        step, *shared = scalars(state)
+        for k in list(grads):
+            g = grads.pop(k)
+            if scale is not None:
+                g = g * scale
+            m = None if state.mu is None else state.mu[k]
+            v = None if state.nu is None else state.nu[k]
+            m2, v2, u = leaf(g, m, v, params[k], *shared)
+            del g
+            params[k].add_(u)
+            for old, new in ((m, m2), (v, v2)):
+                if old is not None:
+                    old.copy_(new)
+        return OptState(step=step, mu=state.mu, nu=state.nu)
+
+    return update_in_place
+
+
 def adam(learning_rate: LearningRate, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8, weight_decay: float = 0.0,
          grad_clip_norm: Optional[float] = None) -> Optimizer:
@@ -62,30 +108,37 @@ def adam(learning_rate: LearningRate, b1: float = 0.9, b2: float = 0.999,
                         mu={k: torch.zeros_like(v) for k, v in params.items()},
                         nu={k: torch.zeros_like(v) for k, v in params.items()})
 
-    def update(grads: Params, state: OptState, params: Params
-               ) -> Tuple[Params, OptState]:
-        if grad_clip_norm is not None:
-            scale = torch.clamp_max(
-                grad_clip_norm / (global_norm(grads) + 1e-9), 1.0)
-            grads = {k: g * scale for k, g in grads.items()}
+    def scalars(state: OptState):
         step = state.step + 1
         t = step.to(torch.float32)
         bc1 = 1 - torch.pow(torch.tensor(b1, device=t.device), t)
         bc2 = 1 - torch.pow(torch.tensor(b2, device=t.device), t)
-        lr = _lr_at(learning_rate, step)
+        return step, bc1, bc2, _lr_at(learning_rate, step)
+
+    def leaf(g, m, v, p, bc1, bc2, lr):
+        gf = g.float()
+        m2 = b1 * m + (1 - b1) * gf
+        v2 = b2 * v + (1 - b2) * gf * gf
+        delta = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+        if weight_decay:
+            delta = delta + weight_decay * p.float()
+        return m2, v2, (-lr * delta).to(p.dtype)
+
+    def update(grads: Params, state: OptState, params: Params
+               ) -> Tuple[Params, OptState]:
+        scale = _clip_scale(grads, grad_clip_norm)
+        if scale is not None:
+            grads = {k: g * scale for k, g in grads.items()}
+        step, *shared = scalars(state)
         updates, mu, nu = {}, {}, {}
         for k, g in grads.items():
-            m, v, p = state.mu[k], state.nu[k], params[k]
-            gf = g.float()
-            mu[k] = m2 = b1 * m + (1 - b1) * gf
-            nu[k] = v2 = b2 * v + (1 - b2) * gf * gf
-            delta = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
-            if weight_decay:
-                delta = delta + weight_decay * p.float()
-            updates[k] = (-lr * delta).to(p.dtype)
+            mu[k], nu[k], updates[k] = leaf(g, state.mu[k], state.nu[k],
+                                            params[k], *shared)
         return updates, OptState(step=step, mu=mu, nu=nu)
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update,
+                     update_in_place=_in_place(leaf, scalars,
+                                               grad_clip_norm))
 
 
 def sgd(learning_rate: LearningRate, momentum: float = 0.0) -> Optimizer:
@@ -94,19 +147,29 @@ def sgd(learning_rate: LearningRate, momentum: float = 0.0) -> Optimizer:
               if momentum else None)
         return OptState(step=_step0(params), mu=mu, nu=None)
 
+    def scalars(state: OptState):
+        step = state.step + 1
+        return step, _lr_at(learning_rate, step)
+
+    def leaf(g, m, v, p, lr):
+        if momentum:
+            m2 = momentum * m + g
+            return m2, None, -lr * m2
+        return None, None, -lr * g
+
     def update(grads: Params, state: OptState, params: Params
                ) -> Tuple[Params, OptState]:
-        step = state.step + 1
-        lr = _lr_at(learning_rate, step)
-        if momentum:
-            mu = {k: momentum * state.mu[k] + g for k, g in grads.items()}
-            updates = {k: -lr * m for k, m in mu.items()}
-        else:
-            mu = None
-            updates = {k: -lr * g for k, g in grads.items()}
+        step, lr = scalars(state)
+        updates, mu = {}, ({} if momentum else None)
+        for k, g in grads.items():
+            m2, _, updates[k] = leaf(g, state.mu[k] if momentum else None,
+                                     None, params[k], lr)
+            if momentum:
+                mu[k] = m2
         return updates, OptState(step=step, mu=mu, nu=None)
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update,
+                     update_in_place=_in_place(leaf, scalars))
 
 
 def apply_updates(params: Params, updates: Params) -> Params:

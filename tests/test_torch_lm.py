@@ -44,6 +44,7 @@ from repro_torch.launch.steps import (
 from repro_torch.nn import recurrent as R
 from repro_torch.nn import transformer as T
 from repro_torch.serving import KGEServer, Request, ServeEngine
+from repro_torch.training.optimizer import adam
 
 LAYER_TOL = dict(rtol=1e-4, atol=1e-5)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -495,5 +496,14 @@ def test_unknown_arch_and_other_families_raise():
                                 arch_type="dense")
     with pytest.raises(NotImplementedError, match="item 7c"):
         T.stack_plan(dense)
-    with pytest.raises(NotImplementedError, match="item 7a"):
-        make_train_step(get_arch("rwkv6-3b"))
+    # LM training runs (tests/test_torch_lm_train.py holds it against the
+    # reference)
+    cfg = get_arch("rwkv6-3b").reduced()
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu", dtype=torch.float32)
+    opt = adam(1e-3)
+    state = opt.init(dict(T.leaves(params)))
+    tok = torch.from_numpy(tokens(cfg, 1, 9))
+    _, state, m = make_train_step(cfg, opt)(
+        params, state, {"tokens": tok[:, :-1], "labels": tok[:, 1:]})
+    assert int(state.step) == 1 and bool(torch.isfinite(m["loss"]))

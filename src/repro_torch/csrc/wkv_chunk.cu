@@ -8,7 +8,8 @@
 //     S_out = e^{l_tot} . S_in + (k e^{l_tot - l_inc})^T v
 //
 // with the (hd, hd) state S zero at the row's first chunk. Its gradient,
-// wkv_chunked_backward_f32, is the last kernel of this file.
+// wkv_chunked_backward_f32 (the chunk-parallel backward, four kernels) and
+// the first backward kernel, wkv_chunked_backward_f32_v1, close this file.
 //
 // Replaces the Pallas TPU kernel repro/kernels/wkv_chunk.py::wkv_chunked
 // (pallas_call at wkv_chunk.py:85), which kept the state of 8 rows in VMEM
@@ -71,6 +72,7 @@
 //   * two scalar shared-memory loads per FMA in every product;
 //   * the decays' exps on 64 of 256 threads, and a thread for each of the
 //     n^2 scores, half of which do nothing.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -748,53 +750,126 @@ cudaError_t launch_all(const float* r, const float* k, const float* v,
 }
 
 // ---------------------------------------------------------------------- //
-// the backward (wkv_chunked_backward_f32)
+// the backward (wkv_chunked_backward_f32, and its first kernel _v1)
 // ---------------------------------------------------------------------- //
-// The VJP of the sequential recurrence (S_{-1} = 0, w_t = e^{lw_t}):
+// The VJP of the recurrence (S_{-1} = 0, w_t = e^{lw_t}):
 //
 //     out_t = r_t (S_{t-1} + diag(u) k_t^T v_t),  S_t = diag(w_t) S_{t-1}
 //                                                       + k_t^T v_t
 //
-// for the output cotangent g. With G_t = dL/dS_t, G_{S-1} = 0, in reverse
-// time order:
+// for the output cotangent g. Replaces no Pallas kernel: the reference
+// differentiates its kernel through jax.vjp of the sequential oracle
+// (repro/kernels/ops.py:408-414), which XLA compiles into one scan.
+// Without a compiler, autograd through the per-token loop would launch
+// some 20 operations a step.
+//
+// wkv_chunked_backward_f32 differentiates the forward's chunked form. Per
+// row and chunk of K steps (the forward's chunk), with the forward's
+// r~ = r e^{l_exc}, k~ = k e^{-l_inc}, A = strict_lower(r~ k~^T), its
+// entering state S_in, G_out = dL/dS_out (zero for a row's last chunk),
+// G' = e^{l_tot} . G_out and dA = strict_lower(g v^T):
+//
+//     out   = A v + (sum r u k) v + r~ S_in
+//     S_out = e^{l_tot} . S_in + k^^T v
+//     dv    = A^T g + (sum r u k) g + k~ G'         (k~ G' = k^ G_out)
+//     dr'   = e^{l_exc} . (dA k~ + g S_in^T),       dr = dr' + u k (g . v)
+//     dk'   = e^{-l_inc} . (dA^T r~ + v G'^T),      dk = dk' + u r (g . v)
+//     G_in  = G' + r~^T g                 (the previous chunk's G_out)
+//     du    = sum_t r_t k_t (g_t . v_t)
+//
+// with k^ = k e^{l_tot - l_inc}; e^{-l_inc} v G'^T is e^{l_tot - l_inc}
+// v G_out^T regrouped. dlw: the loss sees the row's cumulative log decay
+// L_t only through r_{t+1} e^{L_t} and k_t e^{-L_t}, so with dr', dk' the
+// bonus-free gradients and x_s = r_s dr'_s - k_s dk'_s,
+//
+//     dlw_t = sum_{s>t} r_s dr'_s - sum_{s>=t} k_s dk'_s,
+//
+// O(hd) a step and no contraction. Over a chunk ending at step e the tail
+// sum_{s>e} x_s is the same identity taken at the chunk's edge, where it is
+// Z = sum_j G_out[:, j] S_out[:, j] (the gradient of a common log scale of
+// the state leaving the chunk). So dlw_t = Z + sum_{t<s<=e} r_s dr'_s -
+// sum_{t<=s<=e} k_s dk'_s, a reverse cumulative sum inside the chunk. Z is
+// formed from the edge's state and gradient, not by adding the later
+// chunks' totals: that suffix sum carries every later step's rounding, so
+// its error grows with the distance to the row's end, where Z's does not.
+//
+// Four kernels, one counted call (the wrapper's), all sums in a fixed order
+// and no atomics, so two calls give the same bits:
+//   B1. wkv_bwd_gx_kernel, a block per (row, chunk): r~^T g (P x P) of the
+//       chunk into gbuf, and g S_in^T, the part of dr~ with no intra-chunk
+//       term, into dr, from the forward's r~ (rbuf) and S_in (dbuf);
+//   B2. wkv_bwd_scan_kernel, a thread per (row, state row, 4 columns): the
+//       chunks last to first, G = e^{l_tot} G + r~^T g, writing G_out over
+//       each chunk's r~^T g;
+//   C.  wkv_bwd_local_kernel, a block per (row, chunk), 2,560 at the
+//       training shape (BH 80, S 2,048, K = hd = 64), two to an SM: the
+//       decays (a column's cumulative sum walked by one thread, the factors
+//       applied by all), A over the strict lower triangle's 4 x 4 tiles
+//       (packed onto the first threads, so whole warps sit out), dv, then
+//       dA in A's place, then dk' and dr' (a 4 x 4 tile of each a thread,
+//       register-tiled products over XOR-swizzled shared memory as in pass
+//       A of the forward), Z, the in-chunk reverse cumulative sum of dlw,
+//       and the chunk's du partial;
+//   D.  wkv_bwd_du_kernel: du, the chunks' partials added in chunk order.
+// B1 and C stage a chunk's operands with 16-byte cp.async when every
+// (BH, S, hd) operand allows float4 access. Pass C keeps in shared memory
+// only the four (K, hd) operands r~, k~, v, g, one (K, K) slot that holds
+// A and then dA, and G' (100 KB at K = hd = 64, so two blocks share an SM
+// and one's loads and serial steps overlap the other's products); g S_in^T
+// comes from B1 through dr, l_exc waits in dlw, and r, k, lw are read
+// again from device memory for the bonus terms and the factors. The
+// chunks' entering states S_in are the forward's pass-B scratch (dbuf),
+// kept by the autograd op; with none given, the Python wrapper runs the
+// forward's kernel for them first. Only the forward's decay factors
+// appear, e^{l_exc}, e^{-l_inc} and e^{l_tot} within one chunk (the
+// forward forms e^{l_tot - l_inc} and e^{l_tot}), so the backward
+// overflows only where the forward does. What each of pass C's stages
+// costs is read by tools/wkv_backward_trials.py --cuts.
+//
+// What bounds it on an H100: from its inputs alone the gradient needs, a
+// step and row in chunks of K, the states' k^T v, G's r~^T g and the
+// cross terms g S_in^T, v G'^T and k~ G' (2 hd^2 each), the two decays
+// once a chunk (2 hd^2 / K) and five strict-lower products inside the
+// chunk (5 (K - 1) hd): 10.7 hd^2 at its best K (about 5 at hd 64; K = 1
+// is the sequential recurrence's 12 hd^2), dlw being O(hd). That is 7.19
+// GFLOP at BH 80, S 2,048, hd 64, 0.107 ms at the 67 TFLOP/s fp32 peak,
+// below the 0.113 ms for the 377 MB it must move (r, k, v, lw, g in; dr,
+// dk, dv, dlw out), so bytes bound it. Given the forward's states it
+// needs fewer operations still (8 hd^2 + 2 hd^2 / K + 5 (K - 1) hd).
+// This design does 2.5 K hd + 4 hd^2 FMA a step (13 hd^2 FLOP at K = hd)
+// and moves about 1.1 GB: pass C reads r, k and lw again for its epilogue
+// and du, and S_in, S_out, r~, G and g S_in^T pass through device memory.
+//
+// What held the first kernel back (wkv_chunked_backward_f32_v1, below), and
+// what this design does about it:
+//   * one block per row, 80 blocks for 132 SMs: here 2,560 blocks;
+//   * 2,048 steps one after another, a barrier and a shared-memory
+//     reduction each: here the chunks run in parallel, and a chunk's steps
+//     are the rows of its 4 x 4-tiled products;
+//   * every step replayed S_{t-1} from a checkpoint 16 steps back, the
+//     state's work about 7.5 times over: here the states are the forward's;
+//   * dlw by a direct hd^2 contraction a step: here the O(hd) identity.
+// The first kernel stays as the yardstick the chip smoke run times this
+// one against and holds to its own bound; it is on no path of the port.
+//
+// wkv_chunked_backward_f32_v1: one block per row, (P / 4)^2 threads for P
+// = hd rounded up to 4 (256 at hd = 64); thread (ti, tj) holds the 4 x 4
+// tile of S and of G at rows 4 ti .. 4 ti + 3 and columns 4 tj .. 4 tj + 3
+// in registers. A forward sweep writes the state entering every
+// seg_len-step segment to the caller's scratch. The reverse sweep then
+// takes the segments last to first with G_t = dL/dS_t, G_{S-1} = 0:
 //     dr_t[i]  = sum_j g_t[j] S_{t-1}[i,j] + u[i] k_t[i] (g_t . v_t)
 //     dk_t[i]  = sum_j G_t[i,j] v_t[j]     + u[i] r_t[i] (g_t . v_t)
 //     dv_t[j]  = sum_i k_t[i] G_t[i,j]     + g_t[j] (sum_i r_t[i] u[i] k_t[i])
 //     dlw_t[i] = w_t[i] sum_j G_t[i,j] S_{t-1}[i,j]
-//     du[i]    = sum_t r_t[i] k_t[i] (g_t . v_t)
 //     G_{t-1}  = diag(w_t) G_t + r_t^T g_t
-//
-// Replaces no Pallas kernel: the reference differentiates its kernel
-// through jax.vjp of the sequential oracle (repro/kernels/ops.py:408-414),
-// which XLA compiles into one scan. Without a compiler, autograd through
-// the per-token loop would launch some 20 operations a step.
-//
-// One block per row, (P / 4)^2 threads for P = hd rounded up to 4 (256 at
-// hd = 64); thread (ti, tj) holds the 4 x 4 tile of S and of G at rows
-// 4 ti .. 4 ti + 3 and columns 4 tj .. 4 tj + 3 in registers. A forward
-// sweep writes the state entering every seg_len-step segment to the
-// caller's scratch. The reverse sweep then takes the segments last to
-// first: it stages the segment's inputs in shared memory and, for each
-// step t, replays S_{t-1} from the segment's checkpoint in registers
-// (seg_len / 2 updates a step on average) - never S_{t-1} = (S_t - k v) /
-// w_t, which blows up for decays near 0. Each thread's row sums (dr, dk,
-// dlw over its 4 columns) and column sums (dv over its 4 rows) go to
-// shared memory, double-buffered by step parity so a step takes one
-// barrier; one thread per (output, index) adds the P / 4 partials in tile
-// order. Every sum has a fixed order and there are no atomics, so two
-// calls give the same bits.
-//
-// What bounds it on an H100: the work it needs is 12 hd^2 FLOP a step and
-// row (the state, the G update and the dr, dk, dv contractions, 2 hd^2
-// each; dlw needs no contraction of its own, since it is the reverse
-// cumulative sum of r_{t+1} dr'_{t+1} - k_t dk'_t over the bonus-free dr'
-// and dk', O(hd) a step): 8.1 GFLOP at BH = 80, S = 2,048, hd = 64,
-// 0.12 ms at the 67 TFLOP/s fp32 peak, against 0.11 ms for the 377 MB it
-// must move. This kernel takes dlw by the direct contraction, 2 hd^2 more
-// a step, and this first design is far from either bound: 80 blocks for
-// 132 SMs, each walking its 2,048 steps one barrier at a time, and the
-// replays multiply the state work by about seg_len / 2. seg_len, the steps
-// between two state checkpoints, is the caller's (the Python wrapper's
+// staging the segment's inputs in shared memory and, for each step t,
+// replaying S_{t-1} from the segment's checkpoint in registers (never
+// S_{t-1} = (S_t - k v) / w_t, which blows up for decays near 0). Each
+// thread's row sums (dr, dk, dlw over its 4 columns) and column sums (dv
+// over its 4 rows) go to shared memory, double-buffered by step parity so
+// a step takes one barrier; one thread per (output, index) adds the P / 4
+// partials in tile order. seg_len is the caller's (the Python wrapper's
 // BACKWARD_SEGMENT), which sizes the checkpoint scratch by it.
 constexpr int BWD_MAX_HD = 64;    // (64 / 4)^2 = 256 threads a block
 
@@ -869,7 +944,7 @@ __device__ __forceinline__ void stage(float* smem, const BwdLayout& L,
 
 template <int HD>
 __global__ void __launch_bounds__(256)
-wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
+wkv_bwd_kernel_v1(const float* __restrict__ r, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ lw,
                const float* __restrict__ u, const float* __restrict__ g,
                float* __restrict__ dr, float* __restrict__ dk,
@@ -1031,6 +1106,619 @@ wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
     du[static_cast<int64_t>(row) * hd + j] = smem[L.sdu + j];
 }
 
+
+// ---------------------------------------------------------------------- //
+// the chunk-parallel backward (wkv_chunked_backward_f32)
+// ---------------------------------------------------------------------- //
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_MAX_CHUNK = 64;    // a (chunk, chunk) product: 16 x 16 tiles
+
+// Element (row, col) of a (rows, W) tile whose float4s are XOR-swizzled by
+// (row / 4) mod 8 when sw (W a multiple of 32), as in the forward's pass A.
+__device__ __forceinline__ int sidx(int row, int col, int W, int sw) {
+  return row * W + ((((col >> 2) ^ (sw ? (row >> 2) & 7 : 0)) << 2) |
+                    (col & 3));
+}
+
+// acc[i][m] += sum_{k0 <= k < k1} X(r0 + i, k) Y(k, c0 + m): X(row, k)
+// stored at [row][k] (or [k][row] when XT), Y(k, col) at [k][col] (or
+// [col][k] when YT), tiles of pitch WX, WY swizzled when sx, sy. k0 and k1
+// are multiples of 4; each output is an fmaf chain in k order. A quarter
+// warp shares r0 and reads 8 consecutive c0: the X side is a broadcast and
+// the Y side 8 different float4 slots in either orientation.
+template <bool XT, bool YT>
+__device__ __forceinline__ void mm4(float (&acc)[4][4],
+                                    const float* __restrict__ X, int WX,
+                                    int sx, const float* __restrict__ Y,
+                                    int WY, int sy, int r0, int c0, int k0,
+                                    int k1) {
+  const int rq = r0 >> 2, cq = c0 >> 2;
+  const int fr = sx ? rq & 7 : 0, fc = sy ? cq & 7 : 0;
+#pragma unroll 2
+  for (int k = k0; k < k1; k += 4) {
+    const int kq = k >> 2;
+    float4 x[4], y[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      x[q] = XT ? ld4(X + (k + q) * WX + ((rq ^ (sx ? kq & 7 : 0)) << 2))
+                : ld4(X + (r0 + q) * WX + ((kq ^ fr) << 2));
+      y[q] = YT ? ld4(Y + (c0 + q) * WY + ((kq ^ fc) << 2))
+                : ld4(Y + (k + q) * WY + ((cq ^ (sy ? kq & 7 : 0)) << 2));
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          acc[i][m] = fmaf(XT ? at(x[s], i) : at(x[i], s),
+                           YT ? at(y[m], s) : at(y[s], m), acc[i][m]);
+  }
+}
+
+__device__ __forceinline__ void zero4x4(float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int m = 0; m < 4; ++m) acc[i][m] = 0.0f;
+}
+
+// strict_lower(X Y^T) of two (NR, P) tiles (pitch P, swizzled when sp) into
+// Z (pitch NR, swizzled when sn): the (NR / 4)(NR / 4 + 1) / 2 tiles of 4 x
+// 4 on or below the diagonal, packed onto the first threads so that whole
+// warps sit out (spread over the grid, most warps would wait on a few
+// lanes); the tiles above the diagonal are left as they are, no product
+// reads them.
+__device__ __forceinline__ void lower_product(float* Z, int NR, int sn,
+                                              const float* X, const float* Y,
+                                              int P, int sp, int t,
+                                              int nthreads) {
+  const int nq = NR >> 2;
+  for (int x = t; x < nq * (nq + 1) / 2; x += nthreads) {
+    int tr = static_cast<int>((sqrtf(8.0f * x + 1.0f) - 1.0f) * 0.5f);
+    while (tr * (tr + 1) / 2 > x) --tr;
+    while ((tr + 1) * (tr + 2) / 2 <= x) ++tr;
+    const int r0 = 4 * tr, c0 = 4 * (x - tr * (tr + 1) / 2);
+    float a4[4][4];
+    zero4x4(a4);
+    mm4<false, true>(a4, X, P, sp, Y, P, sp, r0, c0, 0, P);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (c0 + m >= r0 + i) a4[i][m] = 0.0f;
+      *reinterpret_cast<float4*>(Z + sidx(r0 + i, c0, NR, sn)) =
+          make_float4(a4[i][0], a4[i][1], a4[i][2], a4[i][3]);
+    }
+  }
+}
+
+// Pass C's shared memory, offsets in floats (all multiples of 4): four
+// (NR, P) tiles - r~, k~, v, g (r, k raw until the decays) -, X (NR,
+// max(NR, P)): lw until the decays, then A, then dA, at pitch NR -, G'
+// (P, P), then e^{l_tot}, g . v, sum r u k, u, Z and the partial sums (of
+// g . v, sum r u k and Z, then of dlw and du). 100 KB at hd = chunk = 64,
+// so two blocks share an SM.
+struct LocalLayout {
+  int P, NR, sp, sn, rt, kt, vv, gg, X, Gp, etot, gv, bk, su, z, part,
+      total;
+};
+
+__host__ __device__ __forceinline__ LocalLayout local_layout(int hd,
+                                                            int chunk) {
+  LocalLayout L;
+  L.P = (hd + 3) & ~3;
+  L.NR = (chunk + 3) & ~3;
+  L.sp = (L.P % 32) == 0;
+  L.sn = (L.NR % 32) == 0;
+  const int tile = L.NR * L.P;
+  L.rt = 0;
+  L.kt = tile;
+  L.vv = 2 * tile;
+  L.gg = 3 * tile;
+  L.X = 4 * tile;
+  L.Gp = L.X + L.NR * (L.NR > L.P ? L.NR : L.P);
+  L.etot = L.Gp + L.P * L.P;
+  L.gv = L.etot + L.P;
+  L.bk = L.gv + L.NR;
+  L.su = L.bk + L.NR;
+  L.z = L.su + L.P;
+  L.part = L.z + L.P;
+  L.total = L.part + 8 * (L.NR > L.P ? L.NR : L.P) + 4 * L.P;
+  return L;
+}
+
+// Pass B1's shared memory: r~ and g (NR, P), S_in (P, P) swizzled.
+__host__ __device__ __forceinline__ int gx_floats(int hd, int chunk) {
+  const int P = (hd + 3) & ~3, NR = (chunk + 3) & ~3;
+  return 2 * NR * P + P * P;
+}
+
+// Pass B1, a block per (row, chunk), from the forward's r~ (rbuf, pitch P;
+// columns past hd are not written there and are read as 0), S_in (dbuf)
+// and g: gbuf <- r~^T g (P, P) and dr <- g S_in^T (the chunk's rows, the
+// part of dr~ that needs no intra-chunk term; pass C adds the rest and
+// writes dr over it), a thread per 4 x 4 outputs of each, fmaf chains.
+// With vec (then P = hd) the operands come in by 16-byte cp.async.
+__global__ void __launch_bounds__(BWD_THREADS)
+wkv_bwd_gx_kernel(const float* __restrict__ rbuf,
+                  const float* __restrict__ dbuf, const float* __restrict__ g,
+                  float* __restrict__ gbuf, float* __restrict__ dr, int S,
+                  int hd, int chunk, int nch, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int P = (hd + 3) & ~3, NR = (chunk + 3) & ~3, pq = P >> 2;
+  const int sp = (P % 32) == 0;
+  float* rt = smem;                   // (NR, P)
+  float* gs = smem + NR * P;          // (NR, P)
+  float* ss = smem + 2 * NR * P;      // (P, P), swizzled
+  const int t = threadIdx.x;
+  const int row = blockIdx.x / nch, ch = blockIdx.x - row * nch;
+  const int s0 = ch * chunk, n = min(chunk, S - s0);
+  const int64_t off = (static_cast<int64_t>(row) * S + s0) * hd;
+  const int64_t roff = (static_cast<int64_t>(row) * S + s0) * P;
+  const int64_t item = static_cast<int64_t>(row) * nch + ch;
+  for (int i = t; i < NR * pq; i += BWD_THREADS) {
+    const int a = i / pq, c = 4 * (i - a * pq);
+    if (vec && a < n) {             // P = hd: 16-byte cp.async
+      const int64_t gi = off + static_cast<int64_t>(a) * hd + c;
+      __pipeline_memcpy_async(rt + a * P + c,
+                              rbuf + roff + static_cast<int64_t>(a) * P + c,
+                              16);
+      __pipeline_memcpy_async(gs + a * P + c, g + gi, 16);
+      continue;
+    }
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f), y = x;
+    if (a < n) {
+      x = ld4(rbuf + roff + static_cast<int64_t>(a) * P + c);
+      if (c + 3 >= hd) {
+        if (c >= hd) x.x = 0.0f;
+        if (c + 1 >= hd) x.y = 0.0f;
+        if (c + 2 >= hd) x.z = 0.0f;
+        x.w = 0.0f;
+      }
+      const int64_t gi = off + static_cast<int64_t>(a) * hd + c;
+      if (vec) {
+        y = ld4(g + gi);
+      } else {
+        if (c < hd) y.x = g[gi];
+        if (c + 1 < hd) y.y = g[gi + 1];
+        if (c + 2 < hd) y.z = g[gi + 2];
+        if (c + 3 < hd) y.w = g[gi + 3];
+      }
+    }
+    *reinterpret_cast<float4*>(rt + a * P + c) = x;
+    *reinterpret_cast<float4*>(gs + a * P + c) = y;
+  }
+  const float* sin_g = dbuf + item * P * P;
+  for (int i = t; i < P * pq; i += BWD_THREADS) {
+    const int a = i / pq, c = 4 * (i - a * pq);
+    if (vec && a < hd) {
+      __pipeline_memcpy_async(ss + sidx(a, c, P, sp), sin_g + a * P + c, 16);
+      continue;
+    }
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (a < hd) {
+      x = ld4(sin_g + a * P + c);
+      if (c + 3 >= hd) {
+        if (c >= hd) x.x = 0.0f;
+        if (c + 1 >= hd) x.y = 0.0f;
+        if (c + 2 >= hd) x.z = 0.0f;
+        x.w = 0.0f;
+      }
+    }
+    *reinterpret_cast<float4*>(ss + sidx(a, c, P, sp)) = x;
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  const int r0 = 4 * (t >> 4), c0 = 4 * (t & 15);
+  if (r0 < P && c0 < P) {
+    float acc[4][4];
+    zero4x4(acc);
+    mm4<true, false>(acc, rt, P, 0, gs, P, 0, r0, c0, 0, NR);
+    float* gb = gbuf + item * P * P;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(gb + (r0 + i) * P + c0) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  if (r0 < NR && c0 < P) {
+    float acc[4][4];
+    zero4x4(acc);
+    mm4<false, true>(acc, gs, P, 0, ss, P, sp, r0, c0, 0, P);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int a = r0 + i;
+      if (a >= n) break;
+      const int64_t go = off + static_cast<int64_t>(a) * hd + c0;
+      if (vec) {
+        *reinterpret_cast<float4*>(dr + go) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      } else {
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          if (c0 + m < hd) dr[go + m] = acc[i][m];
+      }
+    }
+  }
+}
+
+// Pass B2, a thread per (row, state row i < hd, 4 columns): from the last
+// chunk to the first, G_out = G, then G = e^{l_tot} G + r~^T g, each G_out
+// written over its chunk's r~^T g; SCAN_AHEAD chunks loaded ahead.
+__global__ void __launch_bounds__(256)
+wkv_bwd_scan_kernel(float* __restrict__ gbuf, const float* __restrict__ lbuf,
+                    int64_t BH, int P, int hd, int nch) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  const int pq = P >> 2;
+  const int64_t per_row = static_cast<int64_t>(P) * pq;
+  if (idx >= BH * per_row) return;
+  const int64_t row = idx / per_row;
+  const int iq = static_cast<int>(idx - row * per_row);
+  const int i = iq / pq;
+  if (i >= hd) return;                     // never read
+  const int64_t pp = static_cast<int64_t>(P) * P;
+  float4* d = reinterpret_cast<float4*>(gbuf + row * nch * pp) + iq;
+  const float* l = lbuf + row * nch * P + i;
+  float4 st = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int c0 = nch - 1; c0 >= 0; c0 -= SCAN_AHEAD) {
+    float4 x[SCAN_AHEAD];
+    float e[SCAN_AHEAD];
+#pragma unroll
+    for (int b = 0; b < SCAN_AHEAD; ++b) {
+      if (c0 - b >= 0) {
+        x[b] = d[(c0 - b) * pp / 4];
+        e[b] = l[(c0 - b) * P];
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < SCAN_AHEAD; ++b) {
+      if (c0 - b < 0) break;
+      d[(c0 - b) * pp / 4] = st;
+      const float w = expf(e[b]);
+      st.x = fmaf(w, st.x, x[b].x);
+      st.y = fmaf(w, st.y, x[b].y);
+      st.z = fmaf(w, st.z, x[b].z);
+      st.w = fmaf(w, st.w, x[b].w);
+    }
+  }
+}
+
+// (BH, S, hd) element (a, c .. c + 3) of a chunk, zero past hd, as a
+// float4 (a 16-byte load when vec).
+__device__ __forceinline__ float4 ld_row4(const float* p, int64_t gi, int c,
+                                          int hd, int vec) {
+  if (vec) return ld4(p + gi);
+  float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (c < hd) x.x = p[gi];
+  if (c + 1 < hd) x.y = p[gi + 1];
+  if (c + 2 < hd) x.z = p[gi + 2];
+  if (c + 3 < hd) x.w = p[gi + 3];
+  return x;
+}
+
+__device__ __forceinline__ void st_row4(float* p, int64_t gi, int c, int hd,
+                                        int vec, const float (&x)[4]) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p + gi) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (c + m < hd) p[gi + m] = x[m];
+  }
+}
+
+// Pass C, a block per (row, chunk): dv, dk, dr, dlw of the chunk's steps
+// and its du partial (dpart, (P) per chunk), from the inputs, g S_in^T
+// (B1's, in dr), S_out (dbuf's next chunk) and G_out (gbuf). l_exc is kept
+// in dlw until dlw is written over it. PC, NC: P and NR when known at
+// compile time (64 and 64 on the rwkv6-3b path), else 0. vec: hd % 4 == 0
+// and every (BH, S, hd) operand 16-byte aligned.
+template <int PC, int NC>
+__global__ void __launch_bounds__(BWD_THREADS, 2)
+wkv_bwd_local_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ lw,
+                     const float* __restrict__ u, const float* __restrict__ g,
+                     const float* __restrict__ dbuf,
+                     const float* __restrict__ gbuf, float* __restrict__ dr,
+                     float* __restrict__ dk, float* __restrict__ dv,
+                     float* __restrict__ dlw, float* __restrict__ dpart,
+                     int S, int hd, int chunk, int nch, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const LocalLayout L = local_layout(hd, chunk);
+  const int P = PC ? PC : L.P, NR = NC ? NC : L.NR;
+  const int sp = PC ? (PC % 32 == 0) : L.sp;
+  const int sn = NC ? (NC % 32 == 0) : L.sn;
+  float* rt = smem + L.rt;
+  float* kt = smem + L.kt;
+  float* vv = smem + L.vv;
+  float* gg = smem + L.gg;
+  float* sX = smem + L.X;
+  float* Gp = smem + L.Gp;
+  float* etot = smem + L.etot;
+  float* gvs = smem + L.gv;
+  float* bks = smem + L.bk;
+  float* su = smem + L.su;
+  float* zs = smem + L.z;
+  float* part = smem + L.part;
+  const int t = threadIdx.x;
+  const int row = blockIdx.x / nch, ch = blockIdx.x - row * nch;
+  const int s0 = ch * chunk, n = min(chunk, S - s0);
+  const int64_t off = (static_cast<int64_t>(row) * S + s0) * hd;
+  const int64_t item = static_cast<int64_t>(row) * nch + ch;
+  const int64_t pp = static_cast<int64_t>(P) * P;
+  const float* gout_g = gbuf + item * pp;
+  const float* sout_g = ch + 1 < nch ? dbuf + (item + 1) * pp : nullptr;
+  const int pq = P >> 2;
+
+  // 1. r, k, v, g as (NR, P) tiles (r and k into r~'s and k~'s), zero past
+  // n and hd; lw into X; G_out (unscaled, into G'), zero past hd; u. With
+  // vec (then P = hd) every in-range float4 is a 16-byte cp.async, all in
+  // flight at once and none through registers
+  for (int i = t; i < NR * pq; i += BWD_THREADS) {
+    const int a = i / pq, c = 4 * (i - a * pq);
+    const int o = sidx(a, c, P, sp);
+    const int64_t gi = off + static_cast<int64_t>(a) * hd + c;
+    float* const dst[5] = {rt + o, kt + o, vv + o, gg + o, sX + a * P + c};
+    const float* const src[5] = {r, k, v, g, lw};
+#pragma unroll
+    for (int m = 0; m < 5; ++m) {
+      if (vec && a < n) {
+        __pipeline_memcpy_async(dst[m], src[m] + gi, 16);
+      } else {
+        *reinterpret_cast<float4*>(dst[m]) =
+            a < n ? ld_row4(src[m], gi, c, hd, vec)
+                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+  }
+  for (int i = t; i < P * pq; i += BWD_THREADS) {
+    const int a = i / pq, c = 4 * (i - a * pq);
+    float* const dst = Gp + sidx(a, c, P, sp);
+    if (vec && a < hd) {
+      __pipeline_memcpy_async(dst, gout_g + a * P + c, 16);
+      continue;
+    }
+    float4 y = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (a < hd) {
+      y = ld4(gout_g + a * P + c);
+      if (c + 3 >= hd) {
+        if (c >= hd) y.x = 0.0f;
+        if (c + 1 >= hd) y.y = 0.0f;
+        if (c + 2 >= hd) y.z = 0.0f;
+        y.w = 0.0f;
+      }
+    }
+    *reinterpret_cast<float4*>(dst) = y;
+  }
+  __pipeline_commit();
+  for (int j = t; j < P; j += BWD_THREADS)
+    su[j] = j < hd ? u[static_cast<int64_t>(row) * hd + j] : 0.0f;
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  // 2. four threads a step (or state row), each a quarter of the columns,
+  // fmaf chains in column order: g . v and sum r u k from the raw r and k,
+  // and Z's quarters, sum_j G_out S_out, S_out from device memory (zero at
+  // a row's end)
+  const int w4 = t >> 2, q4 = t & 3;
+  const int qw = (hd + 3) >> 2, j0 = q4 * qw, j1 = min(j0 + qw, hd);
+  if (w4 < n) {
+    float gv = 0.0f, bk = 0.0f;
+    for (int j = j0; j < j1; ++j) {
+      const int o = sidx(w4, j, P, sp);
+      gv = fmaf(gg[o], vv[o], gv);
+      bk = fmaf(rt[o] * su[j], kt[o], bk);
+    }
+    part[q4 * NR + w4] = gv;
+    part[(4 + q4) * NR + w4] = bk;
+  }
+  if (w4 < hd) {
+    float z = 0.0f;
+    if (sout_g != nullptr)
+      for (int j = j0; j < j1; ++j)
+        z = fmaf(Gp[sidx(w4, j, P, sp)], sout_g[w4 * P + j], z);
+    part[8 * NR + q4 * P + w4] = z;
+  }
+  __syncthreads();
+
+  // 3. threads 0-63: the cumulative decays per column in time order (the
+  // forward's chain), l_exc into dlw, e^{l_tot}; the others: the quarters
+  // added in order
+  if (t < 64) {
+    const int j = t;
+    if (j < hd) {
+      float c = 0.0f, w = 0.0f;
+      for (int a = 0; a < n; ++a) {
+        w = sX[a * P + j];
+        c += w;
+        dlw[off + static_cast<int64_t>(a) * hd + j] = c - w;
+      }
+      etot[j] = expf((c - w) + w);
+    }
+  } else {
+    const int x = t - 64;
+    if (x < n) {
+      gvs[x] = ((part[x] + part[NR + x]) + part[2 * NR + x]) +
+               part[3 * NR + x];
+      bks[x] = ((part[4 * NR + x] + part[5 * NR + x]) + part[6 * NR + x]) +
+               part[7 * NR + x];
+    }
+    if (x < hd) {
+      const float* zp = part + 8 * NR;
+      zs[x] = ((zp[x] + zp[P + x]) + zp[2 * P + x]) + zp[3 * P + x];
+    }
+  }
+  __syncthreads();
+
+  // 4. every thread: r~ = r e^{l_exc} and k~ = k e^{-l_inc} in place, with
+  // l_exc read back from dlw and l_inc = l_exc + lw (the forward's
+  // factors, bit for bit); G' = e^{l_tot} G_out
+  for (int x = t; x < n * hd; x += BWD_THREADS) {
+    const int a = x / hd, j = x - a * hd;
+    const float lexc = dlw[off + static_cast<int64_t>(a) * hd + j];
+    const float linc = lexc + sX[a * P + j];
+    const int o = sidx(a, j, P, sp);
+    rt[o] = rt[o] * expf(lexc);
+    kt[o] = kt[o] * expf(-linc);
+  }
+  for (int x = t; x < hd * P; x += BWD_THREADS) {
+    const int i = x / P, j = x - i * P;
+    const int o = sidx(i, j, P, sp);
+    Gp[o] = etot[i] * Gp[o];
+  }
+  __syncthreads();
+
+  // thread -> 4 x 4 output tile: tile row w (lanes 0-15) or 15 - w (lanes
+  // 16-31) of warp w, tile column lane mod 16, so every warp holds one
+  // short and one long row of each triangle
+  const int warp = t >> 5, lane = t & 31;
+  const int tr = (lane & 16) ? 15 - warp : warp;
+  const int r0 = 4 * tr, c0 = 4 * (lane & 15);
+  const bool active = r0 < NR && c0 < P;    // a tile of dv, dk, dr
+
+  // 5. A = strict_lower(r~ k~^T) into X, then dv = A^T g + k~ G' + (sum r
+  // u k) g, written out; then dA = strict_lower(g v^T) into X
+  lower_product(sX, NR, sn, rt, kt, P, sp, t, BWD_THREADS);
+  __syncthreads();
+  if (active) {
+    float acc[4][4];
+    zero4x4(acc);
+    mm4<true, false>(acc, sX, NR, sn, gg, P, sp, r0, c0, r0, NR);
+    mm4<false, false>(acc, kt, P, sp, Gp, P, sp, r0, c0, 0, P);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int a = r0 + i;
+      if (a >= n) break;
+      const float4 g4 = ld4(gg + sidx(a, c0, P, sp));
+      const float bk = bks[a];
+      const float ov[4] = {acc[i][0] + bk * g4.x, acc[i][1] + bk * g4.y,
+                           acc[i][2] + bk * g4.z, acc[i][3] + bk * g4.w};
+      st_row4(dv, off + static_cast<int64_t>(a) * hd + c0, c0, hd, vec, ov);
+    }
+  }
+  __syncthreads();
+  lower_product(sX, NR, sn, gg, vv, P, sp, t, BWD_THREADS);
+  __syncthreads();
+
+  // 6. dk' = e^{-l_inc} (dA^T r~ + v G'^T) and dr' = e^{l_exc} (dA k~ +
+  // g S_in^T), written with their bonus terms and kept as x = r dr' and
+  // y = k dk' for dlw
+  float xr[4][4], yk[4][4];
+  zero4x4(xr);
+  zero4x4(yk);
+  if (active) {
+    mm4<true, false>(yk, sX, NR, sn, rt, P, sp, r0, c0, r0, NR);
+    mm4<false, true>(yk, vv, P, sp, Gp, P, sp, r0, c0, 0, P);
+    mm4<false, false>(xr, sX, NR, sn, kt, P, sp, r0, c0, 0, r0 + 4);
+    const float4 u4 = ld4(su + c0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int a = r0 + i;
+      if (a >= n) break;
+      const int64_t gi = off + static_cast<int64_t>(a) * hd + c0;
+      const float4 r4 = ld_row4(r, gi, c0, hd, vec);
+      const float4 k4 = ld_row4(k, gi, c0, hd, vec);
+      const float4 w4v = ld_row4(lw, gi, c0, hd, vec);
+      const float4 lx4 = ld_row4(dlw, gi, c0, hd, vec);
+      const float4 gs4 = ld_row4(dr, gi, c0, hd, vec);
+      const float gv = gvs[a];
+      float ok[4], orr[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float lexc = at(lx4, m);
+        const float dkp = expf(-(lexc + at(w4v, m))) * yk[i][m];
+        const float drp = expf(lexc) * (xr[i][m] + at(gs4, m));
+        ok[m] = dkp + at(u4, m) * at(r4, m) * gv;
+        orr[m] = drp + at(u4, m) * at(k4, m) * gv;
+        yk[i][m] = at(k4, m) * dkp;
+        xr[i][m] = at(r4, m) * drp;
+      }
+      st_row4(dk, gi, c0, hd, vec, ok);
+      st_row4(dr, gi, c0, hd, vec, orr);
+    }
+  }
+  __syncthreads();                  // every product has read r~ and k~
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = sidx(r0 + i, c0, P, sp);
+      *reinterpret_cast<float4*>(rt + o) =
+          make_float4(xr[i][0], xr[i][1], xr[i][2], xr[i][3]);
+      *reinterpret_cast<float4*>(kt + o) =
+          make_float4(yk[i][0], yk[i][1], yk[i][2], yk[i][3]);
+    }
+  }
+  __syncthreads();
+
+  // 7. dlw_t = Z + sum_{t<s<=e} x_s - sum_{t<=s<=e} y_s, a thread per
+  // (column, quarter of the chunk's steps): the quarters' totals, then each
+  // quarter's reverse scan from Z plus the later quarters' totals, written
+  // over l_exc; du's partial per quarter, then added in quarter order
+  const int ci = t & 63, qt = t >> 6, seg = NR >> 2;
+  const int a_lo = qt * seg, a_hi = min(a_lo + seg, n);
+  float* tot = part;                 // (4, P)
+  float* dup = part + 4 * P;         // (4, P)
+  if (ci < hd) {
+    float tq = 0.0f, dq = 0.0f;
+    for (int a = a_lo; a < a_hi; ++a) {
+      const int o = sidx(a, ci, P, sp);
+      const int64_t gi = off + static_cast<int64_t>(a) * hd + ci;
+      tq += rt[o] - kt[o];
+      dq = fmaf(r[gi] * k[gi], gvs[a], dq);
+    }
+    tot[qt * P + ci] = tq;
+    dup[qt * P + ci] = dq;
+  }
+  __syncthreads();
+  if (ci < hd) {
+    float acc = zs[ci];
+    for (int q = 3; q > qt; --q) acc += tot[q * P + ci];
+    for (int a = a_hi - 1; a >= a_lo; --a) {
+      const int o = sidx(a, ci, P, sp);
+      acc -= kt[o];
+      dlw[off + static_cast<int64_t>(a) * hd + ci] = acc;
+      acc += rt[o];
+    }
+    if (qt == 0)
+      dpart[item * P + ci] = ((dup[ci] + dup[P + ci]) + dup[2 * P + ci]) +
+                             dup[3 * P + ci];
+  }
+}
+
+// Pass D, a thread per (row, column): du = the chunks' partials in chunk
+// order.
+__global__ void __launch_bounds__(256)
+wkv_bwd_du_kernel(const float* __restrict__ dpart, float* __restrict__ du,
+                  int64_t BH, int hd, int P, int nch) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (idx >= BH * hd) return;
+  const int64_t row = idx / hd;
+  const int i = static_cast<int>(idx - row * hd);
+  const float* p = dpart + row * nch * P + i;
+  float acc = 0.0f;
+  for (int c = 0; c < nch; ++c) acc += p[static_cast<int64_t>(c) * P];
+  du[idx] = acc;
+}
+
+template <int PC, int NC>
+cudaError_t launch_bwd_local(const float* r, const float* k, const float* v,
+                             const float* lw, const float* u, const float* g,
+                             const float* dbuf, const float* gbuf, float* dr,
+                             float* dk, float* dv, float* dlw, float* dpart,
+                             unsigned items, int S, int hd, int chunk,
+                             int nch, size_t smem, int vec,
+                             cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      wkv_bwd_local_kernel<PC, NC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  wkv_bwd_local_kernel<PC, NC><<<items, BWD_THREADS, smem, stream>>>(
+      r, k, v, lw, u, g, dbuf, gbuf, dr, dk, dv, dlw, dpart, S, hd, chunk,
+      nch, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns a cudaError_t, or WKV_SMEM_TOO_LARGE (the Python wrapper's
@@ -1100,21 +1788,22 @@ extern "C" int wkv_chunked_f32_v1(const void* r, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward of the sequential recurrence: dr, dk, dv, dlw (BH, S, hd)
-// and du (BH, hd) from the forward's inputs and the output cotangent g.
+// The first backward kernel (the sequential recurrence's VJP, a block per
+// row): dr, dk, dv, dlw (BH, S, hd) and du (BH, hd) from the forward's
+// inputs and the output cotangent g.
 // ckpt (BH, ceil(S / seg_len), P, P), P = hd rounded up to 4, is the
 // caller's scratch, a checkpoint every seg_len steps. S > 0 and BH > 0
 // (the wrapper returns zeros for an empty input), and hd <= BWD_MAX_HD: a
 // block holds the whole (hd, hd) state, 16 elements a thread, in at most
 // 256 threads. WKV_SMEM_TOO_LARGE when a block of hd and seg_len needs
 // more shared memory than the device gives a block.
-extern "C" int wkv_chunked_backward_f32(const void* r, const void* k,
-                                        const void* v, const void* lw,
-                                        const void* u, const void* g,
-                                        void* dr, void* dk, void* dv,
-                                        void* dlw, void* du, void* ckpt,
-                                        int BH, int S, int hd, int seg_len,
-                                        void* stream) {
+extern "C" int wkv_chunked_backward_f32_v1(const void* r, const void* k,
+                                           const void* v, const void* lw,
+                                           const void* u, const void* g,
+                                           void* dr, void* dk, void* dv,
+                                           void* dlw, void* du, void* ckpt,
+                                           int BH, int S, int hd,
+                                           int seg_len, void* stream) {
   if (hd <= 0 || hd > BWD_MAX_HD || BH <= 0 || S <= 0 || seg_len <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdLayout L = bwd_layout(hd, seg_len);
@@ -1136,19 +1825,94 @@ extern "C" int wkv_chunked_backward_f32(const void* r, const void* k,
   const unsigned threads = static_cast<unsigned>(L.NQ * L.NQ);
   cudaError_t e;
   if (hd == 64) {
-    e = cudaFuncSetAttribute(wkv_bwd_kernel<64>,
+    e = cudaFuncSetAttribute(wkv_bwd_kernel_v1<64>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    wkv_bwd_kernel<64><<<static_cast<unsigned>(BH), threads, smem, st>>>(
+    wkv_bwd_kernel_v1<64><<<static_cast<unsigned>(BH), threads, smem, st>>>(
         fr, fk, fv, fl, fu, fg, odr, odk, odv, odl, odu, ck, S, hd, seg_len);
   } else {
-    e = cudaFuncSetAttribute(wkv_bwd_kernel<0>,
+    e = cudaFuncSetAttribute(wkv_bwd_kernel_v1<0>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    wkv_bwd_kernel<0><<<static_cast<unsigned>(BH), threads, smem, st>>>(
+    wkv_bwd_kernel_v1<0><<<static_cast<unsigned>(BH), threads, smem, st>>>(
         fr, fk, fv, fl, fu, fg, odr, odk, odv, odl, odu, ck, S, hd, seg_len);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chunk-parallel backward: dr, dk, dv, dlw (BH, S, hd) and du (BH, hd)
+// from the forward's inputs and the output cotangent g, in chunks of
+// `chunk` steps (at most BWD_MAX_CHUNK; hd at most BWD_MAX_HD). rbuf (BH,
+// S, P), dbuf (BH, nch, P, P) and lbuf (BH, nch, P) are the forward's
+// scratch (wkv_chunked_f32's, same inputs and chunk); gbuf (BH, nch, P, P)
+// and dpart (BH, nch, P) are scratch. P = hd rounded up to 4,
+// nch = ceil(S / chunk). S > 0 and BH > 0 (the wrapper returns zeros for an
+// empty input). WKV_SMEM_TOO_LARGE when a block needs more shared memory
+// than the device gives one.
+extern "C" int wkv_chunked_backward_f32(
+    const void* r, const void* k, const void* v, const void* lw,
+    const void* u, const void* g, void* dr, void* dk, void* dv, void* dlw,
+    void* du, void* rbuf, void* dbuf, void* lbuf, void* gbuf, void* dpart,
+    int BH, int S, int hd, int chunk, void* stream) {
+  if (hd <= 0 || hd > BWD_MAX_HD || chunk <= 0 || chunk > BWD_MAX_CHUNK ||
+      BH <= 0 || S <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const LocalLayout L = local_layout(hd, chunk);
+  const size_t smem_c = sizeof(float) * static_cast<size_t>(L.total);
+  const size_t smem_b = sizeof(float) * static_cast<size_t>(
+                                            gx_floats(hd, chunk));
+  const size_t limit = static_cast<size_t>(max_smem());
+  if (smem_c > limit || smem_b > limit) return WKV_SMEM_TOO_LARGE;
+  const int nch = (S + chunk - 1) / chunk;
+  if (static_cast<int64_t>(BH) * nch >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned items = static_cast<unsigned>(BH) * nch;
+  const int vec = hd % 4 == 0 && aligned16(r) && aligned16(k) &&
+                  aligned16(v) && aligned16(lw) && aligned16(g) &&
+                  aligned16(dr) && aligned16(dk) && aligned16(dv) &&
+                  aligned16(dlw);
+  const auto* fr = static_cast<const float*>(r);
+  const auto* fk = static_cast<const float*>(k);
+  const auto* fv = static_cast<const float*>(v);
+  const auto* fl = static_cast<const float*>(lw);
+  const auto* fu = static_cast<const float*>(u);
+  const auto* fg = static_cast<const float*>(g);
+  auto* odr = static_cast<float*>(dr);
+  auto* odk = static_cast<float*>(dk);
+  auto* odv = static_cast<float*>(dv);
+  auto* odl = static_cast<float*>(dlw);
+  const auto* rb = static_cast<const float*>(rbuf);
+  const auto* db = static_cast<const float*>(dbuf);
+  const auto* lb = static_cast<const float*>(lbuf);
+  auto* gb = static_cast<float*>(gbuf);
+  auto* dp = static_cast<float*>(dpart);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaFuncSetAttribute(wkv_bwd_gx_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem_b));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  wkv_bwd_gx_kernel<<<items, BWD_THREADS, smem_b, st>>>(rb, db, fg, gb, odr,
+                                                        S, hd, chunk, nch,
+                                                        vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t scan = static_cast<int64_t>(BH) * L.P * (L.P >> 2);
+  wkv_bwd_scan_kernel<<<static_cast<unsigned>((scan + 255) / 256), 256, 0,
+                        st>>>(gb, lb, BH, L.P, hd, nch);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = L.P == 64 && L.NR == 64
+          ? launch_bwd_local<64, 64>(fr, fk, fv, fl, fu, fg, db, gb, odr,
+                                     odk, odv, odl, dp, items, S, hd, chunk,
+                                     nch, smem_c, vec, st)
+          : launch_bwd_local<0, 0>(fr, fk, fv, fl, fu, fg, db, gb, odr, odk,
+                                   odv, odl, dp, items, S, hd, chunk, nch,
+                                   smem_c, vec, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t cols = static_cast<int64_t>(BH) * hd;
+  wkv_bwd_du_kernel<<<static_cast<unsigned>((cols + 255) / 256), 256, 0,
+                      st>>>(dp, static_cast<float*>(du), BH, hd, L.P, nch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,9 +22,10 @@ version:
 * ``wkv_chunked`` — the chunked RWKV-6 WKV: every chunk's local terms at
   once, then a scan of the states, then the cross term (replaces
   ``repro/kernels/wkv_chunk.py::wkv_chunked``).
-* ``wkv_chunked_backward`` — its gradient, the VJP of the sequential
-  recurrence, a block per row walking back from state checkpoints (replaces
-  no Pallas kernel: the reference takes ``jax.vjp`` of
+* ``wkv_chunked_backward`` — its gradient, the VJP of the recurrence in
+  the chunked form: the chunks' local terms in parallel around a reverse
+  scan of the state gradients, from the forward's states (replaces no
+  Pallas kernel: the reference takes ``jax.vjp`` of
   ``repro/kernels/ref.py::wkv_chunk_ref``).
 
 ``ops`` holds the public wrappers, ``ref`` the references under the JAX
@@ -50,8 +51,8 @@ from repro_torch.kernels.sharded_gather import (
 )
 from repro_torch.kernels.topk import topk_plain, topk_scores
 from repro_torch.kernels.wkv_chunk import (
-    wkv_chunked, wkv_chunked_backward, wkv_chunked_backward_plain,
-    wkv_chunked_plain,
+    wkv_chunked, wkv_chunked_backward, wkv_chunked_backward_chunked_plain,
+    wkv_chunked_backward_plain, wkv_chunked_plain,
 )
 
 # every kernel wrapper of the port; each counts its launches in
@@ -77,4 +78,5 @@ __all__ = ["ops", "ref", "EPILOGUES", "NORM_EPS", "KERNELS",
            "basis_message_plain", "segment_sum", "segment_sum_plain",
            "rgcn_message_basis", "wkv_chunked", "wkv_chunked_plain",
            "wkv_chunked_backward", "wkv_chunked_backward_plain",
+           "wkv_chunked_backward_chunked_plain",
            "wkv_chunked_op"]

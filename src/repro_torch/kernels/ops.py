@@ -22,7 +22,9 @@ from repro_torch.kernels.sharded_gather import (
     fused_dequant_gather, fused_gather, scatter_add_onehot,
 )
 from repro_torch.kernels.topk import topk_scores
-from repro_torch.kernels.wkv_chunk import wkv_chunked, wkv_chunked_backward
+from repro_torch.kernels.wkv_chunk import (
+    BACKWARD_MAX_CHUNK, wkv_chunked, wkv_chunked_backward, wkv_chunked_states,
+)
 from repro_torch.sharding.embedding import quantize_rows
 
 
@@ -390,17 +392,30 @@ class _WKVChunked(torch.autograd.Function):
     backward :func:`wkv_chunked_backward` (the kernel for CUDA tensors,
     autograd through the sequential recurrence for CPU tensors) — the
     reference's pairing of its kernel with the VJP of
-    ``ref.wkv_chunk_ref`` (``ops.py:405-416``)."""
+    ``ref.wkv_chunk_ref`` (``ops.py:405-416``). With ``keep`` (CUDA
+    tensors, a gradient wanted, ``chunk`` within the backward kernel's) the
+    forward kernel's scratch, the chunks' entering states among it, is
+    saved for the backward, which then does not form them again."""
 
     @staticmethod
-    def forward(ctx, r, k, v, log_decay, u, chunk):
-        ctx.save_for_backward(r, k, v, log_decay, u)
-        return wkv_chunked(r, k, v, log_decay, u, chunk=chunk)
+    def forward(ctx, r, k, v, log_decay, u, chunk, keep):
+        ctx.chunk = min(chunk, BACKWARD_MAX_CHUNK)
+        if keep:
+            out, states = wkv_chunked_states(r, k, v, log_decay, u,
+                                             chunk=chunk)
+            ctx.save_for_backward(r, k, v, log_decay, u, *states)
+        else:
+            out = wkv_chunked(r, k, v, log_decay, u, chunk=chunk)
+            ctx.save_for_backward(r, k, v, log_decay, u)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        return (*wkv_chunked_backward(*ctx.saved_tensors, g.contiguous()),
-                None)
+        r, k, v, log_decay, u, *states = ctx.saved_tensors
+        grads = wkv_chunked_backward(r, k, v, log_decay, u, g.contiguous(),
+                                     chunk=ctx.chunk,
+                                     states=tuple(states) or None)
+        return (*grads, None, None)
 
 
 def wkv_chunked_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -412,5 +427,11 @@ def wkv_chunked_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     where the reference pads S to ``chunk`` and BH to 8 with zeros, which
     gives the same outputs on the real rows. Differentiable in all five
     inputs: the backward is :func:`wkv_chunked_backward`."""
-    args = (t.float().contiguous() for t in (r, k, v, log_decay, u))
-    return _WKVChunked.apply(*args, chunk)
+    args = [t.float().contiguous() for t in (r, k, v, log_decay, u)]
+    # the forward's states serve the backward only on the card, only when a
+    # gradient is taken (not while serving), and only in the backward's
+    # chunk
+    keep = (args[0].is_cuda and chunk <= BACKWARD_MAX_CHUNK
+            and torch.is_grad_enabled()
+            and any(t.requires_grad for t in args))
+    return _WKVChunked.apply(*args, chunk, keep)

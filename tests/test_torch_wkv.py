@@ -9,7 +9,9 @@ JAX side runs the Pallas kernel in interpret mode through
 against the same plain versions on the card by ``chip_smoke.py``. The
 gradient — ``wkv_chunked_backward``, on the CPU autograd through the
 port's sequential recurrence — is held against ``jax.vjp`` of the
-reference's op and of its oracle.
+reference's op and of its oracle, and its chunked form (what the CUDA
+kernel computes, ``wkv_chunked_backward_chunked_plain``) against the
+sequential one in fp64 and against ``jax.vjp`` of the oracle in fp32.
 
 Tolerances are the reference's own gate for the kernel against its
 oracle: ``rtol=atol=1e-4`` at ``WKV_SHAPES`` (``tests/test_kernels.py``)
@@ -31,8 +33,8 @@ from repro.kernels import ref as jref
 from repro.nn import recurrent as JR
 from repro_torch.kernels import KERNELS, ops, ref
 from repro_torch.kernels.wkv_chunk import (
-    wkv_chunked, wkv_chunked_backward, wkv_chunked_backward_plain,
-    wkv_chunked_plain,
+    wkv_chunked, wkv_chunked_backward, wkv_chunked_backward_chunked_plain,
+    wkv_chunked_backward_plain, wkv_chunked_plain, wkv_chunked_states,
 )
 from repro_torch.nn import recurrent as R
 
@@ -238,3 +240,103 @@ def test_tensors_neither_on_the_cpu_nor_on_the_card_raise():
         wkv_chunked(*x[:4], x[4].to("meta"), chunk=8)
     with pytest.raises(ValueError, match="unsupported device meta"):
         wkv_chunked_backward(*(t.to("meta") for t in x + [x[0]]))
+
+
+# the chunked gradient's shapes: GRAD_SHAPES, then S ragged against the
+# chunk, S < chunk, S = 1, BH = 1 and hd = 30
+CHUNKED_GRAD_SHAPES = GRAD_SHAPES + [(2, 45, 16, 32), (3, 10, 8, 16),
+                                     (2, 1, 8, 16), (1, 33, 16, 16),
+                                     (2, 37, 30, 16)]
+GRAD_NAMES = ("r", "k", "v", "log_decay", "u")
+
+
+def grad_inputs(bh, s, hd, seed):
+    """The five inputs and an output cotangent, drawn with numpy."""
+    x = draw(bh, s, hd, seed)
+    g = np.asarray(np.random.default_rng(seed + 1).normal(size=(bh, s, hd)),
+                   np.float32)
+    return x, g
+
+
+@pytest.mark.parametrize("bh,s,hd,chunk", CHUNKED_GRAD_SHAPES)
+def test_chunked_plain_gradient_equals_sequential_in_fp64(bh, s, hd, chunk):
+    """The chunked form of the gradient (what the CUDA kernel computes) is
+    the sequential recurrence's VJP refactored: in fp64 all five outputs
+    agree with autograd through the oracle within 1e-10 of each output's
+    largest entry, and each is within its ``magnitudes=True`` sum of
+    |terms|."""
+    x, g = grad_inputs(bh, s, hd, 3 * bh + s)
+    t = [torch.from_numpy(a).double() for a in x + (g,)]
+    got = wkv_chunked_backward_chunked_plain(*t, chunk=chunk)
+    want = wkv_chunked_backward_plain(*t)
+    mag = wkv_chunked_backward_chunked_plain(*t, chunk=chunk,
+                                             magnitudes=True)
+    for name, a, b, m in zip(GRAD_NAMES, got, want, mag):
+        assert a.dtype == torch.float64 and a.shape == b.shape
+        scale = float(b.abs().max()) or 1.0
+        assert float((a - b).abs().max()) <= 1e-10 * scale, name
+        assert bool((m >= b.abs() * (1 - 1e-12)).all()), name
+        assert bool((m >= a.abs() * (1 - 1e-12)).all()), name
+
+
+@pytest.mark.parametrize("bh,s,hd,chunk", GRAD_SHAPES)
+def test_chunked_plain_gradient_allclose_jax_vjp_in_fp32(bh, s, hd, chunk):
+    """In fp32 the chunked form is within the reference's gradient gate
+    (``rtol=5e-3, atol=1e-4``) of ``jax.vjp`` of its oracle."""
+    x, g = grad_inputs(bh, s, hd, 5 * bh + s)
+    got = wkv_chunked_backward_chunked_plain(
+        *(torch.from_numpy(a) for a in x + (g,)), chunk=chunk)
+    want = jax_vjp(jref.wkv_chunk_ref, x, g)
+    for name, a, b in zip(GRAD_NAMES, got, want):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), b, rtol=5e-3, atol=1e-4,
+                                   err_msg=name)
+
+
+def test_dlog_decay_reverse_cumsum_identity_equals_the_direct_form():
+    """The chunked form takes dlw_t as Z + Σ_{s>t} r_s dr'_s − Σ_{s≥t}
+    k_s dk'_s inside each chunk (dr', dk' without their bonus terms, Z
+    = Σ_j G_out S_out at the chunk's end): in fp64 it equals the direct
+    ``w_t Σ_j G_t[i, j] S_{t-1}[i, j]``, G_t = dL/dS_t, over a row of
+    several chunks with a short last one."""
+    bh, s, hd, chunk = 2, 41, 8, 16
+    x, g = grad_inputs(bh, s, hd, 17)
+    r, k, v, lw, u, g = (torch.from_numpy(a).double() for a in x + (g,))
+    w = torch.exp(lw)
+    states, st = [], torch.zeros(bh, hd, hd, dtype=torch.float64)
+    for t in range(s):
+        states.append(st)                                # S_{t-1}
+        st = w[:, t, :, None] * st + k[:, t, :, None] * v[:, t, None, :]
+    direct = torch.zeros_like(lw)
+    gt = torch.zeros(bh, hd, hd, dtype=torch.float64)   # G_t = dL/dS_t
+    for t in range(s - 1, -1, -1):
+        direct[:, t] = w[:, t] * (gt * states[t]).sum(-1)
+        gt = w[:, t, :, None] * gt + r[:, t, :, None] * g[:, t, None, :]
+    got = wkv_chunked_backward_chunked_plain(r, k, v, lw, u, g,
+                                             chunk=chunk)[3]
+    torch.testing.assert_close(got, direct, rtol=1e-10, atol=1e-12)
+
+
+def test_cpu_op_keeps_no_states_and_its_gradient_is_the_plain_one():
+    """On CPU tensors the autograd op saves its five inputs only (no
+    kernel scratch) and its gradient is bitwise
+    ``wkv_chunked_backward_plain``'s; ``wkv_chunked_states`` gives the
+    plain output and no states, and the backward wrapper ignores
+    ``chunk`` and ``states`` there."""
+    x, g = grad_inputs(3, 21, 8, 23)
+    t = [torch.from_numpy(a).requires_grad_() for a in x]
+    out = ops.wkv_chunked_op(*t, chunk=8)
+    assert len(out.grad_fn.saved_tensors) == 5
+    got = torch.autograd.grad(out, t, torch.from_numpy(g))
+    want = wkv_chunked_backward_plain(*(a.detach() for a in t),
+                                      torch.from_numpy(g))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    plain = [a.detach() for a in t]
+    kept, states = wkv_chunked_states(*plain, chunk=8)
+    assert states is None
+    assert torch.equal(kept, wkv_chunked_plain(*plain, chunk=8))
+    again = wkv_chunked_backward(*plain, torch.from_numpy(g), chunk=4,
+                                 states=None)
+    for a, b in zip(again, want):
+        assert torch.equal(a, b)

@@ -235,6 +235,37 @@ Phases, each of which fails the run on error:
    device memory under the card's 80 GB; then one more step profiled
    (device busy, idle share, the WKV kernels' time, the WKV backward's
    device ms a step, the top operations).
+9. The dense decoder LMs and the RG-LRU hybrid at full width (after phase
+   8f has freed its memory), fp32 weights drawn on the card from seed 0,
+   TF32 off, each model freed before the next; none of the nine kernels is
+   on these paths (attention, RoPE, the MLPs and the RG-LRU are plain
+   PyTorch). (a) glm4-9b, 40 layers: the prefill at B = 4, S = 2,048 (the
+   chunked attention ``_mea``), its time and model-FLOP rate against 67
+   TFLOP/s; a 64-token prompt through ``decode_step`` ends at the
+   prefill's last logits within LM_LOGIT_TOL; a steady decode step against
+   reading the weights; ``ServeEngine(slots=4, max_seq=64)`` answers 8
+   greedy requests, all done; the weights rounded to bf16: the bf16
+   prefill against 989 TFLOP/s, the prompt through a bf16 decode_step
+   within twice the bf16 prefill's own error of the bf16 prefill and of the
+   fp32 one, a bf16 decode step's time; phase 7 profiles the bf16 prefill and a bf16 decode
+   step (busy, idle share, the attention core's share, the top
+   operations). (b) ``_mea`` against ``_sdpa`` within MEA_TOL at layer 0
+   of glm4-9b (B 4, S 2,048) and at gemma-2b-sw's head layout (B 1, S
+   8,192, window 4,096), each one's time and
+   ``F.scaled_dot_product_attention``'s as a yardstick (on no path). (c)
+   gemma-2b and gemma-2b-sw, 18 layers: bitwise equal at S = 2,048; at B =
+   1, S = 8,192 finite, equal below the window and different past it; with
+   the window set to 64, a 96-token prompt through the 64-row ring-buffer
+   cache ends at the windowed prefill within LM_LOGIT_TOL. (d) qwen3-32b
+   and qwen2.5-32b at full width, depth cut to 8 of 64 layers (131 GB of
+   fp32 weights each whole): the prefill at B = 1, S = 2,048, a 64-token
+   prompt through decode against it. (e) recurrentgemma-9b, 38 layers: the
+   prefill at B = 2, S = 4,096 (past the local window) with the RG-LRU
+   scan's share, a 64-token prompt through decode against it, 8 requests
+   through ServeEngine. (f) gemma-2b training, fp32, remat on, B = 1, S =
+   2,048: three ``make_train_step`` Adam steps on ``TokenStream`` batches,
+   finite losses, each step's time and model-FLOP rate, the peak device
+   memory under 80 GB. (g) no kernel launched in phase 9.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -400,6 +431,31 @@ LM_TRAIN_HELD_NUMEL = 1 << 23
 LM_TRAIN_UPDATE_REL_L2 = 1e-2
 LM_TRAIN_PEAK_PREDICTED_GB = (63.5, 65.0)     # PERF.md's prediction for 8f
 CARD_BYTES = 80e9
+# phase 9: the dense decoder LMs and the RG-LRU hybrid at full width, fp32
+# weights drawn on the card from seed 0, TF32 off. No kernel of the port is
+# on these paths: attention, RoPE, the MLPs and the RG-LRU are plain
+# PyTorch, as the reference computes them in plain jnp.
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 dense peak at 700 W
+# (a) glm4-9b at full width and depth, cut against the reference's
+# prefill_32k shape (B = 32, S = 32,768) to B = 4, S = 2,048, which takes
+# the chunked attention (_mea, from S = 2,048 on): the fp32 weights are
+# 37.6 GB and the prefill's full fp32 logits 5.0 GB
+DENSE_ARCH, DENSE_B, DENSE_S = "glm4-9b", 4, 2048
+# (b) _mea against _sdpa: the reference's gate for the pair
+# (tests/test_attention.py:27-28)
+MEA_TOL = dict(rtol=2e-4, atol=2e-5)
+SW_S = 8192          # (b), (c): gemma-2b-sw past its 4,096-token window
+# (c) the window-sized decode cache as a ring buffer: gemma-2b-sw at full
+# width with its window set to 64, a 96-token prompt
+RING_WINDOW, RING_PROMPT = 64, 96
+# (d) qwen3-32b and qwen2.5-32b at full width, 8 of their 64 layers: each
+# whole model is 131 GB of fp32 weights, more than the card's 80 GB
+QWEN_DEPTH, QWEN_B, QWEN_S = 8, 1, 2048
+# (e) recurrentgemma-9b at full width and depth, S past its 2,048 window
+HYBRID_ARCH, HYBRID_B, HYBRID_S = "recurrentgemma-9b", 2, 4096
+# (f) gemma-2b training at full width and depth, fp32, remat on (the
+# config's), against the reference's train_4k shape (B = 256, S = 4,096)
+GEMMA_TRAIN_B, GEMMA_TRAIN_S, GEMMA_TRAIN_STEPS = 1, 2048, 3
 
 # each kernel's pallas_call in the JAX package
 REPLACES = {
@@ -2169,12 +2225,13 @@ def run_lm(dev, rng):
         want = prefill_k(params, {"tokens": tok_b})
         torch.cuda.synchronize()
         windows["prefill_b"] = launch_counts()
-        cache = T.init_decode_cache(cfg, LM_B, device=dev,
+        cache = T.init_decode_cache(cfg, LM_B, n, device=dev,
                                     dtype=torch.float32)
         reset_counts()
         for t in range(n):
             logits, cache = T.decode_step(params, cfg, tok_b[:, t:t + 1],
-                                          cache)
+                                          cache, torch.full((LM_B,), t,
+                                                            device=dev))
         torch.cuda.synchronize()
         windows["decode"] = launch_counts()
         res["decode_max_abs_diff"] = max_abs_diff(logits[:, 0], want)
@@ -2182,7 +2239,8 @@ def run_lm(dev, rng):
         res["decode_argmax_agree"] = int(
             (logits[:, 0].argmax(-1) == want.argmax(-1)).sum())
         serve_step = make_serve_step(cfg)
-        step_batch = {"tokens": tok_b[:, -1:]}
+        step_batch = {"tokens": tok_b[:, -1:],
+                      "pos": torch.full((LM_B,), n - 1, device=dev)}
         res["decode_step_ms"] = time_ms(
             lambda: serve_step(params, cache, step_batch), reps=10,
             warmup=2)
@@ -2303,9 +2361,11 @@ def run_lm_bf16(params, cfg, prefill_k, prefill_p, batch, lk, tok_b, want,
     del lp16
     want16 = prefill_k(p16, {"tokens": tok_b})
     e_b = max_abs_diff(want16.float(), want)
-    cache = T.init_decode_cache(cfg, LM_B, device=dev, dtype=torch.bfloat16)
+    cache = T.init_decode_cache(cfg, LM_B, tok_b.shape[1], device=dev,
+                                dtype=torch.bfloat16)
     for t in range(tok_b.shape[1]):
-        logits, cache = T.decode_step(p16, cfg, tok_b[:, t:t + 1], cache)
+        logits, cache = T.decode_step(p16, cfg, tok_b[:, t:t + 1], cache,
+                                      torch.full((LM_B,), t, device=dev))
     torch.cuda.synchronize()
     got = logits[:, 0]
     res.update(bf16_decode_ref_err=e_b,
@@ -2564,6 +2624,612 @@ def run_lm_train(dev, card):
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+# ---------------------------------------------------------------------- #
+# phase 9: the dense decoder LMs and the RG-LRU hybrid at full width
+# ---------------------------------------------------------------------- #
+def release():
+    """Free what the last model left on the card."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def draw_lm(cfg, dev, label):
+    """``cfg``'s fp32 weights drawn on the card from a CUDA generator of
+    seed 0; returns ``(params, {"params", "param_bytes", "init_s"})``."""
+    import torch
+    from repro_torch.nn import transformer as T
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(device=dev)
+                           .manual_seed(0), device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    res = dict(params=T.count_params(params), init_s=time.perf_counter() - t0)
+    res["param_bytes"] = 4 * res["params"]
+    log(f"[phase {label}] {cfg.name} at full width ({cfg.num_layers} layers, "
+        f"d {cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, V {cfg.vocab_size}): "
+        f"{res['params']:,} fp32 parameters ({res['param_bytes'] / 1e9:.2f} "
+        f"GB) drawn on the card in {res['init_s']:.2f} s")
+    return params, res
+
+
+def finite_logits(x, shape, label):
+    import torch
+    if tuple(x.shape) != tuple(shape) or not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{label}: logits {tuple(x.shape)} (expected "
+                             f"{tuple(shape)}) or not finite")
+
+
+def timed_prefill(params, cfg, batch, label, card, reps=2, bf16=False):
+    """The main path's prefill once (its last logits checked), then its time
+    on CUDA events (``reps`` calls), its model-FLOP rate against the fp32
+    (bf16) peak and the peak device memory of the first call."""
+    import torch
+    from repro_torch.launch.specs import InputShape, model_flops
+    from repro_torch.launch.steps import make_prefill_step
+    prefill = make_prefill_step(cfg)
+    b, s = batch["tokens"].shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    last = prefill(params, batch)
+    torch.cuda.synchronize()
+    finite_logits(last, (b, cfg.vocab_size), f"{label} {cfg.name} prefill")
+    res = dict(prefill_peak_bytes=torch.cuda.max_memory_allocated(),
+               prefill_ms=time_ms(lambda: prefill(params, batch), reps=reps,
+                                  warmup=0),
+               prefill_flop=model_flops(cfg, InputShape("prefill", s, b,
+                                                        "prefill")))
+    res["prefill_tflops"] = res["prefill_flop"] / res["prefill_ms"] / 1e9
+    peak = BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S
+    log(f"[phase {label}] {cfg.name} {'bf16' if bf16 else 'fp32'} prefill "
+        f"B={b}, S={s}: {res['prefill_ms']:.1f} ms = "
+        f"{res['prefill_tflops']:.2f} TFLOP/s of model FLOPs "
+        f"({res['prefill_flop']:.4g}), {res['prefill_tflops'] * 1e12 / peak:.3f} "
+        f"of the {peak / 1e12:.0f} TFLOP/s {'bf16' if bf16 else 'fp32'} "
+        f"peak; peak memory {res['prefill_peak_bytes'] / 1e9:.2f} GB; {card}")
+    return last, res
+
+
+def decode_prompt(params, cfg, tok):
+    """The prompt ``tok`` (B, P) through ``decode_step`` from an empty cache
+    of P positions in the weights' dtype: ``(last logits (B, V), cache)``."""
+    import torch
+    from repro_torch.nn import transformer as T
+    b, n = tok.shape
+    cache = T.init_decode_cache(cfg, b, n, device=tok.device,
+                                dtype=params["embed"].dtype)
+    for t in range(n):
+        logits, cache = T.decode_step(params, cfg, tok[:, t:t + 1], cache,
+                                      torch.full((b,), t, device=tok.device))
+    return logits[:, 0], cache
+
+
+def decode_against_prefill(params, cfg, tok, label, card):
+    """A prompt through ``decode_step`` ends at the prefill's last logits of
+    that prompt within LM_LOGIT_TOL (fp32); then one steady decode step
+    (``make_serve_step`` at the prompt's last position) on CUDA events,
+    against reading the weights once. Returns ``(results, the prefill's
+    last logits)``."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.nn import transformer as T
+    want = make_prefill_step(cfg)(params, {"tokens": tok})
+    got, cache = decode_prompt(params, cfg, tok)
+    torch.cuda.synchronize()
+    res = dict(decode_max_abs_diff=max_abs_diff(got, want),
+               decode_argmax_agree=int((got.argmax(-1) == want.argmax(-1))
+                                       .sum()))
+    torch.testing.assert_close(got, want, **LM_LOGIT_TOL)
+    b, n = tok.shape
+    step = make_serve_step(cfg)
+    batch = {"tokens": tok[:, -1:],
+             "pos": torch.full((b,), n - 1, device=tok.device)}
+    res["decode_step_ms"] = time_ms(lambda: step(params, cache, batch),
+                                    reps=10, warmup=2)
+    nbytes = sum(t.numel() * t.element_size() for _, t in T.leaves(params))
+    res["decode_floor_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[phase {label}] {cfg.name}: {n} tokens through decode_step == the "
+        f"prefill's last logits within {LM_LOGIT_TOL} (max |diff| "
+        f"{res['decode_max_abs_diff']:.3g}, argmax agrees in "
+        f"{res['decode_argmax_agree']} of {b}); a steady decode step "
+        f"{res['decode_step_ms']:.3f} ms against the "
+        f"{res['decode_floor_ms']:.3f} ms of reading "
+        f"{nbytes / 1e9:.2f} GB of weights; {card}")
+    return res, want
+
+
+def serve_requests(cfg, params, rng, label):
+    """ServeEngine(slots=4, max_seq=64) answers LM_SERVE's 8 greedy
+    requests: all done, none truncated."""
+    import torch
+    from repro_torch.serving import ServeEngine
+    reqs = lm_requests(rng, cfg.vocab_size)
+    engine = ServeEngine(cfg, params, slots=LM_SERVE["slots"],
+                         max_seq=LM_SERVE["max_seq"])
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    res = dict(serve_s=time.perf_counter() - t0,
+               serve_tokens={r.request_id: r.output for r in reqs})
+    for r in reqs:
+        if not (r.done and not r.truncated and
+                len(r.output) == LM_SERVE["new_tokens"] and
+                all(0 <= x < cfg.vocab_size for x in r.output)):
+            raise AssertionError(f"{cfg.name} request {r.request_id}: "
+                                 f"done={r.done}, truncated={r.truncated}, "
+                                 f"{r.output}")
+    log(f"[phase {label}] {cfg.name} ServeEngine(slots={LM_SERVE['slots']}, "
+        f"max_seq={LM_SERVE['max_seq']}): {len(reqs)} requests (prompts "
+        f"{sorted(len(r.prompt) for r in reqs)} tokens) all done, none "
+        f"truncated, {LM_SERVE['new_tokens']} tokens each, in "
+        f"{res['serve_s']:.2f} s; request 0 -> {reqs[0].output}")
+    return res
+
+
+def mea_against_sdpa(q, k, v, window, label, card):
+    """Phase 9b: ``_mea`` (the chunked online softmax of the prefill from
+    S = 2,048 on) against ``_sdpa`` (the whole score matrix) on the same
+    causal q, k, v, at the reference's gate MEA_TOL; each one's time, and
+    ``F.scaled_dot_product_attention`` of the same function (k and v
+    repeated to every query head, the mask given) timed once as a
+    yardstick: it is on no path of the port."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.nn import attention as A
+    b, s, h, hd = q.shape
+    mask = A.causal_mask(s, s, window, device=q.device)
+    got = A._mea(q, k, v, causal=True, window=window)
+    want = A._sdpa(q, k, v, mask)
+    torch.cuda.synchronize()
+    res = dict(max_abs_err=max_abs_diff(got, want), gate_share=float(
+        ((got - want).abs() / (MEA_TOL["atol"] + MEA_TOL["rtol"]
+                               * want.abs())).max()))
+    torch.testing.assert_close(got, want, **MEA_TOL)
+    del got, want
+    res["mea_ms"] = time_ms(lambda: A._mea(q, k, v, causal=True,
+                                           window=window), reps=3, warmup=1)
+    res["sdpa_ms"] = time_ms(lambda: A._sdpa(q, k, v, mask), reps=3,
+                             warmup=1)
+    group = h // k.shape[2]
+    qh = q.transpose(1, 2)
+    kh, vh = (t.repeat_interleave(group, dim=2).transpose(1, 2)
+              for t in (k, v))
+
+    def library():
+        if window is None:
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        return F.scaled_dot_product_attention(qh, kh, vh,
+                                              attn_mask=mask[0, 0])
+    res["library_ms"] = time_ms(library, reps=3, warmup=1)
+    log(f"[phase 9b] {label} (B={b}, S={s}, {h} heads / {k.shape[2]} kv of "
+        f"{hd}, window {window}): _mea == _sdpa within {MEA_TOL} (max |diff| "
+        f"{res['max_abs_err']:.3g}, {res['gate_share']:.3g} of the gate); "
+        f"_mea {res['mea_ms']:.2f} ms, _sdpa {res['sdpa_ms']:.2f} ms, "
+        f"F.scaled_dot_product_attention (a yardstick, on no path) "
+        f"{res['library_ms']:.2f} ms; {card}")
+    return res
+
+
+def layer0_qkv(params, cfg, tok):
+    """Layer 0's roped q, k, v of ``tok``, as its attention computes them."""
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.layers import apply_rope, rmsnorm
+    lp = T.layer_params(params["groups"][0], 0)
+    x = rmsnorm(lp["norm1"], T.embed_tokens(params, cfg, tok))
+    q, k, v = A._project_qkv(lp["attn"], x, cfg.num_heads, cfg.num_kv_heads,
+                             cfg.resolved_head_dim)
+    pos = T.default_positions(cfg, tok)
+    return (apply_rope(q, pos, cfg.rope_base),
+            apply_rope(k, pos, cfg.rope_base), v)
+
+
+def profile_dense_bf16(p16, cfg, batch, decode, cache):
+    """Phase 7 for the dense path: one glm4-9b bf16 prefill and one steady
+    bf16 decode step — host time, device busy, the idle share, the top
+    device operations and attention's share of the busy time. The
+    attention core runs the same GEMM and elementwise kernels as the rest
+    of the step, so its share is taken from one layer's core (the prefill's
+    ``_mea`` on layer 0's q, k, v; the decode step's cache write, mask and
+    ``_sdpa`` over the cache) profiled alone, times the layers."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.nn import attention as A
+    prefill = make_prefill_step(cfg)
+    out = {}
+    w = profiled(lambda: prefill(p16, batch), 1, host=False)
+    q, k, v = layer0_qkv(p16, cfg, batch["tokens"])
+    core = profiled(lambda: A._mea(q, k, v, causal=True, window=None), 1,
+                    host=False)["busy_us"] * cfg.num_layers
+    del q, k, v
+    top = sorted(w["by_name"].items(), key=lambda kv: -kv[1])[:8]
+    out["glm4_prefill_bf16"] = dict(
+        step_ms=w["wall_us"] / 1e3, device_ms_per_step=w["busy_us"] / 1e3,
+        idle_share=1.0 - w["busy_us"] / w["wall_us"],
+        device_events=w["count"], attention_ms=core / 1e3,
+        attention_share=core / w["busy_us"],
+        top_device_ms_per_step={n: t / 1e3 for n, t in top})
+    step, step_batch = decode
+    p = step_profile(lambda: step(p16, cache, step_batch))
+    kc = cache["groups"][0]["attn"]["k"][0].clone()
+    vc = cache["groups"][0]["attn"]["v"][0].clone()
+    b, rows, kv, hd = kc.shape
+    gen = torch.Generator(device=kc.device).manual_seed(0)
+    q1 = torch.randn((b, 1, cfg.num_heads, hd), generator=gen,
+                     device=kc.device).to(kc.dtype)
+    k1, v1 = (torch.randn((b, 1, kv, hd), generator=gen, device=kc.device)
+              .to(kc.dtype) for _ in range(2))
+    pos = step_batch["pos"]
+
+    def decode_core():
+        A._ring_write(kc, k1, pos)
+        A._ring_write(vc, v1, pos)
+        valid = A.ring_valid(rows, pos)
+        return A._sdpa(q1, kc, vc, valid[:, None, None, :])
+    core = profiled(decode_core, 1, host=False)["busy_us"] * cfg.num_layers
+    p.update(attention_ms=core / 1e3,
+             attention_share=core / 1e3 / p["device_ms_per_step"])
+    out["glm4_decode_step_bf16"] = p
+    return out
+
+
+def run_glm4(dev, rng, card):
+    """Phase 9a (and 9b at one of its layers): glm4-9b at full width and
+    depth, fp32. The prefill at B = 4, S = 2,048 (the _mea branch): its time
+    and model-FLOP rate against 67 TFLOP/s; layer 0's attention, _mea
+    against _sdpa (9b); a 64-token prompt through decode_step ends at the
+    prefill's last logits; a steady decode step against reading the
+    weights; ServeEngine answers 8 greedy requests. Then the weights
+    rounded to bf16: the bf16 prefill's time against 989 TFLOP/s, the
+    prompt through a bf16 decode_step within 2 e_b of the bf16 prefill of
+    the prompt and of the fp32 one, e_b the bf16 prefill's own error (its
+    largest |bf16 - fp32| logit): phase 8e holds rwkv6-3b's bf16 decode
+    within e_b of its bf16 prefill, but glm4-9b's reads 1.03 e_b there
+    (0.015625 against 0.01522, NVIDIA H100 80GB HBM3, 700.00 W), its own
+    bf16 error being 1.11 e_b: the decode rounds the outputs of 4-row GEMMs
+    where the prefill rounds 256-row ones. A bf16 decode step's time. Returns (results, phase 7's
+    profiles)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.nn import transformer as T
+    cfg = get_arch(DENSE_ARCH)
+    params, res = draw_lm(cfg, dev, "9a")
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (DENSE_B, DENSE_S))).to(dev)
+    batch = {"tokens": tok}
+    tok_b = tok[:, :LM_DECODE_PROMPT].contiguous()
+    with torch.inference_mode():
+        last, r = timed_prefill(params, cfg, batch, "9a", card)
+        res.update(r)
+        res["mea_layer0"] = mea_against_sdpa(
+            *layer0_qkv(params, cfg, tok), None,
+            f"{cfg.name} layer 0's q, k, v", card)
+        release()
+        r, want = decode_against_prefill(params, cfg, tok_b, "9a", card)
+        res.update(r)
+    res.update(serve_requests(cfg, params, rng, "9a"))
+    p16 = T.map_tree(params, lambda t: t.to(torch.bfloat16))
+    with torch.inference_mode():
+        last16, r = timed_prefill(p16, cfg, batch, "9a", card, reps=3,
+                                  bf16=True)
+        res.update({f"bf16_{k}": v for k, v in r.items()})
+        if last16.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 prefill logits are {last16.dtype}")
+        res["bf16_prefill_vs_fp32"] = max_abs_diff(last16.float(), last)
+        res["bf16_prefill_argmax_agree"] = int(
+            (last16.argmax(-1) == last.argmax(-1)).sum())
+        want16 = make_prefill_step(cfg)(p16, {"tokens": tok_b})
+        e_b = max_abs_diff(want16.float(), want)
+        got16, cache16 = decode_prompt(p16, cfg, tok_b)
+        torch.cuda.synchronize()
+        # the two bf16 runs round the outputs of other GEMM shapes (4 rows
+        # a step against the prompt's 256), so each carries a bf16 error of
+        # its own: they are held within twice the prefill's, as each is
+        # held within twice it of the fp32 prefill
+        gap = (got16.double() - want16.double()).abs()
+        res.update(bf16_decode_ref_err=e_b,
+                   bf16_decode_vs_prefill=max_abs_diff(got16.float(),
+                                                       want16.float()),
+                   bf16_decode_over_ref_err=int((gap > e_b).sum()),
+                   bf16_decode_vs_fp32=max_abs_diff(got16.float(), want))
+        if not (got16.dtype == torch.bfloat16 and
+                res["bf16_decode_vs_prefill"] <= 2 * e_b and
+                res["bf16_decode_vs_fp32"] <= 2 * e_b):
+            raise AssertionError(
+                f"bf16 decode: {got16.dtype}, |decode - bf16 prefill| "
+                f"{res['bf16_decode_vs_prefill']}, |decode - fp32| "
+                f"{res['bf16_decode_vs_fp32']}, the prefill's bf16 error "
+                f"{e_b}")
+        step = make_serve_step(cfg)
+        step_batch = {"tokens": tok_b[:, -1:],
+                      "pos": torch.full((DENSE_B,), LM_DECODE_PROMPT - 1,
+                                        device=dev)}
+        res["bf16_decode_step_ms"] = time_ms(
+            lambda: step(p16, cache16, step_batch), reps=10, warmup=2)
+        res["bf16_decode_floor_ms"] = (res["param_bytes"] / 2
+                                       / HBM_BYTES_PER_S * 1e3)
+        log(f"[phase 9a] bf16: prefill vs the fp32 run "
+            f"{res['bf16_prefill_vs_fp32']:.4g} (argmax agrees in "
+            f"{res['bf16_prefill_argmax_agree']} of {DENSE_B}); "
+            f"{LM_DECODE_PROMPT} tokens through decode_step vs the bf16 "
+            f"prefill {res['bf16_decode_vs_prefill']:.4g} <= twice its bf16 "
+            f"error {e_b:.4g} (above it at "
+            f"{res['bf16_decode_over_ref_err']} of {got16.numel()} logits), "
+            f"vs the fp32 prefill {res['bf16_decode_vs_fp32']:.4g} <= "
+            f"{2 * e_b:.4g}; a steady bf16 decode step "
+            f"{res['bf16_decode_step_ms']:.3f} ms against the "
+            f"{res['bf16_decode_floor_ms']:.3f} ms of reading the weights; "
+            f"{card}")
+        del params, last, want
+        release()
+        profiles = profile_dense_bf16(p16, cfg, batch, (step, step_batch),
+                                      cache16)
+    for label, p in profiles.items():
+        log(f"[phase 7] {label}: {p['step_ms']:.3f} ms, device busy "
+            f"{p['device_ms_per_step']:.3f} ms, idle share "
+            f"{p['idle_share']:.3f}, attention core {p['attention_ms']:.3f} "
+            f"ms = {p['attention_share']:.3f} of device busy; top "
+            f"{p['top_device_ms_per_step']}; {card}")
+    return res, profiles
+
+
+def run_mea_sliding(dev, card):
+    """Phase 9b at gemma-2b-sw's head layout (8 heads, kv 1, hd 256), B = 1,
+    S = 8,192 with its 4,096-token window, on q, k, v drawn from a CUDA
+    generator."""
+    import torch
+    from repro_torch.configs import get_arch
+    cfg = get_arch("gemma-2b-sw")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hd = cfg.resolved_head_dim
+    q = torch.randn((1, SW_S, cfg.num_heads, hd), generator=gen, device=dev)
+    k, v = (torch.randn((1, SW_S, cfg.num_kv_heads, hd), generator=gen,
+                        device=dev) for _ in range(2))
+    with torch.inference_mode():
+        return mea_against_sdpa(q, k, v, cfg.sliding_window,
+                                f"{cfg.name}'s head layout", card)
+
+
+def run_gemma(dev, rng, card):
+    """Phase 9c: gemma-2b and gemma-2b-sw at full width and depth, fp32, on
+    the same weights. At S = 2,048 the window is not reached: the two
+    forwards' logits are bitwise equal. At B = 1, S = 8,192 both are finite,
+    the first 4,096 positions' logits bitwise equal (their queries' blocks
+    see the same keys) and the rest differ. Then the ring buffer: with the
+    window set to 64, a 96-token prompt through decode_step's 64-row cache
+    ends at the windowed prefill's last logits within LM_LOGIT_TOL."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.nn import transformer as T
+    cfg, sw = get_arch("gemma-2b"), get_arch("gemma-2b-sw")
+    params, res = draw_lm(cfg, dev, "9c")
+    with torch.inference_mode():
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (2, DENSE_S))).to(dev)
+        full, full_sw = (T.forward(params, c, tok) for c in (cfg, sw))
+        finite_logits(full, (2, DENSE_S, cfg.vocab_size), "gemma-2b")
+        if not torch.equal(full, full_sw):
+            raise AssertionError(f"gemma-2b-sw at S={DENSE_S} is not gemma-2b "
+                                 f"bitwise: {max_abs_diff(full_sw, full)}")
+        del full, full_sw
+        release()
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (1, SW_S))).to(dev)
+        full, full_sw = (T.forward(params, c, tok) for c in (cfg, sw))
+        for name, x in (("gemma-2b", full), ("gemma-2b-sw", full_sw)):
+            finite_logits(x, (1, SW_S, cfg.vocab_size), f"{name} S={SW_S}")
+        w = sw.sliding_window
+        res.update(long_head_bitwise=bool(torch.equal(full[:, :w],
+                                                      full_sw[:, :w])),
+                   long_tail_max_abs_diff=max_abs_diff(full[:, w:],
+                                                       full_sw[:, w:]))
+        if not (res["long_head_bitwise"] and res["long_tail_max_abs_diff"]
+                > 0):
+            raise AssertionError(f"S={SW_S}: positions below the window "
+                                 f"bitwise {res['long_head_bitwise']}, past "
+                                 f"it max |diff| "
+                                 f"{res['long_tail_max_abs_diff']}")
+        del full, full_sw
+        release()
+        batch = {"tokens": tok}
+        res["sw_prefill_ms"] = time_ms(
+            lambda: make_prefill_step(sw)(params, batch), reps=2, warmup=1)
+        log(f"[phase 9c] gemma-2b-sw == gemma-2b bitwise at B=2, S={DENSE_S} "
+            f"(the window not reached); at B=1, S={SW_S} both finite, the "
+            f"first {w} positions bitwise, past them max |diff| "
+            f"{res['long_tail_max_abs_diff']:.4g}; the windowed prefill "
+            f"{res['sw_prefill_ms']:.1f} ms; {card}")
+        ring = dataclasses.replace(sw, sliding_window=RING_WINDOW)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (2, RING_PROMPT))).to(dev)
+        want = make_prefill_step(ring)(params, {"tokens": tok})
+        unwindowed = make_prefill_step(cfg)(params, {"tokens": tok})
+        got, cache = decode_prompt(params, ring, tok)
+        rows = cache["groups"][0]["attn"]["k"].shape[2]
+        res.update(ring_rows=rows, ring_max_abs_diff=max_abs_diff(got, want),
+                   ring_window_matters=max_abs_diff(unwindowed, want))
+        if rows != RING_WINDOW:
+            raise AssertionError(f"the windowed cache has {rows} rows")
+        torch.testing.assert_close(got, want, **LM_LOGIT_TOL)
+        log(f"[phase 9c] ring buffer: window {RING_WINDOW}, {RING_PROMPT} "
+            f"tokens through decode_step's {rows}-row cache == the windowed "
+            f"prefill's last logits within {LM_LOGIT_TOL} (max |diff| "
+            f"{res['ring_max_abs_diff']:.3g}; the unwindowed prefill is "
+            f"{res['ring_window_matters']:.3g} away); {card}")
+    del params
+    release()
+    return res
+
+
+def run_qwen(dev, rng, card):
+    """Phase 9d: qwen3-32b (qk-norm) and qwen2.5-32b (the QKV bias) at full
+    width with 8 of their 64 layers (rope_base 1e6): the prefill at B = 1,
+    S = 2,048, and a 64-token prompt through decode_step against the
+    prefill of that prompt."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    out = {}
+    for name in ("qwen3-32b", "qwen2.5-32b"):
+        cfg = dataclasses.replace(get_arch(name), num_layers=QWEN_DEPTH)
+        params, res = draw_lm(cfg, dev, "9d")
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (QWEN_B, QWEN_S))).to(dev)
+        with torch.inference_mode():
+            _, r = timed_prefill(params, cfg, {"tokens": tok}, "9d", card)
+            res.update(r)
+            r, _ = decode_against_prefill(
+                params, cfg, tok[:, :LM_DECODE_PROMPT].contiguous(), "9d",
+                card)
+            res.update(r)
+        out[name] = res
+        del params
+        release()
+    return out
+
+
+def run_hybrid(dev, rng, card):
+    """Phase 9e: recurrentgemma-9b at full width and depth (12 x (rec, rec,
+    attn), then rec, rec; local window 2,048), fp32. The prefill at B = 2,
+    S = 4,096, so that the window applies: its time and model-FLOP rate, and
+    the RG-LRU scan's share (one layer's ``lru_scan`` at the prefill's
+    shape on CUDA events, times the 26 recurrent layers); a 64-token prompt
+    through decode_step against the prefill of that prompt; ServeEngine
+    answers 8 greedy requests."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.nn import recurrent as rec
+    from repro_torch.nn import transformer as T
+    cfg = get_arch(HYBRID_ARCH)
+    params, res = draw_lm(cfg, dev, "9e")
+    n_rec = sum(n * (sum(k == "rec" for k in cfg.hybrid_pattern)
+                     if kind == "pattern" else kind == "rec")
+                for kind, n, _ in T.stack_plan(cfg))
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (HYBRID_B, HYBRID_S))).to(dev)
+    with torch.inference_mode():
+        _, r = timed_prefill(params, cfg, {"tokens": tok}, "9e", card,
+                             reps=1)
+        res.update(r)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        shape = (HYBRID_B, HYBRID_S, cfg.lru_width)
+        a = torch.rand(shape, generator=gen, device=dev)
+        v = torch.randn(shape, generator=gen, device=dev)
+        res["scan_ms"] = time_ms(lambda: rec.lru_scan(a, v), reps=2,
+                                 warmup=1)
+        del a, v
+        res.update(recurrent_layers=n_rec, scan_share=n_rec * res["scan_ms"]
+                   / res["prefill_ms"])
+        log(f"[phase 9e] the RG-LRU scan ({HYBRID_S} steps of a (B={HYBRID_B}"
+            f", w={cfg.lru_width}) state, two kernels a step): "
+            f"{res['scan_ms']:.1f} ms a layer, x {n_rec} recurrent layers = "
+            f"{res['scan_share']:.3f} of the prefill's "
+            f"{res['prefill_ms']:.1f} ms; {card}")
+        r, _ = decode_against_prefill(
+            params, cfg, tok[:, :LM_DECODE_PROMPT].contiguous(), "9e", card)
+        res.update(r)
+    res.update(serve_requests(cfg, params, rng, "9e"))
+    del params
+    release()
+    return res
+
+
+def run_gemma_train(dev, card):
+    """Phase 9f: gemma-2b training at full width and depth, fp32 weights
+    drawn on the card (seed 0), remat on (the config's): GEMMA_TRAIN_STEPS
+    ``make_train_step`` Adam steps on ``TokenStream`` batches at B = 1,
+    S = 2,048, finite losses, each step's time on CUDA events and its
+    model-FLOP rate against 67 TFLOP/s, and the peak device memory, under
+    the card's 80 GB."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.specs import InputShape, model_flops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.nn import transformer as T
+    from repro_torch.training.optimizer import adam
+    cfg = get_arch("gemma-2b")
+    if not cfg.remat:
+        raise AssertionError("gemma-2b: remat is off")
+    params, res = draw_lm(cfg, dev, "9f")
+    optimizer = adam(LM_TRAIN_LR)
+    opt_state = optimizer.init(dict(T.leaves(params)))
+    step = make_train_step(cfg, optimizer)
+    stream = TokenStream(cfg.vocab_size, GEMMA_TRAIN_B, GEMMA_TRAIN_S, seed=0)
+    flop = model_flops(cfg, InputShape("train", GEMMA_TRAIN_S,
+                                       GEMMA_TRAIN_B, "train"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(GEMMA_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(stream).items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, m = step(params, opt_state, batch)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        steps.append(dict(loss=float(m["loss"]), ms=ms,
+                          tflops=flop / ms / 1e9))
+        if not np.isfinite(steps[-1]["loss"]):
+            raise AssertionError(f"phase 9f step {i}: loss "
+                                 f"{steps[-1]['loss']}")
+        log(f"[phase 9f] gemma-2b step {i}: loss {steps[-1]['loss']:.6f}, "
+            f"{ms:.1f} ms = {steps[-1]['tflops']:.2f} TFLOP/s of model FLOPs "
+            f"({flop:.4g} a step), {steps[-1]['tflops'] / 67:.3f} of the 67 "
+            f"TFLOP/s fp32 peak; {card}")
+    peak = torch.cuda.max_memory_allocated()
+    if int(opt_state.step) != GEMMA_TRAIN_STEPS or peak >= CARD_BYTES:
+        raise AssertionError(f"phase 9f: optimizer step "
+                             f"{int(opt_state.step)}, peak {peak} bytes")
+    res.update(steps=steps, flop_per_step=flop, peak_bytes=peak)
+    log(f"[phase 9f] {GEMMA_TRAIN_STEPS} steps at B={GEMMA_TRAIN_B}, "
+        f"S={GEMMA_TRAIN_S}: losses {[round(x['loss'], 6) for x in steps]}; "
+        f"peak device memory {peak / 1e9:.2f} GB (parameters "
+        f"{res['param_bytes'] / 1e9:.2f} GB, with gradients and two moments "
+        f"{4 * res['param_bytes'] / 1e9:.2f} GB) of the card's "
+        f"{CARD_BYTES / 1e9:.0f} GB; {card}")
+    del params, opt_state, step
+    release()
+    return res
+
+
+def run_lm9(dev, rng, card):
+    """Phase 9, after phase 8f has freed its memory: (a) glm4-9b, (b) _mea
+    against _sdpa, (c) gemma-2b and gemma-2b-sw, (d) the two 32B archs at
+    depth 8, (e) recurrentgemma-9b, (f) gemma-2b training, each model freed
+    before the next is drawn; (g) none of the nine kernels is launched in
+    all of it. Returns (results, phase 7's profiles of 9a)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    release()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = {}
+    res["glm4"], profiles = run_glm4(dev, rng, card)
+    release()
+    res["mea_sliding"] = run_mea_sliding(dev, card)
+    release()
+    res["gemma"] = run_gemma(dev, rng, card)
+    res["qwen"] = run_qwen(dev, rng, card)
+    res["hybrid"] = run_hybrid(dev, rng, card)
+    res["gemma_train"] = run_gemma_train(dev, card)
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"phase 9 launched kernels: {counts}")
+    res.update(launches=counts, seconds=time.perf_counter() - t0)
+    log(f"[phase 9g] no kernel launched in phase 9 ({res['seconds']:.1f} s): "
+        f"{counts}")
+    return res, profiles
 
 
 # ---------------------------------------------------------------------- #
@@ -4038,6 +4704,10 @@ def main() -> int:
     lm_train = run_lm_train(dev, card)
     lm_train_launches = {n: sum(st["launches"][n] for st in lm_train["steps"])
                          for n in KERNELS}
+    # phase 9: the dense decoder LMs and the hybrid at full width; counts
+    # reset before and read after the whole phase, which launches none
+    lm9, profiles9 = run_lm9(dev, rng, card)
+    profiles.update(profiles9)
 
     kernels = []
     # each kernel's head shape: the mini-batch path's where it runs there
@@ -4066,7 +4736,8 @@ def main() -> int:
                        spmd["resume_int8"]["launches"][name],
                    "audit": spmd["audit"]["launches"][name],
                    "lm": lm_launches[name],
-                   "lm_train": lm_train_launches[name]}
+                   "lm_train": lm_train_launches[name],
+                   "lm_dense_hybrid": lm9["launches"][name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),
@@ -4118,7 +4789,7 @@ def main() -> int:
                        "resume": resume,
                        "citation2": c2, "spmd": spmd,
                        "embedding_max_abs_diff": emb_err,
-                       "lm": lm, "lm_train": lm_train,
+                       "lm": lm, "lm_train": lm_train, "lm9": lm9,
                        "profile": profiles,
                        "total_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"[profiler] {WINDOWS['taken']} windows, {WINDOWS['incomplete']} "

@@ -1,25 +1,32 @@
 """Configurations (port of ``repro/configs/__init__.py``): the LM
 architecture registry and the paper's RGCN link-prediction configurations
-(§4.4). Of the ten assigned LM architectures the port runs ``rwkv6-3b``;
-asking for another raises ``NotImplementedError`` naming its ROADMAP item
+(§4.4). Of the ten assigned LM architectures (and gemma-2b's long-context
+variant) the port runs the dense ones (glm4-9b, qwen3-32b, qwen2.5-32b,
+gemma-2b, gemma-2b-sw), ``rwkv6-3b`` and ``recurrentgemma-9b``; asking
+for another raises ``NotImplementedError`` naming its ROADMAP item
 (``repro_torch.roadmap``)."""
 from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.configs.gemma_2b import ARCH as GEMMA_2B
+from repro_torch.configs.gemma_2b import ARCH_LONG as GEMMA_2B_SW
+from repro_torch.configs.glm4_9b import ARCH as GLM4_9B
+from repro_torch.configs.qwen2_5_32b import ARCH as QWEN2_5_32B
+from repro_torch.configs.qwen3_32b import ARCH as QWEN3_32B
+from repro_torch.configs.recurrentgemma_9b import ARCH as RECURRENTGEMMA_9B
 from repro_torch.configs.rwkv6_3b import ARCH as RWKV6_3B
 from repro_torch.nn.transformer import ArchConfig
 from repro_torch.roadmap import not_ported
 from repro_torch.training.trainer import TrainConfig
 
-ARCHS: Dict[str, ArchConfig] = {RWKV6_3B.name: RWKV6_3B}
+ARCHS: Dict[str, ArchConfig] = {
+    a.name: a for a in [GLM4_9B, QWEN3_32B, QWEN2_5_32B, GEMMA_2B,
+                        GEMMA_2B_SW, RWKV6_3B, RECURRENTGEMMA_9B]}
 
 # the reference's other architectures and the ROADMAP item each waits for
 UNPORTED: Dict[str, str] = {
-    "glm4-9b": "attention", "qwen3-32b": "attention",
-    "qwen2.5-32b": "attention", "gemma-2b": "attention",
-    "gemma-2b-sw": "attention", "whisper-large-v3": "multimodal",
-    "qwen2-vl-7b": "multimodal", "recurrentgemma-9b": "rglru",
+    "whisper-large-v3": "multimodal", "qwen2-vl-7b": "multimodal",
     "arctic-480b": "moe", "deepseek-v2-lite-16b": "moe",
 }
 

@@ -1,5 +1,6 @@
 """Analytic model FLOPs of the LM substrate (port of
-``repro/launch/specs.py:27-145``: ``InputShape`` and ``model_flops``).
+``repro/launch/specs.py:27-158``: ``InputShape``, ``model_flops`` and
+``_attention_layer_count``).
 
 Parameter counts come from the port's own parameter shapes, made on the
 ``meta`` device (nothing is allocated).
@@ -9,7 +10,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-from repro_torch.nn.transformer import ArchConfig, init_params, leaves
+from repro_torch.nn.transformer import (
+    ArchConfig, init_params, leaves, stack_plan,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,13 +40,35 @@ def _param_counts(cfg: ArchConfig) -> Tuple[float, float]:
 
 def model_flops(cfg: ArchConfig, shape: InputShape) -> float:
     """Analytic useful FLOPs per step: ``6·N_active·tokens`` (train),
-    ``2·N_active·tokens`` (prefill), ``2·N_active·B`` (decode). The
-    reference's attention terms are zero for every architecture the port
-    runs (RWKV has no attention layers)."""
+    ``2·N_active·tokens`` (prefill), ``2·N_active·B`` (decode), plus the
+    attention terms of the reference: the causal half of the ``S²``
+    scores and values per attention layer in training and prefill (the
+    window is not counted there), and in decode the product over the
+    ``min(S, sliding_window)`` cached keys (the hybrid's local window is
+    not counted either, as in the reference)."""
     _, active = _param_counts(cfg)
     b, s = shape.global_batch, shape.seq_len
+    hd = cfg.resolved_head_dim
+    attn_layers = _attention_layer_count(cfg)
     if shape.mode == "train":
-        return 6.0 * active * b * s
+        flops = 6.0 * active * b * s
+        flops += 6.0 * b * s * s * cfg.num_heads * hd * attn_layers * 0.5
+        return flops
     if shape.mode == "prefill":
-        return 2.0 * active * b * s
-    return 2.0 * active * b
+        return (2.0 * active * b * s +
+                2.0 * b * s * s * cfg.num_heads * hd * attn_layers * 0.5)
+    window = cfg.sliding_window or s
+    kv_len = min(s, window)
+    return (2.0 * active * b +
+            4.0 * b * kv_len * cfg.num_heads * hd * attn_layers)
+
+
+def _attention_layer_count(cfg: ArchConfig) -> int:
+    """The stack's attention layers (a hybrid's ``attn`` blocks)."""
+    n = 0
+    for kind, cnt, _ in stack_plan(cfg):
+        if kind == "pattern":
+            n += cnt * sum(1 for k in cfg.hybrid_pattern if k == "attn")
+        elif kind in ("dense", "moe", "dec", "enc"):
+            n += cnt
+    return n

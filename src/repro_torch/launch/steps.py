@@ -3,8 +3,9 @@
 ``loss_and_grads`` — the loss, its aux and every leaf's gradient.
 ``train_step`` — those, then one optimizer step, in place.
 ``prefill_step`` — the full-sequence forward (inference prefill) → the
-last position's logits. ``serve_step`` — ONE new token against the
-recurrent state, greedy-sampled (argmax, the first index on ties).
+last position's logits. ``serve_step`` — ONE new token at ``batch["pos"]``
+against the KV cache and recurrent state, greedy-sampled (argmax, the
+first index on ties).
 """
 from __future__ import annotations
 
@@ -59,7 +60,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer) -> Callable:
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     def prefill_step(params: PyTree, batch: Dict[str, torch.Tensor]
                      ) -> torch.Tensor:
-        last_logits, _ = prefill(params, cfg, batch["tokens"])
+        last_logits, _ = prefill(params, cfg, batch["tokens"],
+                                 positions=batch.get("positions"))
         return last_logits
     return prefill_step
 
@@ -68,6 +70,7 @@ def make_serve_step(cfg: ArchConfig) -> Callable:
     def serve_step(params: PyTree, cache: PyTree,
                    batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, PyTree]:
-        logits, cache = decode_step(params, cfg, batch["tokens"], cache)
+        logits, cache = decode_step(params, cfg, batch["tokens"], cache,
+                                    batch["pos"])
         return torch.argmax(logits[:, -1], dim=-1), cache
     return serve_step

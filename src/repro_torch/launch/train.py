@@ -14,10 +14,11 @@ rgcn-citation2`` trains the ogbl-citation2 stand-in in feature mode
 (128-d input features, edge mini-batches of 4,096 unless ``--batch-size``
 says otherwise; a sharded or int8 table is refused, as the reference
 refuses it). Every other ``--arch`` trains the LM (:func:`train_lm`):
-``rwkv6-3b`` reduced (``--reduced`` is always on, as in the reference),
-``--steps`` Adam steps of ``--batch`` x ``--seq`` ``TokenStream`` tokens;
-the architectures the port has not reached raise ``NotImplementedError``
-naming their ROADMAP item. The flags are the reference's, plus
+any ported architecture (the dense ones, ``rwkv6-3b``,
+``recurrentgemma-9b``) reduced (``--reduced`` is always on, as in the
+reference), ``--steps`` Adam steps of ``--batch`` x ``--seq``
+``TokenStream`` tokens; the architectures the port has not reached raise
+``NotImplementedError`` naming their ROADMAP item. The flags are the reference's, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions).
 
 Under ``torchrun`` every rank runs this module: it joins the process group

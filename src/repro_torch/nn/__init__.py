@@ -1,4 +1,5 @@
-"""The LM substrate (port of ``repro.nn``, the RWKV-6 subset)."""
+"""The LM substrate (port of ``repro.nn``: the dense, RWKV-6 and RG-LRU
+hybrid families)."""
 from repro_torch.nn.transformer import (
     ArchConfig, count_params, decode_step, forward, init_decode_cache,
     init_params, loss_fn, prefill, stack_plan,

@@ -1,6 +1,7 @@
-"""RWKV-6 "Finch" time mixing (port of the RWKV half of
-``repro/nn/recurrent.py``): token shift, the data-dependent decay and the
-WKV recurrence.
+"""The recurrent layers of the LM substrate (port of
+``repro/nn/recurrent.py``): RWKV-6 "Finch" time mixing (token shift, the
+data-dependent decay and the WKV recurrence), and the RG-LRU of
+RecurrentGemma / Griffin (:func:`rglru_apply`, :func:`rglru_decode`).
 
 Three forms of the full-sequence time mix, one semantics, each the others'
 plain version; they differ only in how the WKV core runs over the
@@ -16,6 +17,9 @@ plain version; they differ only in how the WKV core runs over the
 Decoding is the single-step recurrence with explicit state
 (:func:`rwkv_decode`). As in the reference, ``ln_x`` is an RMSNorm over all
 of d and the token-shift interpolation is the "lite" ddlerp (static ``mu``).
+
+The RG-LRU has no kernel: its scan is a loop over the sequence in plain
+PyTorch, fp32, as the reference's ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.wkv_chunk import wkv_chunked_plain
 from repro_torch.nn.layers import (
-    Shape, dense_init, full, normal, rmsnorm, rmsnorm_params,
+    Shape, dense_init, full, gelu_tanh, normal, rmsnorm, rmsnorm_params,
 )
 
 State = Dict[str, torch.Tensor]
@@ -176,3 +180,103 @@ def rwkv_init_state(b: int, d: int, head_dim: int, *, lead: Shape = (),
                                device=device),
             "x_prev": torch.zeros(lead + (b, d), device=device,
                                   dtype=dtype)}
+
+
+# ====================================================================== #
+# RG-LRU (RecurrentGemma / Griffin)
+# ====================================================================== #
+def rglru_params(generator, d: int, lru_width: int, *, conv_width: int = 4,
+                 lead: Shape = (), device="cpu", dtype=torch.float32) -> Dict:
+    """The input branch ``w_x`` and gate branch ``w_y`` (d, w), the causal
+    depthwise conv ``conv_w`` (cw, w) = normal · 0.1, the recurrence gates
+    (w, w), ``log_lambda`` = linspace(0.5, 4, w) (``a = exp(-8
+    softplus(Λ) sigmoid(rec_gate))``) and ``w_o`` (w, d), stacked ``lead``
+    deep."""
+    w = lru_width
+
+    def dense(d_in, d_out):
+        return dense_init(generator, d_in, d_out, lead=lead, device=device,
+                          dtype=dtype)
+
+    return {
+        "w_x": dense(d, w),
+        "w_y": dense(d, w),
+        "conv_w": (normal(generator, lead + (conv_width, w), device) * 0.1
+                   ).to(dtype),
+        "w_input_gate": dense(w, w),
+        "w_rec_gate": dense(w, w),
+        "log_lambda": torch.linspace(0.5, 4.0, w, device=device).expand(
+            lead + (w,)).to(dtype).clone(),
+        "w_o": dense(w, d),
+    }
+
+
+_RG_C = 8.0
+
+
+def _rglru_gates(p: Dict, xw: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-step decay ``a`` and input scale ``sqrt(1 - a²) · i_gate``
+    of ``xw (..., w)``, fp32."""
+    x32 = xw.float()
+    i_gate = torch.sigmoid(x32 @ p["w_input_gate"].float())
+    r_gate = torch.sigmoid(x32 @ p["w_rec_gate"].float())
+    log_a = -_RG_C * F.softplus(p["log_lambda"].float()) * r_gate
+    a = torch.exp(log_a)
+    # the sqrt(1 - a^2) normalizer, computed stably from log a
+    norm = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2 * log_a), 1e-12))
+    return a, norm * i_gate
+
+
+def lru_scan(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``h_t = a_t h_{t-1} + v_t`` from ``h_{-1} = 0`` over the sequence
+    axis 1 of ``(B, S, w)`` fp32 inputs, one step at a time; returns every
+    ``h_t``, ``(B, S, w)`` fp32."""
+    h = torch.zeros_like(v[:, 0])
+    hs = []
+    for t in range(v.shape[1]):
+        h = a[:, t] * h + v[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def rglru_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The recurrent block over a whole sequence, ``(B, S, d)`` → ``(B, S,
+    d)``: the causal conv (width cw) of ``x w_x``, the gated LRU scan in
+    fp32 (:func:`lru_scan`), cast back to ``x``'s dtype, times the
+    tanh-GELU gate ``gelu(x w_y)``, then ``@ w_o``."""
+    s = x.shape[1]
+    xw = x @ p["w_x"]                                     # (B, S, w)
+    gate = gelu_tanh(x @ p["w_y"])
+    cw = p["conv_w"].shape[0]
+    pad = F.pad(xw, (0, 0, cw - 1, 0))
+    conv = sum(pad[:, i:i + s] * p["conv_w"][i] for i in range(cw))
+    a, scale = _rglru_gates(p, conv)                      # (B, S, w) each
+    h = lru_scan(a, scale * conv.float()).to(x.dtype)
+    return (h * gate) @ p["w_o"]
+
+
+def rglru_decode(p: Dict, x: torch.Tensor, state: State
+                 ) -> Tuple[torch.Tensor, State]:
+    """Single-step RG-LRU: ``x (B, 1, d)``, ``state = {"h": (B, w) fp32,
+    "conv": (B, cw - 1, w)}`` (the last cw - 1 conv inputs). Returns
+    ``(out (B, 1, d), new state)``."""
+    x_t = x[:, 0]
+    xw = x_t @ p["w_x"]                                   # (B, w)
+    gate = gelu_tanh(x_t @ p["w_y"])
+    hist = torch.cat([state["conv"], xw[:, None, :]], dim=1)
+    conv = torch.einsum("bcw,cw->bw", hist, p["conv_w"])
+    a, scale = _rglru_gates(p, conv)
+    h = a * state["h"] + scale * conv.float()
+    out = (h.to(x.dtype) * gate) @ p["w_o"]
+    return out[:, None, :], {"h": h, "conv": hist[:, 1:]}
+
+
+def rglru_init_state(b: int, lru_width: int, conv_width: int = 4, *,
+                     lead: Shape = (), device="cpu",
+                     dtype=torch.float32) -> State:
+    """Zero state, stacked ``lead`` deep: ``h`` fp32 and the conv history
+    in ``dtype``."""
+    return {"h": torch.zeros(lead + (b, lru_width), device=device),
+            "conv": torch.zeros(lead + (b, conv_width - 1, lru_width),
+                                device=device, dtype=dtype)}

@@ -1,19 +1,23 @@
-"""The LM model definition (port of the RWKV subset of
-``repro/nn/transformer.py``).
+"""The LM model definition (port of ``repro/nn/transformer.py``).
 
-``ArchConfig`` is the reference's whole configuration record; of its
-architectures the port runs ``arch_type="rwkv"`` (RWKV-6), and every other
-family raises ``NotImplementedError`` naming its ROADMAP item. Parameters
-are the reference's tree — ``{"embed", "final_norm", "lm_head", "groups":
-[group]}`` with each scanned group's leaves stacked ``(L, ...)`` — as plain
-dicts of tensors; a layer is a view into the stacks. Entry points:
+``ArchConfig`` is the reference's whole configuration record. The port runs
+three of its families: ``"dense"`` decoder LMs (glm4, qwen3, qwen2.5,
+gemma), ``"rwkv"`` (RWKV-6) and the ``"hybrid"`` RG-LRU + local attention
+(recurrentgemma); the others (``moe``, ``encdec``, ``vlm``) raise
+``NotImplementedError`` naming their ROADMAP item. Parameters are the
+reference's tree — ``{"embed", "final_norm", "lm_head", "groups":
+[group]}`` — as plain dicts of tensors. A scanned group's leaves are
+stacked ``(L, ...)`` and a layer is a view into the stacks; a hybrid's
+scanned group stacks its repeating pattern (``{"sub0", "sub1", ...}``, one
+block kind each), and an unscanned group is a list of layers. Entry points:
 
 * ``forward`` — full-sequence logits (``train=True`` recomputes each
-  block in the backward when ``cfg.remat``);
+  scanned block, or pattern body, in the backward when ``cfg.remat``);
 * ``loss_fn`` — the next-token cross entropy of a training step;
 * ``prefill`` — the last position's logits and their argmax (the cache is
   not written, as in the reference);
-* ``decode_step`` — one token against the recurrent state.
+* ``decode_step`` — one token at position ``pos`` against the KV cache and
+  the recurrent state.
 
 ``rwkv_mode`` picks the time mix's WKV form: ``"sequential"`` (the
 default), ``"chunked"`` (plain PyTorch, only when S is a multiple of
@@ -31,17 +35,18 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.nn import attention as attn
 from repro_torch.nn import recurrent as rec
 from repro_torch.nn.layers import (
-    Shape, dense_init, embed_init, full, rmsnorm, rmsnorm_params,
+    Shape, dense_init, embed_init, full, mlp_apply, mlp_params, rmsnorm,
+    rmsnorm_params,
 )
 from repro_torch.roadmap import not_ported
 
 PyTree = Any
 
 # the ROADMAP item of each unported architecture family
-_FAMILY_ITEMS = {"dense": "attention", "moe": "moe", "hybrid": "rglru",
-                 "encdec": "multimodal", "vlm": "multimodal"}
+_FAMILY_ITEMS = {"moe": "moe", "encdec": "multimodal", "vlm": "multimodal"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,47 +151,84 @@ class ArchConfig:
 
 
 def unported(cfg: ArchConfig) -> NotImplementedError:
-    """The error for an architecture family the port does not run yet."""
-    return not_ported(f"arch_type={cfg.arch_type!r} ({cfg.name})",
-                      _FAMILY_ITEMS.get(cfg.arch_type, "attention"))
+    """The error for an architecture family the port does not run yet
+    (MLA comes with the MoE item)."""
+    key = "moe" if cfg.use_mla else _FAMILY_ITEMS[cfg.arch_type]
+    return not_ported(f"arch_type={cfg.arch_type!r} ({cfg.name})", key)
+
+
+# ====================================================================== #
+# Layer-stack plan: (kind, count, scanned) groups
+# ====================================================================== #
+def _pattern(cfg: ArchConfig) -> Tuple[str, ...]:
+    """The hybrid's repeating block kinds."""
+    return cfg.hybrid_pattern or ("rec", "rec", "attn")
+
+
+def stack_plan(cfg: ArchConfig) -> List[Tuple[str, int, bool]]:
+    """``(kind, n_layers, scanned)`` groups covering the stack in order:
+    one scanned group of ``dense`` or RWKV ``rec`` blocks; for the hybrid,
+    a scanned group of whole patterns, then the remainder's kinds one
+    unscanned layer each. Every entry point goes through it, so it is
+    where another family raises."""
+    if cfg.arch_type in _FAMILY_ITEMS or cfg.use_mla:
+        raise unported(cfg)
+    n = cfg.num_layers
+    if cfg.arch_type == "dense":
+        return [("dense", n, True)]
+    if cfg.arch_type == "rwkv":
+        return [("rec", n, True)]
+    if cfg.arch_type == "hybrid":
+        pattern = _pattern(cfg)
+        reps, rem = divmod(n, len(pattern))
+        plan = [("pattern", reps, True)] if reps else []
+        return plan + [(kind, 1, False) for kind in pattern[:rem]]
+    raise ValueError(cfg.arch_type)
+
+
+def _window(cfg: ArchConfig, kind: str) -> Optional[int]:
+    """An attention block's window: the hybrid's local window, else the
+    config's sliding window (None: full causal attention)."""
+    return cfg.local_window if kind == "attn" else cfg.sliding_window
 
 
 # ====================================================================== #
 # Parameters
 # ====================================================================== #
-def _block_params(generator, cfg: ArchConfig, *, lead: Shape = (),
-                  device="cpu", dtype=torch.float32) -> Dict:
-    """One RWKV block (time mix ``rec`` + channel mix ``cmix``), stacked
-    ``lead`` deep."""
+def _block_params(generator, cfg: ArchConfig, kind: str, *,
+                  lead: Shape = (), device="cpu",
+                  dtype=torch.float32) -> Dict:
+    """One pre-norm block of ``kind``, stacked ``lead`` deep: ``dense`` and
+    ``attn`` (attention + MLP), ``rec`` (RWKV time mix + channel mix, or
+    under ``arch_type="hybrid"`` the RG-LRU + MLP)."""
     d = cfg.d_model
-
-    def dense(d_in, d_out):
-        return dense_init(generator, d_in, d_out, lead=lead, device=device,
-                          dtype=dtype)
-
-    return {
-        "norm1": rmsnorm_params(d, lead=lead, device=device, dtype=dtype),
-        "norm2": rmsnorm_params(d, lead=lead, device=device, dtype=dtype),
-        "rec": rec.rwkv_params(generator, d, cfg.rwkv_head_dim, lead=lead,
-                               device=device, dtype=dtype),
+    kw = dict(lead=lead, device=device, dtype=dtype)
+    p: Dict = {"norm1": rmsnorm_params(d, **kw),
+               "norm2": rmsnorm_params(d, **kw)}
+    if kind in ("dense", "attn"):
+        p["attn"] = attn.attn_params(
+            generator, d, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
+            qk_norm=cfg.qk_norm, **kw)
+    elif cfg.arch_type == "rwkv":
+        p["rec"] = rec.rwkv_params(generator, d, cfg.rwkv_head_dim, **kw)
         # token-shifted squared-ReLU FFN
-        "cmix": {
+
+        def dense(d_in, d_out):
+            return dense_init(generator, d_in, d_out, **kw)
+        p["cmix"] = {
             "mu_k": full(lead + (d,), 0.5, device, dtype),
             "mu_r": full(lead + (d,), 0.5, device, dtype),
             "w_k": dense(d, cfg.d_ff),
             "w_v": dense(cfg.d_ff, d),
             "w_r": dense(d, d),
-        },
-    }
-
-
-def stack_plan(cfg: ArchConfig) -> List[Tuple[str, int, bool]]:
-    """``(kind, n_layers, scanned)`` groups covering the stack in order:
-    for RWKV one scanned group of recurrent blocks. Every entry point goes
-    through it, so it is where another family raises."""
-    if cfg.arch_type != "rwkv":
-        raise unported(cfg)
-    return [("rec", cfg.num_layers, True)]
+        }
+        return p
+    else:
+        p["rec"] = rec.rglru_params(generator, d, cfg.lru_width or d,
+                                    conv_width=cfg.conv1d_width, **kw)
+    p["mlp"] = mlp_params(generator, d, cfg.d_ff, cfg.mlp_glu, **kw)
+    return p
 
 
 def init_params(cfg: ArchConfig, *, generator: Optional[torch.Generator],
@@ -211,8 +253,19 @@ def init_params(cfg: ArchConfig, *, generator: Optional[torch.Generator],
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, cfg.d_model,
                                        cfg.vocab_size, **kw)
-    params["groups"] = [_block_params(generator, cfg, lead=(n,), **kw)
-                        for _, n, _ in stack_plan(cfg)]
+    groups = []
+    for kind, n, scanned in stack_plan(cfg):
+        if kind == "pattern":
+            groups.append({f"sub{i}": _block_params(generator, cfg, kd,
+                                                    lead=(n,), **kw)
+                           for i, kd in enumerate(_pattern(cfg))})
+        elif scanned:
+            groups.append(_block_params(generator, cfg, kind, lead=(n,),
+                                        **kw))
+        else:
+            groups.append([_block_params(generator, cfg, kind, **kw)
+                           for _ in range(n)])
+    params["groups"] = groups
     return params
 
 
@@ -271,20 +324,49 @@ def _channel_full(p: Dict, h: torch.Tensor) -> torch.Tensor:
     return r * (torch.square(F.relu(k)) @ c["w_v"])
 
 
-def block_apply(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    """Pre-norm residual RWKV block. (The reference's MoE auxiliary loss is
-    0 for RWKV blocks, so none is returned.)"""
-    xin = rmsnorm(p["norm1"], h)
-    if cfg.rwkv_mode == "chunked" and xin.shape[1] % cfg.rwkv_chunk == 0:
-        mix = rec.rwkv_apply_chunked(p["rec"], xin, cfg.rwkv_head_dim,
+def _rwkv_mix(p: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The RWKV time mix in ``cfg.rwkv_mode``'s form."""
+    if cfg.rwkv_mode == "chunked" and x.shape[1] % cfg.rwkv_chunk == 0:
+        return rec.rwkv_apply_chunked(p["rec"], x, cfg.rwkv_head_dim,
+                                      chunk=cfg.rwkv_chunk)
+    if cfg.rwkv_mode == "chunked_kernel":
+        return rec.rwkv_apply_kernel(p["rec"], x, cfg.rwkv_head_dim,
                                      chunk=cfg.rwkv_chunk)
-    elif cfg.rwkv_mode == "chunked_kernel":
-        mix = rec.rwkv_apply_kernel(p["rec"], xin, cfg.rwkv_head_dim,
-                                    chunk=cfg.rwkv_chunk)
+    return rec.rwkv_apply(p["rec"], x, cfg.rwkv_head_dim)
+
+
+def block_apply(p: Dict, cfg: ArchConfig, h: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                kind: str = "rec") -> torch.Tensor:
+    """Pre-norm residual block of ``kind`` over the whole sequence: the
+    mixer (attention with the block's window, the RWKV time mix or the
+    RG-LRU), then the channel half (the RWKV channel mix or the MLP). (The
+    reference's MoE auxiliary loss is 0 for these blocks, so none is
+    returned.)"""
+    x = rmsnorm(p["norm1"], h)
+    if kind != "rec":
+        mix = attn.attention(
+            p["attn"], x, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            positions=positions, rope_base=cfg.rope_base, m_rope=cfg.m_rope,
+            window=_window(cfg, kind))
+    elif cfg.arch_type == "rwkv":
+        mix = _rwkv_mix(p, cfg, x)
     else:
-        mix = rec.rwkv_apply(p["rec"], xin, cfg.rwkv_head_dim)
+        mix = rec.rglru_apply(p["rec"], x)
     h = h + mix
-    return h + _channel_full(p, rmsnorm(p["norm2"], h))
+    x2 = rmsnorm(p["norm2"], h)
+    if "cmix" in p:
+        return h + _channel_full(p, x2)
+    return h + mlp_apply(p["mlp"], x2, cfg.mlp_act)
+
+
+def _pattern_apply(p: Dict, cfg: ArchConfig, h: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """One repetition of the hybrid's pattern: its blocks in order."""
+    for i, kind in enumerate(_pattern(cfg)):
+        h = block_apply(p[f"sub{i}"], cfg, h, positions, kind)
+    return h
 
 
 def embed_tokens(params: PyTree, cfg: ArchConfig,
@@ -299,25 +381,45 @@ def _head(params: PyTree, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     return h @ params["lm_head"]
 
 
+def default_positions(cfg: ArchConfig, tokens: torch.Tensor
+                      ) -> torch.Tensor:
+    """``0..S-1`` for every row, ``(B, S)`` (``(B, S, 3)`` for M-RoPE)."""
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    if cfg.m_rope:
+        positions = positions[..., None].expand(b, s, 3)
+    return positions
+
+
 def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None,
             train: bool = False) -> torch.Tensor:
-    """Full-sequence forward: ``(B, S)`` tokens → logits ``(B, S, V)``
-    (RWKV has no positional encoding and no auxiliary loss). With
-    ``cfg.remat and train`` each block runs under ``torch.utils.checkpoint``
-    and is recomputed in the backward, the reference's ``jax.checkpoint``
-    around its scanned block (policy "nothing"): only the blocks' inputs
-    are kept for the backward."""
+    """Full-sequence forward: ``(B, S)`` tokens → logits ``(B, S, V)``,
+    at ``positions`` (default :func:`default_positions`). With
+    ``cfg.remat and train`` each block of a scanned group (each pattern
+    body of the hybrid's) runs under ``torch.utils.checkpoint`` and is
+    recomputed in the backward, the reference's ``jax.checkpoint`` around
+    its scan body (policy "nothing"): only the bodies' inputs are kept for
+    the backward. Unscanned layers are not rematerialized, as in the
+    reference."""
+    if positions is None:
+        positions = default_positions(cfg, tokens)
     h = embed_tokens(params, cfg, tokens)
     remat = cfg.remat and train
-    for gparams, (_, n, _) in zip(params["groups"], stack_plan(cfg)):
-        for lp in unbind_layers(gparams, n):
-            if remat:
-                # the block draws no random numbers: no RNG state to keep
-                h = torch.utils.checkpoint.checkpoint(
-                    block_apply, lp, cfg, h, use_reentrant=False,
-                    preserve_rng_state=False)
+    for gparams, (kind, n, scanned) in zip(params["groups"],
+                                           stack_plan(cfg)):
+        layers = unbind_layers(gparams, n) if scanned else gparams
+        for lp in layers:
+            if kind == "pattern":
+                fn, args = _pattern_apply, (lp, cfg, h, positions)
             else:
-                h = block_apply(lp, cfg, h)
+                fn, args = block_apply, (lp, cfg, h, positions, kind)
+            if remat and scanned:
+                # the blocks draw no random numbers: no RNG state to keep
+                h = torch.utils.checkpoint.checkpoint(
+                    fn, *args, use_reentrant=False, preserve_rng_state=False)
+            else:
+                h = fn(*args)
     return _head(params, cfg, h)
 
 
@@ -327,9 +429,10 @@ def loss_fn(params: PyTree, cfg: ArchConfig,
     """Next-token cross entropy, the body of a training step: ``(total,
     {"nll", "moe_aux"})`` with ``nll`` the mean of ``logsumexp(logits) -
     logits[label]`` in fp32 and ``total = nll + router_aux_coef · aux /
-    num_layers``, as in the reference; RWKV blocks have no auxiliary loss,
-    so ``aux`` is 0."""
-    logits = forward(params, cfg, batch["tokens"], train=True).float()
+    num_layers``, as in the reference; the ported blocks have no auxiliary
+    loss, so ``aux`` is 0."""
+    logits = forward(params, cfg, batch["tokens"],
+                     positions=batch.get("positions"), train=True).float()
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -339,12 +442,13 @@ def loss_fn(params: PyTree, cfg: ArchConfig,
     return total, {"nll": nll, "moe_aux": aux}
 
 
-def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor
+def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill forward: ``(last-position logits (B, V), their argmax
     (B,))``. Like the reference it writes no decode cache: serving
     (``ServeEngine``) feeds prompts through ``decode_step``."""
-    logits = forward(params, cfg, tokens)
+    logits = forward(params, cfg, tokens, positions=positions)
     last = logits[:, -1].clone()        # a copy: the full logits go free
     return last, last.argmax(-1)
 
@@ -352,16 +456,28 @@ def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor
 # ====================================================================== #
 # Decode
 # ====================================================================== #
-def block_decode(p: Dict, cfg: ArchConfig, h: torch.Tensor,
-                 cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """One token through one RWKV block: ``h`` ``(B, 1, d)`` and the
-    block's cache → ``(h, new cache)``."""
+def block_decode(p: Dict, cfg: ArchConfig, h: torch.Tensor, cache: Dict,
+                 pos: torch.Tensor, kind: str = "rec"
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """One token through one block of ``kind``: ``h`` ``(B, 1, d)`` at
+    positions ``pos`` ``(B,)`` and the block's cache → ``(h, new
+    cache)``. An attention block writes its KV cache in place."""
     new_cache: Dict = {}
     x = rmsnorm(p["norm1"], h)
-    mix, new_cache["rec"] = rec.rwkv_decode(p["rec"], x, cache["rec"],
-                                            cfg.rwkv_head_dim)
+    if kind != "rec":
+        mix, new_cache["attn"] = attn.attention_decode(
+            p["attn"], x, cache["attn"], pos, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            rope_base=cfg.rope_base, window=_window(cfg, kind))
+    elif cfg.arch_type == "rwkv":
+        mix, new_cache["rec"] = rec.rwkv_decode(p["rec"], x, cache["rec"],
+                                                cfg.rwkv_head_dim)
+    else:
+        mix, new_cache["rec"] = rec.rglru_decode(p["rec"], x, cache["rec"])
     h = h + mix
     x2 = rmsnorm(p["norm2"], h)
+    if "mlp" in p:
+        return h + mlp_apply(p["mlp"], x2, cfg.mlp_act), new_cache
     c = p["cmix"]
     x_prev = cache["cmix_x_prev"]
     x2_t = x2[:, 0]
@@ -372,52 +488,82 @@ def block_decode(p: Dict, cfg: ArchConfig, h: torch.Tensor,
     return h + out, new_cache
 
 
-def _block_cache(cfg: ArchConfig, batch: int, *, lead: Shape = (),
-                 device="cpu", dtype=torch.float32) -> Dict:
-    """Empty decode cache of one RWKV block, stacked ``lead`` deep: the
-    fp32 WKV state and the two token-shift rows in ``dtype``."""
-    return {"rec": rec.rwkv_init_state(batch, cfg.d_model,
-                                       cfg.rwkv_head_dim, lead=lead,
-                                       device=device, dtype=dtype),
-            "cmix_x_prev": torch.zeros(lead + (batch, cfg.d_model),
-                                       device=device, dtype=dtype)}
+def _block_cache(cfg: ArchConfig, kind: str, batch: int, seq_len: int, *,
+                 lead: Shape = (), device="cpu",
+                 dtype=torch.float32) -> Dict:
+    """Empty decode cache of one block of ``kind``, stacked ``lead`` deep.
+    RWKV: the fp32 WKV state and the two token-shift rows in ``dtype``;
+    RG-LRU: its fp32 state and conv history; attention: k and v ``(batch,
+    rows, H_kv, hd)`` in ``dtype``, ``rows = min(seq_len, window)`` for a
+    windowed block (a ring buffer, ``attention.attention_decode``)."""
+    d = cfg.d_model
+    kw = dict(lead=lead, device=device, dtype=dtype)
+    if kind == "rec" and cfg.arch_type == "rwkv":
+        return {"rec": rec.rwkv_init_state(batch, d, cfg.rwkv_head_dim,
+                                           **kw),
+                "cmix_x_prev": torch.zeros(lead + (batch, d), device=device,
+                                           dtype=dtype)}
+    if kind == "rec":
+        return {"rec": rec.rglru_init_state(batch, cfg.lru_width or d,
+                                            cfg.conv1d_width, **kw)}
+    window = _window(cfg, kind)
+    rows = seq_len if window is None else min(seq_len, window)
+    shape = lead + (batch, rows, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"attn": {"k": torch.zeros(shape, device=device, dtype=dtype),
+                     "v": torch.zeros(shape, device=device, dtype=dtype)}}
 
 
-def init_decode_cache(cfg: ArchConfig, batch: int, *,
+def init_decode_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                       device=None, dtype=torch.bfloat16) -> PyTree:
-    """The cache tree matching the stack plan, each scanned group's leaves
-    stacked ``(L, ...)``; O(1) in the sequence length, so unlike the
-    reference's it takes none. Runs on ``device`` (default ``cuda``).
-    ``dtype`` is the token-shift rows' type, which must be the weights'
-    (a decode step multiplies them by the weights; the WKV state is fp32
-    whatever the weights, as in the reference): bfloat16 by default, as
-    :func:`init_params`'s weights and the reference's cache; pass
-    ``dtype=torch.float32`` for fp32 weights."""
-    dev = resolve_device(device)
-    return {"groups": [_block_cache(cfg, batch, lead=(n,), device=dev,
-                                    dtype=dtype)
-                       for _, n, _ in stack_plan(cfg)]}
+    """The cache tree matching the stack plan for ``batch`` rows of up to
+    ``seq_len`` tokens, each scanned group's leaves stacked ``(L, ...)``
+    (RWKV's is O(1) in ``seq_len``). Runs on ``device`` (default ``cuda``).
+    ``dtype`` is the KV cache's, the conv history's and the token-shift
+    rows' type, which must be the weights' (a decode step multiplies them
+    by the weights; the recurrent states are fp32 whatever the weights, as
+    in the reference): bfloat16 by default, as :func:`init_params`'s
+    weights and the reference's cache; pass ``dtype=torch.float32`` for
+    fp32 weights."""
+    kw = dict(device=resolve_device(device), dtype=dtype)
+    groups = []
+    for kind, n, scanned in stack_plan(cfg):
+        lead = (n,) if scanned else ()
+
+        def one():
+            if kind == "pattern":
+                return {f"sub{i}": _block_cache(cfg, kd, batch, seq_len,
+                                                lead=lead, **kw)
+                        for i, kd in enumerate(_pattern(cfg))}
+            return _block_cache(cfg, kind, batch, seq_len, lead=lead, **kw)
+        groups.append(one() if scanned else [one() for _ in range(n)])
+    return {"groups": groups}
 
 
 def _copy_into(dst: PyTree, src: PyTree) -> None:
     if isinstance(dst, dict):
         for k in dst:
             _copy_into(dst[k], src[k])
-    else:
+    elif dst is not src:        # a KV cache is written in place
         dst.copy_(src)
 
 
 def decode_step(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
-                cache: PyTree) -> Tuple[torch.Tensor, PyTree]:
-    """One-token decode: ``tokens (B, 1)`` → ``(logits (B, 1, V), cache)``.
-    The recurrent state needs no write index (the reference's ``pos``).
-    The cache is updated in place (the reference's serving step donates
-    it) and returned."""
+                cache: PyTree, pos: torch.Tensor
+                ) -> Tuple[torch.Tensor, PyTree]:
+    """One-token decode: ``tokens (B, 1)`` at positions ``pos (B,)`` (the
+    KV cache's write index; the recurrent states need none) → ``(logits
+    (B, 1, V), cache)``. The cache is updated in place (the reference's
+    serving step donates it) and returned."""
     h = embed_tokens(params, cfg, tokens)
-    for gparams, gcache, (_, n, _) in zip(
+    for gparams, gcache, (kind, n, scanned) in zip(
             params["groups"], cache["groups"], stack_plan(cfg)):
         for i in range(n):
-            lc = layer_params(gcache, i)
-            h, nc = block_decode(layer_params(gparams, i), cfg, h, lc)
-            _copy_into(lc, nc)
+            lp = layer_params(gparams, i) if scanned else gparams[i]
+            lc = layer_params(gcache, i) if scanned else gcache[i]
+            kinds = _pattern(cfg) if kind == "pattern" else (kind,)
+            for j, kd in enumerate(kinds):
+                sub = f"sub{j}" if kind == "pattern" else None
+                bp, bc = (lp[sub], lc[sub]) if sub else (lp, lc)
+                h, nc = block_decode(bp, cfg, h, bc, pos, kd)
+                _copy_into(bc, nc)
     return _head(params, cfg, h), cache

@@ -7,9 +7,6 @@ item, instead of silently doing something else.
 from __future__ import annotations
 
 ITEMS = {
-    "rglru": "ROADMAP Queue 1 item 7b: the RG-LRU and recurrentgemma",
-    "attention": "ROADMAP Queue 1 item 7c: attention and the dense "
-                 "decoder architectures",
     "moe": "ROADMAP Queue 1 item 7d: mixture-of-experts layers",
     "multimodal": "ROADMAP Queue 1 item 7e: whisper and qwen2-vl",
     "dryrun": "ROADMAP Queue 1 item 7f: launch/dryrun.py as a meta-device "

@@ -2,10 +2,12 @@
 ``repro/serving/engine.py``).
 
 ``ServeEngine`` is batch-synchronous static batching: up to ``slots``
-requests run together from position 0, with a fresh cache per batch —
+requests run together from position 0, with a fresh cache of ``max_seq``
+positions per batch —
 while a slot still has prompt tokens it consumes them (teacher forcing),
 afterwards it consumes its own greedy token (argmax, the first index on
-ties). One ``serve_step`` per position, under ``torch.inference_mode()``.
+ties). One ``serve_step`` per position ``t`` (``pos = t`` for every slot),
+under ``torch.inference_mode()``.
 A request the ``max_seq`` horizon cuts off before it has produced
 ``max_new_tokens`` is ``truncated``, not ``done``.
 
@@ -52,7 +54,8 @@ class ServeEngine:
 
     def _run_batch(self, reqs: List[Request]) -> None:
         n = self.slots
-        cache = init_decode_cache(self.cfg, n, device=self.device,
+        cache = init_decode_cache(self.cfg, n, self.max_seq,
+                                  device=self.device,
                                   dtype=self.params["embed"].dtype)
         prompts = [np.asarray(r.prompt) for r in reqs] + \
             [np.zeros(1, np.int64)] * (n - len(reqs))
@@ -65,8 +68,9 @@ class ServeEngine:
 
         cur = np.array([p[0] for p in prompts], np.int64)
         for t in range(horizon):
-            batch = {"tokens": torch.from_numpy(cur[:, None].copy()).to(
-                self.device)}
+            tokens = torch.from_numpy(cur[:, None].copy())
+            batch = {"tokens": tokens.to(self.device),
+                     "pos": torch.full((n,), t, device=self.device)}
             nxt, cache = self._step(self.params, cache, batch)
             nxt = nxt.cpu().numpy()
             for i, r in enumerate(reqs):

@@ -168,14 +168,14 @@ def test_decode_step_over_24_tokens_allclose_jax(models):
     jcfg, cfg, jp, tp = models
     tok = tokens(cfg, 2, 24, seed=2)
     jc = JT.init_decode_cache(jcfg, 2, 32, dtype=jnp.float32)
-    tc = T.init_decode_cache(cfg, 2, device="cpu", dtype=torch.float32)
+    tc = T.init_decode_cache(cfg, 2, 32, device="cpu", dtype=torch.float32)
     j_step = jax.jit(JT.decode_step, static_argnums=1)
     for t in range(24):
         pos = np.full((2,), t)
         jl, jc = j_step(jp, jcfg, jnp.asarray(tok[:, t:t + 1]), jc,
                         jnp.asarray(pos))
         tl, tc = T.decode_step(tp, cfg, torch.from_numpy(tok[:, t:t + 1]),
-                               tc)
+                               tc, torch.from_numpy(pos))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
     want = convert.flatten_tree(np_tree(jc))
     got = dict(T.leaves(tc))
@@ -192,9 +192,11 @@ def test_decode_of_a_prompt_ends_at_the_kernel_prefill(models):
     tok = torch.from_numpy(tokens(cfg, 2, 20, seed=3))
     kcfg = dataclasses.replace(cfg, rwkv_mode="chunked_kernel")
     want = make_prefill_step(kcfg)(tp, {"tokens": tok})
-    cache = T.init_decode_cache(cfg, 2, device="cpu", dtype=torch.float32)
+    cache = T.init_decode_cache(cfg, 2, 20, device="cpu",
+                                dtype=torch.float32)
     for t in range(20):
-        logits, cache = T.decode_step(tp, cfg, tok[:, t:t + 1], cache)
+        logits, cache = T.decode_step(tp, cfg, tok[:, t:t + 1], cache,
+                                      torch.full((2,), t))
     torch.testing.assert_close(logits[:, 0], want, **LOGIT_TOL)
 
 
@@ -267,15 +269,17 @@ def test_decode_runs_on_the_default_dtypes(models):
     params = T.init_params(cfg, generator=torch.Generator().manual_seed(1),
                            device="cpu")
     tok = torch.from_numpy(tokens(cfg, 2, 6, seed=6))
-    cache = T.init_decode_cache(cfg, 2, device="cpu")
+    cache = T.init_decode_cache(cfg, 2, 6, device="cpu")
     rows = cache["groups"][0]
     assert rows["cmix_x_prev"].dtype == rows["rec"]["x_prev"].dtype == \
         params["embed"].dtype == torch.bfloat16
     assert rows["rec"]["wkv"].dtype == torch.float32
-    want = T.init_decode_cache(cfg, 2, device="cpu", dtype=torch.bfloat16)
+    want = T.init_decode_cache(cfg, 2, 6, device="cpu", dtype=torch.bfloat16)
     for t in range(tok.shape[1]):
-        logits, cache = T.decode_step(params, cfg, tok[:, t:t + 1], cache)
-        ref, want = T.decode_step(params, cfg, tok[:, t:t + 1], want)
+        pos = torch.full((2,), t)
+        logits, cache = T.decode_step(params, cfg, tok[:, t:t + 1], cache,
+                                      pos)
+        ref, want = T.decode_step(params, cfg, tok[:, t:t + 1], want, pos)
         assert logits.dtype == torch.bfloat16
         assert bool(torch.isfinite(logits.float()).all())
         assert torch.equal(logits, ref)
@@ -297,10 +301,11 @@ def test_bf16_decode_tracks_the_bf16_prefill(models, serve):
     want32 = make_prefill_step(kcfg)(tp, {"tokens": tok})
     atol = float((want.float() - want32).abs().max())
     if not serve:
-        cache = T.init_decode_cache(cfg, 2, device="cpu",
+        cache = T.init_decode_cache(cfg, 2, 16, device="cpu",
                                     dtype=torch.bfloat16)
         for t in range(tok.shape[1]):
-            logits, cache = T.decode_step(tb, cfg, tok[:, t:t + 1], cache)
+            logits, cache = T.decode_step(tb, cfg, tok[:, t:t + 1], cache,
+                                          torch.full((2,), t))
         assert logits.dtype == torch.bfloat16
         assert cache["groups"][0]["rec"]["wkv"].dtype == torch.float32
         np.testing.assert_allclose(logits[:, 0].float().numpy(),
@@ -310,11 +315,12 @@ def test_bf16_decode_tracks_the_bf16_prefill(models, serve):
     ServeEngine(cfg, tb, slots=1, max_seq=16).run(reqs)
     step = make_serve_step(cfg)
     for r in reqs:
-        cache = T.init_decode_cache(cfg, 1, device="cpu",
+        cache = T.init_decode_cache(cfg, 1, 16, device="cpu",
                                     dtype=torch.bfloat16)
         seq, out = list(r.prompt), []
         for t in range(len(r.prompt) + r.max_new_tokens - 1):
-            nxt, cache = step(tb, cache, {"tokens": torch.tensor([[seq[t]]])})
+            nxt, cache = step(tb, cache, {"tokens": torch.tensor([[seq[t]]]),
+                                          "pos": torch.tensor([t])})
             if t >= len(r.prompt) - 1:
                 out.append(int(nxt[0]))
                 seq.append(out[-1])
@@ -359,11 +365,11 @@ def test_serve_engine_reports_truncation(models):
 
 def test_serve_step_is_greedy_with_first_index_ties(models):
     _, cfg, _, tp = models
-    cache = T.init_decode_cache(cfg, 2, device="cpu", dtype=torch.float32)
-    tok = torch.tensor([[3], [5]])
+    cache = T.init_decode_cache(cfg, 2, 1, device="cpu", dtype=torch.float32)
+    tok, pos = torch.tensor([[3], [5]]), torch.zeros(2, dtype=torch.long)
     logits, _ = T.decode_step(tp, cfg, tok, T.init_decode_cache(
-        cfg, 2, device="cpu", dtype=torch.float32))
-    nxt, _ = make_serve_step(cfg)(tp, cache, {"tokens": tok})
+        cfg, 2, 1, device="cpu", dtype=torch.float32), pos)
+    nxt, _ = make_serve_step(cfg)(tp, cache, {"tokens": tok, "pos": pos})
     assert torch.equal(nxt, logits[:, -1].argmax(-1))
     assert torch.argmax(torch.tensor([1.0, 3.0, 3.0])) == 1
 
@@ -469,7 +475,7 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.init_params(cfg, generator=torch.Generator())
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        T.init_decode_cache(cfg, 1)
+        T.init_decode_cache(cfg, 1, 8)
 
 
 @pytest.mark.parametrize("shape", sorted(jspecs.INPUT_SHAPES))
@@ -492,10 +498,10 @@ def test_unported_architectures_raise_naming_their_item(name):
 def test_unknown_arch_and_other_families_raise():
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
-    dense = dataclasses.replace(get_arch("rwkv6-3b").reduced(),
-                                arch_type="dense")
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        T.stack_plan(dense)
+    moe = dataclasses.replace(get_arch("rwkv6-3b").reduced(),
+                              arch_type="moe")
+    with pytest.raises(NotImplementedError, match="item 7d"):
+        T.stack_plan(moe)
     # LM training runs (tests/test_torch_lm_train.py holds it against the
     # reference)
     cfg = get_arch("rwkv6-3b").reduced()

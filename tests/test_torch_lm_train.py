@@ -289,7 +289,7 @@ def test_cli_draws_its_own_weights_and_trains(capsys):
 
 @pytest.mark.parametrize("arch,item", [("whisper-large-v3", "item 7e"),
                                        ("qwen2-vl-7b", "item 7e"),
-                                       ("qwen3-32b", "item 7c")])
+                                       ("arctic-480b", "item 7d")])
 def test_cli_unported_lm_architectures_raise(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         train_cli.main(["--arch", arch, "--steps", "1", "--device", "cpu"])

@@ -241,7 +241,7 @@ def test_cli_int8_runs_to_eval_line():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--arch", "gemma-2b"], "item 7"),
+    (["--arch", "deepseek-v2-lite-16b"], "item 7"),
 ])
 def test_cli_unported_options_raise(extra, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):

@@ -266,6 +266,58 @@ Phases, each of which fails the run on error:
    2,048: three ``make_train_step`` Adam steps on ``TokenStream`` batches,
    finite losses, each step's time and model-FLOP rate, the peak device
    memory under 80 GB. (g) no kernel launched in phase 9.
+10. The MoE family at full width (after phase 9 has freed its memory),
+   weights drawn on the card from seed 0, TF32 off for fp32; the router's
+   top-k is topk_scores, one launch a MoE layer and call, and the experts,
+   both dispatches and MLA are plain PyTorch. (a) deepseek-v2-lite-16b, 27
+   layers (1 dense, 26 MoE; MLA, 64 experts top-6 and 2 shared), fp32,
+   dense dispatch: the prefill at B = 1, S = 2,048 (MLA on ``_mea``), its
+   time and model-FLOP rate against 67 TFLOP/s (low by design: dense
+   dispatch computes every expert for every token); exactly 26 topk_scores
+   launches per prefill and per decode step and no other kernel; a
+   64-token prompt at B = 4 through decode_step ends at the prefill's last
+   logits within LM_LOGIT_TOL; a steady decode step against reading the
+   weights; ServeEngine answers 8 greedy requests, all done. (b) the same
+   weights under capacity dispatch: at the config's factor 1.25 the
+   prefill's time and two prefills bitwise equal; at a factor with room
+   for every pair (CAPACITY_ROOM times the largest expert load of the 1.25
+   run; every layer checked to drop nothing) within LM_LOGIT_TOL of (a)'s
+   dense prefill. (c) the fp32 tree freed, the bf16 tree drawn from the
+   same generator (routers fp32): the bf16 prefill's time against 989
+   TFLOP/s; with every run on the fp32 prefill's experts, the prompt
+   through a bf16 decode_step within twice the bf16 prefill's own error
+   of the bf16 prefill and of the fp32 one; with the experts free, each
+   token of the first MoE layer that the bf16 prefill or decode routes
+   otherwise than the fp32 prefill has its k-th minus (k+1)-th gap within
+   the change of its router logits, a bf16-sized change (at most
+   BF16_ROUTER_SPREAD of the logits' range); a bf16 decode step's time;
+   phase 7's profile of the bf16 prefill with the dense dispatch's
+   experts' share (one layer's experts profiled alone, times 26). (d) arctic-480b at full width (128
+   experts top-2 and a dense residual FFN), depth cut: 1 of 35 layers in
+   fp32 (prefill at B = 1, S = 1,024; decode == prefill; capacity with
+   room for every pair == dense dispatch), then 2 layers in bf16 (prefill,
+   a decode step at B = 4 against reading the weights, ServeEngine answers
+   4 requests). (e) deepseek-v2-lite-16b training at full width, its dense
+   and one MoE layer, fp32, remat on, B = 1, S = 1,024: three
+   make_train_step Adam steps, finite losses, moe_aux finite and above 0,
+   a non-zero router gradient, each step's time and the peak memory.
+   Then, after the counts are read, topk_scores against topk_plain and
+   timed beside torch.topk on the router probabilities of every shape
+   phase 10 gave it (deepseek's and arctic's prefill and B = 4 decode
+   rows among them).
+11. The multimodal backbones at full width and depth, fp32, TF32 off, no
+   kernel launched. (a) whisper-large-v3 (32 encoder and 32 decoder
+   layers): the prefill at B = 4, S = 448 over frame embeddings (4, 1,500,
+   1,280) drawn from the seed, its time; a 64-token prompt through
+   decode_step, the cache's encoder_out the encoder's output of the same
+   frames, == the prefill within LM_LOGIT_TOL, once recomputing the cross
+   k and v and once with them cached (cache_cross_kv); ServeEngine answers
+   8 requests (zero frames, the reference's serving). (b) qwen2-vl-7b: the
+   prefill at B = 2, S = 2,048 with vision embeddings drawn from the seed
+   and 3-D positions (M-RoPE on ``_mea``), its time and model-FLOP rate;
+   a 64-token prompt through decode_step at positions_3d = t == the
+   prefill; ServeEngine answers 8 requests. (c) no kernel launched in
+   phase 11.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -456,6 +508,49 @@ HYBRID_ARCH, HYBRID_B, HYBRID_S = "recurrentgemma-9b", 2, 4096
 # (f) gemma-2b training at full width and depth, fp32, remat on (the
 # config's), against the reference's train_4k shape (B = 256, S = 4,096)
 GEMMA_TRAIN_B, GEMMA_TRAIN_S, GEMMA_TRAIN_STEPS = 1, 2048, 3
+# phase 10: the MoE family at full width, fp32 weights drawn on the card
+# from seed 0, TF32 off. The router's top-k is the one kernel of the port
+# on its path (topk_scores, one launch a MoE layer and call); the experts,
+# the dispatch and MLA are plain PyTorch, as the reference computes them
+# in plain jnp. (a)-(c) deepseek-v2-lite-16b at full depth (27 layers: 1
+# dense, 26 MoE; 62.8 GB of fp32 weights), cut against the reference's
+# prefill_32k shape (B = 32, S = 32,768) to B = 1, S = 2,048, which takes
+# MLA's chunked attention (_mea): dense dispatch's (T, E, d_ff) and (E, T,
+# d) fp32 temporaries are then ~4 GB a layer
+MOE_ARCH, MOE_B, MOE_S = "deepseek-v2-lite-16b", 1, 2048
+MOE_PREFILL_PREDICTED_S = (1.4, 2.2)   # PERF.md's prediction for 10a
+# (b) capacity dispatch at the config's factor (1.25), and at a factor with
+# room for every pair: a factor of E (one slot a pair, cap = T k)
+# would add ~26 GB of (E, C, ·) fp32 buffers a layer to the 62.8 GB of
+# weights, so the factor is set from the experts' largest load in the 1.25
+# run, with CAPACITY_ROOM times room, and every layer of the ample run is
+# checked to drop nothing
+CAPACITY_ROOM = 2.0
+# (c) bf16 routing against fp32 in the first MoE layer: a token can take
+# another expert only where the change of its router logits (up to the
+# row's constant) spans its gap between the k-th and (k+1)-th expert; the
+# slack covers the fp32 softmax's rounding in the log-probabilities. The
+# change itself must be bf16-sized: at most 16 units of bf16 rounding
+# (2^-8 each) of the token's logits' range, where a router fault (another
+# layer's router, a wrong input) moves the logits by their own size
+ROUTER_LOG_SLACK = 1e-5
+BF16_ROUTER_SPREAD = 2.0 ** -4
+# (d) arctic-480b at full width (13.61 G parameters a layer; 954 GB of
+# bf16 weights whole): 1 of its 35 layers in fp32 (56.3 GB with the
+# embeddings), 2 in bf16 (55.4 GB), prefill at B = 1, S = 1,024
+ARCTIC_ARCH, ARCTIC_S = "arctic-480b", 1024
+ARCTIC_DEPTH_FP32, ARCTIC_DEPTH_BF16, ARCTIC_REQUESTS = 1, 2, 4
+# (e) MoE training: deepseek-v2-lite-16b at full width, its dense layer
+# and one MoE layer, fp32, remat on, B = 1, S = 1,024, three Adam steps
+MOE_TRAIN_DEPTH, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 2, 1, 1024, 3
+# phase 11: the multimodal backbones at full width and depth, fp32, no
+# kernel of the port on their paths. (a) whisper-large-v3 (32 encoder and
+# 32 decoder layers; 6.1 GB): prefill at B = 4 over 448 decoder tokens
+# (the model's text context) and 1,500 frames drawn from the seed
+WHISPER_ARCH, WHISPER_B, WHISPER_S = "whisper-large-v3", 4, 448
+# (b) qwen2-vl-7b (28 layers; 30.5 GB): prefill at B = 2, S = 2,048 with
+# vision embeddings drawn from the seed and 3-D positions (M-RoPE on _mea)
+VLM_ARCH, VLM_B, VLM_S = "qwen2-vl-7b", 2, 2048
 
 # each kernel's pallas_call in the JAX package
 REPLACES = {
@@ -2637,23 +2732,29 @@ def release():
     torch.cuda.empty_cache()
 
 
-def draw_lm(cfg, dev, label):
-    """``cfg``'s fp32 weights drawn on the card from a CUDA generator of
-    seed 0; returns ``(params, {"params", "param_bytes", "init_s"})``."""
+def draw_lm(cfg, dev, label, bf16=False):
+    """``cfg``'s weights drawn on the card from a CUDA generator of seed 0,
+    fp32 (or bf16: the fp32 draw rounded, the MoE routers kept fp32);
+    returns ``(params, {"params", "param_bytes", "init_s"})``."""
     import torch
     from repro_torch.nn import transformer as T
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = T.init_params(cfg, generator=torch.Generator(device=dev)
-                           .manual_seed(0), device=dev, dtype=torch.float32)
+                           .manual_seed(0), device=dev,
+                           dtype=torch.bfloat16 if bf16 else torch.float32)
     torch.cuda.synchronize()
-    res = dict(params=T.count_params(params), init_s=time.perf_counter() - t0)
-    res["param_bytes"] = 4 * res["params"]
+    res = dict(params=T.count_params(params), init_s=time.perf_counter() - t0,
+               param_bytes=sum(t.numel() * t.element_size()
+                               for _, t in T.leaves(params)))
+    moe = (f", {cfg.num_experts} experts top-{cfg.top_k} of d_ff "
+           f"{cfg.d_ff_expert}" if cfg.num_experts else "")
     log(f"[phase {label}] {cfg.name} at full width ({cfg.num_layers} layers, "
         f"d {cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv of "
-        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, V {cfg.vocab_size}): "
-        f"{res['params']:,} fp32 parameters ({res['param_bytes'] / 1e9:.2f} "
-        f"GB) drawn on the card in {res['init_s']:.2f} s")
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}{moe}, V {cfg.vocab_size}): "
+        f"{res['params']:,} {'bf16' if bf16 else 'fp32'} parameters "
+        f"({res['param_bytes'] / 1e9:.2f} GB) drawn on the card in "
+        f"{res['init_s']:.2f} s")
     return params, res
 
 
@@ -2694,31 +2795,67 @@ def timed_prefill(params, cfg, batch, label, card, reps=2, bf16=False):
     return last, res
 
 
-def decode_prompt(params, cfg, tok):
+def fill_cross_kv(params, cfg, cache):
+    """Each decoder layer's cross-attention k and v of the cache's
+    ``encoder_out`` into its ``cross_kv`` (``cache_cross_kv``), as the
+    reference's cached-decode test fills them."""
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import transformer as T
+    kv = cache["groups"][0]["cross_kv"]
+    for i in range(cfg.num_layers):
+        lp = T.layer_params(params["groups"][0], i)
+        for k, v in A.cross_kv_cache(
+                lp["cross_attn"], cache["encoder_out"],
+                num_kv_heads=cfg.num_heads,
+                head_dim=cfg.resolved_head_dim).items():
+            kv[k][i] = v
+
+
+def position_inputs(cfg, b, t, dev):
+    """A decode step's M-RoPE positions: ``t`` on all three streams."""
+    import torch
+    return ({"positions_3d": torch.full((b, 1, 3), t, device=dev)}
+            if cfg.m_rope else {})
+
+
+def decode_prompt(params, cfg, tok, encoder_out=None):
     """The prompt ``tok`` (B, P) through ``decode_step`` from an empty cache
-    of P positions in the weights' dtype: ``(last logits (B, V), cache)``."""
+    of P positions in the weights' dtype (the encoder-decoder's attending to
+    ``encoder_out``, its cross k and v cached under ``cache_cross_kv``):
+    ``(last logits (B, V), cache)``."""
     import torch
     from repro_torch.nn import transformer as T
     b, n = tok.shape
     cache = T.init_decode_cache(cfg, b, n, device=tok.device,
                                 dtype=params["embed"].dtype)
+    if encoder_out is not None:
+        cache["encoder_out"] = encoder_out
+        if cfg.cache_cross_kv:
+            fill_cross_kv(params, cfg, cache)
     for t in range(n):
-        logits, cache = T.decode_step(params, cfg, tok[:, t:t + 1], cache,
-                                      torch.full((b,), t, device=tok.device))
+        logits, cache = T.decode_step(
+            params, cfg, tok[:, t:t + 1], cache,
+            torch.full((b,), t, device=tok.device),
+            **position_inputs(cfg, b, t, tok.device))
     return logits[:, 0], cache
 
 
-def decode_against_prefill(params, cfg, tok, label, card):
+def decode_against_prefill(params, cfg, tok, label, card, audio_frames=None):
     """A prompt through ``decode_step`` ends at the prefill's last logits of
-    that prompt within LM_LOGIT_TOL (fp32); then one steady decode step
-    (``make_serve_step`` at the prompt's last position) on CUDA events,
-    against reading the weights once. Returns ``(results, the prefill's
-    last logits)``."""
+    that prompt within LM_LOGIT_TOL (fp32; the encoder-decoder's prefill of
+    ``audio_frames``, its decode attending to the encoder's output of the
+    same frames); then one steady decode step (``make_serve_step`` at the
+    prompt's last position) on CUDA events, against reading the weights
+    once. Returns ``(results, the prefill's last logits)``."""
     import torch
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.nn import transformer as T
-    want = make_prefill_step(cfg)(params, {"tokens": tok})
-    got, cache = decode_prompt(params, cfg, tok)
+    batch, encoder_out = {"tokens": tok}, None
+    if audio_frames is not None:
+        batch["audio_frames"] = audio_frames
+        encoder_out = T.encode(params, cfg, audio_frames)
+    want = make_prefill_step(cfg)(params, batch)
+    got, cache = decode_prompt(params, cfg, tok, encoder_out)
     torch.cuda.synchronize()
     res = dict(decode_max_abs_diff=max_abs_diff(got, want),
                decode_argmax_agree=int((got.argmax(-1) == want.argmax(-1))
@@ -2727,7 +2864,8 @@ def decode_against_prefill(params, cfg, tok, label, card):
     b, n = tok.shape
     step = make_serve_step(cfg)
     batch = {"tokens": tok[:, -1:],
-             "pos": torch.full((b,), n - 1, device=tok.device)}
+             "pos": torch.full((b,), n - 1, device=tok.device),
+             **position_inputs(cfg, b, n - 1, tok.device)}
     res["decode_step_ms"] = time_ms(lambda: step(params, cache, batch),
                                     reps=10, warmup=2)
     nbytes = sum(t.numel() * t.element_size() for _, t in T.leaves(params))
@@ -2742,12 +2880,12 @@ def decode_against_prefill(params, cfg, tok, label, card):
     return res, want
 
 
-def serve_requests(cfg, params, rng, label):
+def serve_requests(cfg, params, rng, label, count=None):
     """ServeEngine(slots=4, max_seq=64) answers LM_SERVE's 8 greedy
-    requests: all done, none truncated."""
+    requests (the first ``count`` of them): all done, none truncated."""
     import torch
     from repro_torch.serving import ServeEngine
-    reqs = lm_requests(rng, cfg.vocab_size)
+    reqs = lm_requests(rng, cfg.vocab_size)[:count]
     engine = ServeEngine(cfg, params, slots=LM_SERVE["slots"],
                          max_seq=LM_SERVE["max_seq"])
     t0 = time.perf_counter()
@@ -3230,6 +3368,684 @@ def run_lm9(dev, rng, card):
     log(f"[phase 9g] no kernel launched in phase 9 ({res['seconds']:.1f} s): "
         f"{counts}")
     return res, profiles
+
+
+# ---------------------------------------------------------------------- #
+# phase 10: the MoE family; phase 11: the multimodal backbones
+# ---------------------------------------------------------------------- #
+def counted(fn):
+    """``fn()`` and the kernel launches it made, read as the difference of
+    the counts around it (the phase's own counts keep running)."""
+    import torch
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return out, {n: after[n] - before[n] for n in after}
+
+
+def moe_layers(cfg):
+    return cfg.num_layers - cfg.first_k_dense
+
+
+def check_topk_launches(launches, cfg, what):
+    """One ``topk_scores`` launch a MoE layer, and no other kernel."""
+    want = {n: (moe_layers(cfg) if n == "topk" else 0) for n in launches}
+    if launches != want:
+        raise AssertionError(f"{cfg.name} {what}: launches {launches}, "
+                             f"expected {want}")
+
+
+@contextlib.contextmanager
+def routed(pick):
+    """Each MoE call's experts replaced by ``pick(call, idx)`` (``call``
+    counts the MoE calls from 0, ``idx`` the router's own top-k) while the
+    block runs, the weights gathered from the call's probabilities and
+    renormalized as the router does; the router's top-k kernel still
+    runs."""
+    import torch
+    from repro_torch.nn import moe as M
+    route = M._route
+    calls = iter(range(1 << 62))
+
+    def pinned(p, x, top_k):
+        probs, _, idx = route(p, x, top_k)
+        idx = pick(next(calls), idx)
+        vals = torch.gather(probs, -1, idx)
+        return probs, vals / vals.sum(-1, keepdim=True), idx
+    M._route = pinned
+    try:
+        yield
+    finally:
+        M._route = route
+
+
+def expert_loads(record, num_experts):
+    """``routed`` that keeps each MoE call's experts and appends its
+    largest expert load (the pairs routed to one expert) to ``record``."""
+    import torch
+    return routed(lambda i, idx: record.append(int(torch.bincount(
+        idx.reshape(-1), minlength=num_experts).max())) or idx)
+
+
+@contextlib.contextmanager
+def router_inputs(keep):
+    """Each MoE call's router probabilities ``(T, E)`` handed to
+    ``keep(probs, k)`` as they reach ``topk_padded``, which then runs on
+    them as before (its launches are counted as the path's own)."""
+    from repro_torch.nn import moe as M
+    topk = M.topk_padded
+
+    def recording(probs, k):
+        keep(probs, k)
+        return topk(probs, k)
+    M.topk_padded = recording
+    try:
+        yield
+    finally:
+        M.topk_padded = topk
+
+
+def flip_gaps(idx32, idx16, p32, p16, k):
+    """The tokens whose expert sets differ between two runs of one MoE
+    layer (``idx`` ``(T, k)``, router probabilities ``p`` ``(T, E)``):
+    for each, the fp32 run's gap between its k-th and (k+1)-th
+    probability, the same gap in log-probability (= in logits), and the
+    spread (largest minus smallest) over its experts of the change in
+    log-probability from the fp32 run to the other, which is the change
+    in the logits up to the row's constant. An expert a of the fp32 set
+    gives way to an expert b only if the logits' change lifts b over a:
+    ``log_gap <= spread``, whatever the cause of the change."""
+    import torch
+    flips = (idx32.sort(-1).values != idx16.sort(-1).values).any(-1)
+    top = p32.sort(-1, descending=True).values
+    l32, l16 = p32.double().log(), p16.double().log()
+    delta = l16 - l32
+    spread = delta.max(-1).values - delta.min(-1).values
+    ranked = l32.sort(-1, descending=True).values
+    log_gap = ranked[:, k - 1] - ranked[:, k]
+    rel = spread / (l32.max(-1).values - l32.min(-1).values)
+    return dict(tokens=int(flips.sum()),
+                prob_gap=(top[:, k - 1] - top[:, k])[flips].tolist(),
+                log_gap=log_gap[flips].tolist(),
+                spread=spread[flips].tolist(),
+                median_log_gap_all=float(log_gap.median()),
+                largest_spread_all=float(spread.max()),
+                largest_relative_spread=float(rel.max()))
+
+
+def flipped(routes, want):
+    """Tokens whose expert set differs from ``want``'s, per MoE layer."""
+    return [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+            for a, b in zip(routes, want)]
+
+
+def ample_capacity(cfg, params, batch, label, card):
+    """Capacity dispatch with room for every pair against dense dispatch's
+    last logits: the factor from the config's-factor run's largest expert
+    load, ``CAPACITY_ROOM`` times over, and every MoE call of the ample run
+    checked to have dropped nothing."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.nn import moe as M
+    b, s = batch["tokens"].shape
+    t, k, e = b * s, cfg.top_k, cfg.num_experts
+    loads = []
+    with expert_loads(loads, e):
+        make_prefill_step(dataclasses.replace(cfg, moe_dispatch="capacity"))(
+            params, batch)
+    factor = CAPACITY_ROOM * max(loads) * e / (t * k)
+    ample = dataclasses.replace(cfg, moe_dispatch="capacity",
+                                moe_capacity_factor=factor)
+    cap = M.capacity(t, k, e, factor)
+    loads_ample = []
+    with expert_loads(loads_ample, e):
+        got = make_prefill_step(ample)(params, batch)
+    if max(loads_ample) > cap or len(loads_ample) != moe_layers(cfg):
+        raise AssertionError(f"{label}: the ample run dropped pairs (loads "
+                             f"{loads_ample}, capacity {cap})")
+    res = dict(capacity_loads_1_25=loads, ample_factor=factor,
+               ample_capacity=cap, ample_loads=loads_ample,
+               default_capacity=M.capacity(t, k, e, cfg.moe_capacity_factor))
+    return got, res
+
+
+def run_deepseek(dev, rng, card):
+    """Phase 10 (a)-(c): deepseek-v2-lite-16b at full width and depth.
+    (a) fp32, dense dispatch: the prefill at B = 1, S = 2,048 (its time,
+    model-FLOP rate against 67 TFLOP/s, peak memory; 26 topk launches); a
+    64-token prompt at B = 4 through decode_step ends at the prefill's
+    last logits within LM_LOGIT_TOL; a steady decode step (26 topk
+    launches) against reading the weights; ServeEngine answers 8 greedy
+    requests. (b) the same weights under capacity dispatch: at the
+    config's factor 1.25 the prefill's time and two prefills bitwise; with
+    room for every pair (ample_capacity) within LM_LOGIT_TOL of (a)'s
+    dense prefill. (c) the fp32 tree freed, the bf16 tree drawn from the
+    same generator (routers fp32): the bf16 prefill's time against 989
+    TFLOP/s; the prompt through a bf16 decode_step within twice the bf16
+    prefill's own error (e_b, its largest |bf16 - fp32| logit) of the bf16
+    prefill and of the fp32 one, as phase 9a holds glm4-9b, with every run
+    on the fp32 prefill's experts (``routed``): in bf16 the randomly drawn
+    routers' near-ties pick other experts at up to half of the tokens of
+    a layer (NVIDIA H100 80GB HBM3, 700.00 W: 5 to 126 of 256 in the bf16
+    prefill, 7 to 138 in the bf16 decode, against the fp32 prefill), so
+    that two bf16 runs with free routing differ by which experts they took
+    (the free runs' differences are printed beside the flips); in the
+    first MoE layer of the free bf16 prefill and decode, each token that
+    takes other experts than the fp32 prefill has its k-th minus (k+1)-th
+    gap within the change of its router logits, and that change is
+    bf16-sized (``flip_gaps``, BF16_ROUTER_SPREAD); a bf16
+    decode step's
+    time; phase 7's profile of the bf16 prefill with the dense dispatch's
+    experts' share (one MoE layer's experts and combine profiled alone,
+    times the 26 layers)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.nn import moe as M
+    from repro_torch.nn import transformer as T
+    cfg = get_arch(MOE_ARCH)
+    params, res = draw_lm(cfg, dev, "10a")
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (MOE_B, MOE_S))).to(dev)
+    batch = {"tokens": tok}
+    tok_b = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_B, LM_DECODE_PROMPT))).to(dev)
+    prefill = make_prefill_step(cfg)
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        last, launches = counted(lambda: prefill(params, batch))
+        check_topk_launches(launches, cfg, "prefill")
+        finite_logits(last, (MOE_B, cfg.vocab_size), "10a prefill")
+        res["prefill_launches"] = launches
+        _, r = timed_prefill(params, cfg, batch, "10a", card)
+        res.update(r)
+        release()
+        r, want = decode_against_prefill(params, cfg, tok_b, "10a", card)
+        res.update(r)
+        routes32, probs32 = [], []   # the fp32 prefill's experts, probs
+        with routed(lambda i, idx: routes32.append(idx) or idx), \
+                router_inputs(lambda p, k: probs32.append(p.clone())):
+            make_prefill_step(cfg)(params, {"tokens": tok_b})
+        cache = T.init_decode_cache(cfg, LM_B, 8, device=dev,
+                                    dtype=torch.float32)
+        step = make_serve_step(cfg)
+        _, launches = counted(lambda: step(params, cache, {
+            "tokens": tok_b[:, :1],
+            "pos": torch.zeros(LM_B, dtype=torch.long, device=dev)}))
+        check_topk_launches(launches, cfg, "decode step")
+        res["decode_step_launches"] = launches
+        log(f"[phase 10a] topk_scores launches: {launches['topk']} per "
+            f"decode step and {res['prefill_launches']['topk']} per prefill "
+            f"({moe_layers(cfg)} MoE layers), no other kernel")
+    res.update(serve_requests(cfg, params, rng, "10a"))
+    with torch.inference_mode():
+        cap = dataclasses.replace(cfg, moe_dispatch="capacity")
+        first = make_prefill_step(cap)(params, batch)
+        again = make_prefill_step(cap)(params, batch)
+        res.update(capacity_bitwise=bool(torch.equal(first, again)),
+                   capacity_vs_dense=max_abs_diff(first, last),
+                   capacity_prefill_ms=time_ms(
+                       lambda: make_prefill_step(cap)(params, batch), reps=2,
+                       warmup=0))
+        if not res["capacity_bitwise"]:
+            raise AssertionError(f"10b: two capacity prefills differ by "
+                                 f"{max_abs_diff(first, again)}")
+        del first, again
+        got, r = ample_capacity(cfg, params, batch, "10b", card)
+        res.update(r)
+        res["dropping_layers"] = sum(load > res["default_capacity"]
+                                     for load in res["capacity_loads_1_25"])
+        res["ample_vs_dense"] = max_abs_diff(got, last)
+        torch.testing.assert_close(got, last, **LM_LOGIT_TOL)
+        log(f"[phase 10b] capacity dispatch, factor "
+            f"{cfg.moe_capacity_factor} ({res['default_capacity']} slots an "
+            f"expert; largest loads {max(res['capacity_loads_1_25'])}): "
+            f"prefill {res['capacity_prefill_ms']:.1f} ms against dense "
+            f"dispatch's {res['prefill_ms']:.1f} ms, two prefills bitwise "
+            f"equal, {res['capacity_vs_dense']:.4g} from dense (pairs "
+            f"dropped in {res['dropping_layers']} of "
+            f"{len(res['capacity_loads_1_25'])} layers); factor "
+            f"{res['ample_factor']:.3f} ({res['ample_capacity']} slots, "
+            f"nothing dropped in any of {len(res['ample_loads'])} layers) "
+            f"== dense within {LM_LOGIT_TOL} (max |diff| "
+            f"{res['ample_vs_dense']:.3g}); {card}")
+        del got, last
+    del params, cache
+    release()
+    p16, r = draw_lm(cfg, dev, "10c", bf16=True)
+    res["bf16_param_bytes"] = r["param_bytes"]
+    routers = {t.dtype for n, t in T.leaves(p16) if n.endswith(".router")}
+    if routers != {torch.float32}:
+        raise AssertionError(f"bf16 tree's routers are {routers}")
+    with torch.inference_mode():
+        last16, r = timed_prefill(p16, cfg, batch, "10c", card, reps=3,
+                                  bf16=True)
+        res.update({f"bf16_{k}": v for k, v in r.items()})
+        del last16
+        # free routing: every bf16 run picks its own experts
+        n = moe_layers(cfg)
+        free = {"prefill": [], "decode": []}
+        free_p = {"prefill": [], "decode": []}
+        with routed(lambda i, idx: free["prefill"].append(idx) or idx), \
+                router_inputs(lambda p, k: free_p["prefill"].append(p.clone())):
+            want16 = make_prefill_step(cfg)(p16, {"tokens": tok_b})
+        with routed(lambda i, idx: free["decode"].append(idx) or idx), \
+                router_inputs(lambda p, k: free_p["decode"].append(p.clone())):
+            got16, _ = decode_prompt(p16, cfg, tok_b)
+
+        def by_layer(calls, layer):   # the decode's calls, prompt order
+            return torch.stack(calls[layer::n], 1).reshape(
+                LM_B * LM_DECODE_PROMPT, -1)
+        steps = [by_layer(free["decode"], layer) for layer in range(n)]
+        # the first MoE layer's flips against the fp32 prefill: each one's
+        # gap between the k-th and (k+1)-th expert, against the change in
+        # its router logits in that run
+        gaps = {"prefill": flip_gaps(routes32[0], free["prefill"][0],
+                                     probs32[0], free_p["prefill"][0],
+                                     cfg.top_k),
+                "decode": flip_gaps(routes32[0], steps[0], probs32[0],
+                                    by_layer(free_p["decode"], 0),
+                                    cfg.top_k)}
+        del free_p
+        res["bf16_first_layer_flips"] = gaps
+        for run, g in gaps.items():
+            wide = [(a, b) for a, b in zip(g["log_gap"], g["spread"])
+                    if a > b + ROUTER_LOG_SLACK]
+            if wide or g["largest_relative_spread"] > BF16_ROUTER_SPREAD:
+                raise AssertionError(
+                    f"10c bf16 {run}, first MoE layer: flips whose gap "
+                    f"exceeds the logits' change {wide}, or a change "
+                    f"{g['largest_relative_spread']} of the logits' range "
+                    f"above {BF16_ROUTER_SPREAD}")
+            log(f"[phase 10c] bf16 {run}, first MoE layer: {g['tokens']} of "
+                f"{LM_B * LM_DECODE_PROMPT} tokens take other experts than "
+                f"the fp32 prefill; their k-th minus (k+1)-th probability "
+                f"gaps {[float(f'{x:.3g}') for x in g['prob_gap']]} (log "
+                f"{[float(f'{x:.3g}') for x in g['log_gap']]}) each <= the "
+                f"change of their logits' spread "
+                f"{[float(f'{x:.3g}') for x in g['spread']]}; every token's "
+                f"median log gap {g['median_log_gap_all']:.4g}, the largest "
+                f"change {g['largest_spread_all']:.4g} = "
+                f"{g['largest_relative_spread']:.4g} of its logits' range "
+                f"(<= {BF16_ROUTER_SPREAD}); {card}")
+        res.update(
+            bf16_free_ref_err=max_abs_diff(want16.float(), want),
+            bf16_free_decode_vs_prefill=max_abs_diff(got16.float(),
+                                                     want16.float()),
+            bf16_free_decode_vs_fp32=max_abs_diff(got16.float(), want),
+            bf16_prefill_flips=flipped(free["prefill"], routes32),
+            bf16_decode_flips=flipped(steps, routes32))
+        # pinned routing: every run takes the fp32 prefill's experts, so
+        # that what is compared is the arithmetic in bf16
+        with routed(lambda i, idx: routes32[i]):
+            want16 = make_prefill_step(cfg)(p16, {"tokens": tok_b})
+        with routed(lambda i, idx: routes32[i % n].reshape(
+                LM_B, LM_DECODE_PROMPT, -1)[:, i // n]):
+            got16, cache16 = decode_prompt(p16, cfg, tok_b)
+        e_b = max_abs_diff(want16.float(), want)
+        res.update(bf16_decode_ref_err=e_b,
+                   bf16_decode_vs_prefill=max_abs_diff(got16.float(),
+                                                       want16.float()),
+                   bf16_decode_vs_fp32=max_abs_diff(got16.float(), want))
+        if not (got16.dtype == torch.bfloat16 and
+                res["bf16_decode_vs_prefill"] <= 2 * e_b and
+                res["bf16_decode_vs_fp32"] <= 2 * e_b):
+            raise AssertionError(f"10c bf16 decode: {got16.dtype}, "
+                                 f"{res['bf16_decode_vs_prefill']}, "
+                                 f"{res['bf16_decode_vs_fp32']}, e_b {e_b}")
+        log(f"[phase 10c] bf16 routing: of the prompt's "
+            f"{LM_B * LM_DECODE_PROMPT} tokens, the bf16 prefill picks "
+            f"other experts than the fp32 prefill at "
+            f"{res['bf16_prefill_flips']} a MoE layer and the bf16 decode "
+            f"at {res['bf16_decode_flips']}; with the "
+            f"experts free, bf16 decode vs the bf16 prefill "
+            f"{res['bf16_free_decode_vs_prefill']:.4g}, vs the fp32 prefill "
+            f"{res['bf16_free_decode_vs_fp32']:.4g}, the bf16 prefill's own "
+            f"error {res['bf16_free_ref_err']:.4g}; {card}")
+        step_batch = {"tokens": tok_b[:, -1:],
+                      "pos": torch.full((LM_B,), LM_DECODE_PROMPT - 1,
+                                        device=dev)}
+        res["bf16_decode_step_ms"] = time_ms(
+            lambda: step(p16, cache16, step_batch), reps=10, warmup=2)
+        res["bf16_decode_floor_ms"] = (res["bf16_param_bytes"]
+                                       / HBM_BYTES_PER_S * 1e3)
+        log(f"[phase 10c] bf16, every run on the fp32 prefill's experts: "
+            f"{LM_DECODE_PROMPT} tokens through decode_step vs the bf16 prefill "
+            f"{res['bf16_decode_vs_prefill']:.4g}, vs the fp32 prefill "
+            f"{res['bf16_decode_vs_fp32']:.4g}, each <= twice the bf16 "
+            f"prefill's own error {e_b:.4g}; a steady bf16 decode step "
+            f"{res['bf16_decode_step_ms']:.3f} ms against the "
+            f"{res['bf16_decode_floor_ms']:.3f} ms of reading the weights; "
+            f"{card}")
+        del cache16
+        w = profiled(lambda: prefill(p16, batch), 1, host=False)
+        lp = T.layer_params(p16["groups"][1], 0)["moe"]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn((MOE_B * MOE_S, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        combine = torch.rand((MOE_B * MOE_S, cfg.num_experts), generator=gen,
+                             device=dev).to(torch.bfloat16)
+
+        def experts():
+            y = M._experts(lp, x[None], cfg.mlp_act)
+            return torch.einsum("etd,te->td", y, combine)
+        core = profiled(experts, 1, host=False)["busy_us"] * moe_layers(cfg)
+    top = sorted(w["by_name"].items(), key=lambda kv: -kv[1])[:8]
+    profile = dict(step_ms=w["wall_us"] / 1e3,
+                   device_ms_per_step=w["busy_us"] / 1e3,
+                   idle_share=1.0 - w["busy_us"] / w["wall_us"],
+                   device_events=w["count"], experts_ms=core / 1e3,
+                   experts_share=core / w["busy_us"],
+                   top_device_ms_per_step={n: t / 1e3 for n, t in top})
+    log(f"[phase 7] {cfg.name} bf16 prefill (B={MOE_B}, S={MOE_S}): "
+        f"{profile['step_ms']:.1f} ms, device busy "
+        f"{profile['device_ms_per_step']:.1f} ms, idle share "
+        f"{profile['idle_share']:.3f}; dense dispatch's experts and combine "
+        f"{profile['experts_ms']:.1f} ms = {profile['experts_share']:.3f} of "
+        f"device busy ({moe_layers(cfg)} layers x one layer alone); top "
+        f"{profile['top_device_ms_per_step']}; {card}")
+    del p16
+    release()
+    return res, profile
+
+
+def run_arctic(dev, rng, card):
+    """Phase 10 (d): arctic-480b at full width; every layer is an MoE
+    layer, so its depth is cut. 1 of 35 layers in fp32: the prefill at
+    B = 1, S = 1,024 (time; 1 topk launch); a 64-token prompt through
+    decode_step == the prefill within LM_LOGIT_TOL; capacity dispatch with
+    room for every pair == dense dispatch. Then 2 layers in bf16 (routers
+    fp32): the prefill's time, a decode step at B = 4 against reading the
+    weights, ServeEngine answers 4 requests."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_prefill_step
+    base = get_arch(ARCTIC_ARCH)
+    out = {}
+    for depth, bf16 in ((ARCTIC_DEPTH_FP32, False), (ARCTIC_DEPTH_BF16, True)):
+        cfg = dataclasses.replace(base, num_layers=depth)
+        label = f"10d {depth} of {base.num_layers} layers"
+        params, res = draw_lm(cfg, dev, label, bf16=bf16)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (1, ARCTIC_S))).to(dev)
+        batch = {"tokens": tok}
+        tok_b = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (LM_B, LM_DECODE_PROMPT))).to(dev)
+        with torch.inference_mode():
+            last, launches = counted(
+                lambda: make_prefill_step(cfg)(params, batch))
+            check_topk_launches(launches, cfg, f"{label} prefill")
+            _, r = timed_prefill(params, cfg, batch, label, card, bf16=bf16)
+            res.update(r)
+            release()
+            if bf16:
+                from repro_torch.launch.steps import make_serve_step
+                from repro_torch.nn import transformer as T
+                cache = T.init_decode_cache(cfg, LM_B, LM_DECODE_PROMPT,
+                                            device=dev, dtype=torch.bfloat16)
+                step = make_serve_step(cfg)
+                step_batch = {"tokens": tok_b[:, :1],
+                              "pos": torch.zeros(LM_B, dtype=torch.long, device=dev)}
+                res["decode_step_ms"] = time_ms(
+                    lambda: step(params, cache, step_batch), reps=10,
+                    warmup=2)
+                res["decode_floor_ms"] = (res["param_bytes"]
+                                          / HBM_BYTES_PER_S * 1e3)
+                log(f"[phase {label}] bf16 decode step at B={LM_B}: "
+                    f"{res['decode_step_ms']:.3f} ms against the "
+                    f"{res['decode_floor_ms']:.3f} ms of reading "
+                    f"{res['param_bytes'] / 1e9:.2f} GB of weights; {card}")
+                del cache
+            else:
+                r, _ = decode_against_prefill(params, cfg, tok_b, label,
+                                              card)
+                res.update(r)
+                got, r = ample_capacity(cfg, params, batch, label, card)
+                res.update(r)
+                res["ample_vs_dense"] = max_abs_diff(got, last)
+                torch.testing.assert_close(got, last, **LM_LOGIT_TOL)
+                log(f"[phase {label}] capacity dispatch, factor "
+                    f"{res['ample_factor']:.3f} ({res['ample_capacity']} "
+                    f"slots an expert, largest loads {res['ample_loads']}) "
+                    f"== dense dispatch within {LM_LOGIT_TOL} (max |diff| "
+                    f"{res['ample_vs_dense']:.3g}); {card}")
+                del got
+            del last
+        if bf16:
+            res.update(serve_requests(cfg, params, rng, label,
+                                      ARCTIC_REQUESTS))
+        out[f"depth_{depth}_{'bf16' if bf16 else 'fp32'}"] = res
+        del params
+        release()
+    return out
+
+
+def run_moe_train(dev, card):
+    """Phase 10 (e): deepseek-v2-lite-16b training at full width, its dense
+    layer and one MoE layer, fp32 weights drawn on the card (seed 0), remat
+    on: MOE_TRAIN_STEPS ``make_train_step`` Adam steps on ``TokenStream``
+    batches at B = 1, S = 1,024: finite losses, ``moe_aux`` finite and above
+    0, a non-zero router gradient (one ``loss_and_grads`` of the first
+    batch), each step's time on CUDA events and the peak device memory."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.nn import transformer as T
+    from repro_torch.training.optimizer import adam
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), num_layers=MOE_TRAIN_DEPTH)
+    if not cfg.remat:
+        raise AssertionError(f"{cfg.name}: remat is off")
+    params, res = draw_lm(cfg, dev, "10e")
+    stream = TokenStream(cfg.vocab_size, MOE_TRAIN_B, MOE_TRAIN_S, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in next(stream).items()}
+               for _ in range(MOE_TRAIN_STEPS)]
+    _, aux, grads = loss_and_grads(params, cfg, batches[0])
+    router = [g for n, g in grads.items() if n.endswith(".router")]
+    res["router_grad_max"] = max(float(g.abs().max()) for g in router)
+    del grads
+    if not (len(router) == 1 and res["router_grad_max"] > 0):
+        raise AssertionError(f"10e router gradients: {len(router)} leaves, "
+                             f"largest |g| {res['router_grad_max']}")
+    optimizer = adam(LM_TRAIN_LR)
+    opt_state = optimizer.init(dict(T.leaves(params)))
+    step = make_train_step(cfg, optimizer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, m = step(params, opt_state, batch)
+        end.record()
+        end.synchronize()
+        steps.append(dict(loss=float(m["loss"]), moe_aux=float(m["moe_aux"]),
+                          ms=start.elapsed_time(end)))
+        if not (np.isfinite(steps[-1]["loss"]) and
+                np.isfinite(steps[-1]["moe_aux"]) and
+                steps[-1]["moe_aux"] > 0):
+            raise AssertionError(f"10e step {i}: {steps[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    if int(opt_state.step) != MOE_TRAIN_STEPS or peak >= CARD_BYTES:
+        raise AssertionError(f"10e: optimizer step {int(opt_state.step)}, "
+                             f"peak {peak} bytes")
+    res.update(steps=steps, peak_bytes=peak)
+    log(f"[phase 10e] {cfg.name}, {MOE_TRAIN_DEPTH} of 27 layers (dense + "
+        f"MoE), fp32, remat on, B={MOE_TRAIN_B}, S={MOE_TRAIN_S}: losses "
+        f"{[round(x['loss'], 6) for x in steps]}, moe_aux "
+        f"{[round(x['moe_aux'], 6) for x in steps]}, step times "
+        f"{[round(x['ms'], 1) for x in steps]} ms; the router's gradient "
+        f"non-zero (largest |g| {res['router_grad_max']:.3g}); peak device "
+        f"memory {peak / 1e9:.2f} GB; {card}")
+    del params, opt_state, step
+    release()
+    return res
+
+
+def router_topk(inputs, card):
+    """Row 7 (topk_scores) on the MoE path's own router probabilities:
+    ``inputs`` maps each (T, E, k) that phase 10 gave ``topk_padded`` to
+    the first probabilities it saw there (deepseek's prefill, prompt,
+    training and B = 4 decode rows at E 64, k 6; arctic's at E 128, k 2,
+    which take the kernel's other template). At each shape: the kernel
+    against topk_plain (values bitwise, indices ==), each timed beside
+    torch.topk, with the byte bound (the probabilities read once, the
+    values and int64 indices written once). Run after phase 10's counts
+    are read: these launches are on no path."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import topk as K
+    want = set()
+    for name, rows in ((MOE_ARCH, MOE_B * MOE_S), (ARCTIC_ARCH, ARCTIC_S)):
+        cfg = get_arch(name)
+        want |= {(t, cfg.num_experts, cfg.top_k) for t in (rows, LM_B)}
+    if not want <= set(inputs):
+        raise AssertionError(f"router shapes {sorted(want - set(inputs))} "
+                             f"never reached topk_padded in phase 10")
+    out = {}
+    with torch.inference_mode():
+        for (t, e, k), probs in sorted(inputs.items()):
+            label = f"T {t} x E {e}, k {k}"
+            if not same_topk(K.topk_scores(probs, k), K.topk_plain(probs, k)):
+                raise AssertionError(f"topk_scores at the router's shape "
+                                     f"{label} differs from topk_plain")
+            b_ms, b_by = bound_ms(t * e * 4 + t * k * (4 + 8), t * e)
+            res = out[label] = dict(
+                bound_ms=b_ms, bound_by=b_by,
+                ms=time_ms(lambda: K.topk_scores(probs, k)),
+                plain_ms=time_ms(lambda: K.topk_plain(probs, k)),
+                library_ms=time_ms(lambda: torch.topk(probs, k)))
+            log(f"[phase 10] topk_scores on the router's probabilities "
+                f"({label}): == topk_plain; {res['ms']:.4f} ms (CUDA events, "
+                f"one call), plain {res['plain_ms']:.4f} ms, torch.topk "
+                f"{res['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+                f"{card}")
+    return out
+
+
+def run_lm10(dev, rng, card):
+    """Phase 10, after phase 9 has freed its memory: (a)-(c) deepseek, (d)
+    arctic, (e) MoE training; topk_scores the only kernel launched. Then
+    topk_scores against topk_plain and timed on the router probabilities
+    of every shape the phase gave it (``router_topk``)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    release()
+    reset_counts()
+    t0 = time.perf_counter()
+    res, inputs = {}, {}
+    with router_inputs(lambda p, k: inputs.setdefault(
+            (*p.shape, k), p.detach().clone())):
+        res["deepseek"], profile = run_deepseek(dev, rng, card)
+        res["arctic"] = run_arctic(dev, rng, card)
+        res["train"] = run_moe_train(dev, card)
+    counts = launch_counts()
+    if counts["topk"] == 0 or any(v for n, v in counts.items()
+                                  if n != "topk"):
+        raise AssertionError(f"phase 10 launches: {counts}")
+    res.update(launches=counts, seconds=time.perf_counter() - t0)
+    log(f"[phase 10] {res['seconds']:.1f} s; launches {counts}")
+    res["router_topk"] = router_topk(inputs, card)
+    return res, profile
+
+
+def run_whisper(dev, rng, card):
+    """Phase 11 (a): whisper-large-v3 at full width and depth, fp32. The
+    prefill at B = 4, S = 448 over frame embeddings (4, 1,500, 1,280) drawn
+    from the seed: its time; a 64-token prompt through decode_step, with
+    the cache's encoder_out the encoder's output of the same frames, ==
+    the prefill within LM_LOGIT_TOL, once recomputing the cross k and v
+    each step and once with them cached (cache_cross_kv); ServeEngine
+    answers 8 requests (zero frames, the reference's serving)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    cfg = get_arch(WHISPER_ARCH)
+    params, res = draw_lm(cfg, dev, "11a")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn((WHISPER_B, cfg.encoder_frames, cfg.d_model),
+                         generator=gen, device=dev)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (WHISPER_B, WHISPER_S))).to(dev)
+    with torch.inference_mode():
+        _, r = timed_prefill(params, cfg, {"tokens": tok,
+                                           "audio_frames": frames},
+                             "11a", card)
+        res.update(r)
+        tok_b = tok[:, :LM_DECODE_PROMPT].contiguous()
+        for c, label in ((cfg, "recomputed"),
+                         (dataclasses.replace(cfg, cache_cross_kv=True),
+                          "cached")):
+            r, _ = decode_against_prefill(params, c, tok_b,
+                                          f"11a cross k, v {label}", card,
+                                          audio_frames=frames)
+            res[f"cross_kv_{label}"] = r
+    res.update(serve_requests(cfg, params, rng, "11a"))
+    del params, frames
+    release()
+    return res
+
+
+def run_vlm(dev, rng, card):
+    """Phase 11 (b): qwen2-vl-7b at full width and depth, fp32. The prefill
+    at B = 2, S = 2,048 with vision embeddings drawn from the seed and 3-D
+    positions (time, then a 32-wide grid's row and column: M-RoPE on
+    _mea): its time and model-FLOP rate against 67 TFLOP/s; a 64-token
+    prompt through decode_step at positions_3d = t == the prefill (default
+    positions) within LM_LOGIT_TOL; ServeEngine answers 8 requests."""
+    import torch
+    from repro_torch.configs import get_arch
+    cfg = get_arch(VLM_ARCH)
+    params, res = draw_lm(cfg, dev, "11b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vision = 0.5 * torch.randn((VLM_B, VLM_S, cfg.vision_dim), generator=gen,
+                               device=dev)
+    t = torch.arange(VLM_S, device=dev)
+    positions = torch.stack([t, t // 32, t % 32], -1)[None].expand(
+        VLM_B, VLM_S, 3)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (VLM_B, VLM_S))).to(dev)
+    with torch.inference_mode():
+        _, r = timed_prefill(params, cfg, {"tokens": tok,
+                                           "vision_embeds": vision,
+                                           "positions": positions},
+                             "11b", card)
+        res.update(r)
+        release()
+        r, _ = decode_against_prefill(
+            params, cfg, tok[:LM_B, :LM_DECODE_PROMPT].contiguous(), "11b",
+            card)
+        res.update(r)
+    res.update(serve_requests(cfg, params, rng, "11b"))
+    del params, vision
+    release()
+    return res
+
+
+def run_lm11(dev, rng, card):
+    """Phase 11, after phase 10 has freed its memory: (a) whisper, (b)
+    qwen2-vl; (c) no kernel launched."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    release()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = {"whisper": run_whisper(dev, rng, card),
+           "vlm": run_vlm(dev, rng, card)}
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"phase 11 launched kernels: {counts}")
+    res.update(launches=counts, seconds=time.perf_counter() - t0)
+    log(f"[phase 11c] no kernel launched in phase 11 ({res['seconds']:.1f} "
+        f"s): {counts}")
+    return res
 
 
 # ---------------------------------------------------------------------- #
@@ -4708,6 +5524,12 @@ def main() -> int:
     # reset before and read after the whole phase, which launches none
     lm9, profiles9 = run_lm9(dev, rng, card)
     profiles.update(profiles9)
+    # phase 10: the MoE family; counts reset before and read after the
+    # whole phase, whose one kernel is the router's topk
+    lm10, profiles["moe_prefill_bf16"] = run_lm10(dev, rng, card)
+    # phase 11: the multimodal backbones; counts reset before and read
+    # after the whole phase, which launches none
+    lm11 = run_lm11(dev, rng, card)
 
     kernels = []
     # each kernel's head shape: the mini-batch path's where it runs there
@@ -4737,7 +5559,9 @@ def main() -> int:
                    "audit": spmd["audit"]["launches"][name],
                    "lm": lm_launches[name],
                    "lm_train": lm_train_launches[name],
-                   "lm_dense_hybrid": lm9["launches"][name]}
+                   "lm_dense_hybrid": lm9["launches"][name],
+                   "lm_moe": lm10["launches"][name],
+                   "lm_multimodal": lm11["launches"][name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),
@@ -4790,6 +5614,7 @@ def main() -> int:
                        "citation2": c2, "spmd": spmd,
                        "embedding_max_abs_diff": emb_err,
                        "lm": lm, "lm_train": lm_train, "lm9": lm9,
+                       "lm10": lm10, "lm11": lm11,
                        "profile": profiles,
                        "total_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"[profiler] {WINDOWS['taken']} windows, {WINDOWS['incomplete']} "

@@ -26,15 +26,26 @@ class InputShape:
 
 def _param_counts(cfg: ArchConfig) -> Tuple[float, float]:
     """``(total, active)`` parameter counts; active excludes the embedding
-    and the LM head (the 6ND convention). The reference's discount of
-    routed experts applies to MoE layers, which the port does not have
-    yet."""
+    and the LM head (the 6ND convention) and counts the routed experts'
+    stacks (``moe.w_in``, ``moe.w_gate``, ``moe.w_out``, expert axis
+    ``num_experts`` long) at their ``top_k / num_experts`` use. The
+    reference discounts every leaf of 3 or more dimensions under ``moe``
+    with those names, so also the stacked shared experts (deepseek) and
+    dense branch (arctic), which every token uses: its active count is
+    1.834 B for deepseek-v2-lite-16b and 11.52 B for arctic-480b, where
+    this one's is 2.242 B and 15.13 B (ROADMAP, known faults on the
+    reference side). For every other architecture the two are equal."""
     total = active = 0.0
     for name, t in leaves(init_params(cfg, generator=None, device="meta")):
         n = float(t.numel())
         total += n
-        if name.split(".")[0] not in ("embed", "lm_head"):
-            active += n
+        parts = name.split(".")
+        if parts[0] in ("embed", "lm_head"):
+            continue
+        if parts[-2:-1] == ["moe"] and parts[-1] in (
+                "w_in", "w_gate", "w_out") and t.shape[-3] == cfg.num_experts:
+            n *= cfg.top_k / max(cfg.num_experts, 1)
+        active += n
     return total, active
 
 
@@ -64,11 +75,14 @@ def model_flops(cfg: ArchConfig, shape: InputShape) -> float:
 
 
 def _attention_layer_count(cfg: ArchConfig) -> int:
-    """The stack's attention layers (a hybrid's ``attn`` blocks)."""
+    """The stack's attention layers (a hybrid's ``attn`` blocks), and the
+    encoder's layers of an encoder-decoder."""
     n = 0
     for kind, cnt, _ in stack_plan(cfg):
         if kind == "pattern":
             n += cnt * sum(1 for k in cfg.hybrid_pattern if k == "attn")
         elif kind in ("dense", "moe", "dec", "enc"):
             n += cnt
+    if cfg.arch_type == "encdec":
+        n += cfg.encoder_layers
     return n

@@ -3,9 +3,11 @@
 ``loss_and_grads`` — the loss, its aux and every leaf's gradient.
 ``train_step`` — those, then one optimizer step, in place.
 ``prefill_step`` — the full-sequence forward (inference prefill) → the
-last position's logits. ``serve_step`` — ONE new token at ``batch["pos"]``
-against the KV cache and recurrent state, greedy-sampled (argmax, the
-first index on ties).
+last position's logits; the batch may hold ``positions``,
+``vision_embeds`` and ``audio_frames``. ``serve_step`` — ONE new token at
+``batch["pos"]`` (and ``batch["positions_3d"]`` under M-RoPE) against the
+KV cache and recurrent state, greedy-sampled (argmax, the first index on
+ties).
 """
 from __future__ import annotations
 
@@ -60,8 +62,10 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer) -> Callable:
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     def prefill_step(params: PyTree, batch: Dict[str, torch.Tensor]
                      ) -> torch.Tensor:
-        last_logits, _ = prefill(params, cfg, batch["tokens"],
-                                 positions=batch.get("positions"))
+        last_logits, _ = prefill(
+            params, cfg, batch["tokens"], positions=batch.get("positions"),
+            vision_embeds=batch.get("vision_embeds"),
+            audio_frames=batch.get("audio_frames"))
         return last_logits
     return prefill_step
 
@@ -71,6 +75,7 @@ def make_serve_step(cfg: ArchConfig) -> Callable:
                    batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, PyTree]:
         logits, cache = decode_step(params, cfg, batch["tokens"], cache,
-                                    batch["pos"])
+                                    batch["pos"],
+                                    positions_3d=batch.get("positions_3d"))
         return torch.argmax(logits[:, -1], dim=-1), cache
     return serve_step

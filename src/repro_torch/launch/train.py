@@ -14,11 +14,11 @@ rgcn-citation2`` trains the ogbl-citation2 stand-in in feature mode
 (128-d input features, edge mini-batches of 4,096 unless ``--batch-size``
 says otherwise; a sharded or int8 table is refused, as the reference
 refuses it). Every other ``--arch`` trains the LM (:func:`train_lm`):
-any ported architecture (the dense ones, ``rwkv6-3b``,
-``recurrentgemma-9b``) reduced (``--reduced`` is always on, as in the
-reference), ``--steps`` Adam steps of ``--batch`` x ``--seq``
-``TokenStream`` tokens; the architectures the port has not reached raise
-``NotImplementedError`` naming their ROADMAP item. The flags are the reference's, plus
+any of the reference's architectures reduced (``--reduced`` is always
+on, as in the reference), ``--steps`` Adam steps of ``--batch`` x
+``--seq`` ``TokenStream`` tokens (qwen2-vl with the reference's zero
+vision embeddings and 3-D positions, whisper with its zero frame
+embeddings). The flags are the reference's, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions).
 
 Under ``torchrun`` every rank runs this module: it joins the process group
@@ -274,6 +274,14 @@ def train_lm(args: argparse.Namespace) -> List[float]:
     for i in range(args.steps):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in next(stream).items()}
+        if cfg.arch_type == "vlm":
+            batch["vision_embeds"] = torch.zeros(
+                (args.batch, args.seq, cfg.vision_dim), device=dev)
+            batch["positions"] = torch.arange(args.seq, device=dev)[
+                None, :, None].expand(args.batch, args.seq, 3)
+        if cfg.arch_type == "encdec":
+            batch["audio_frames"] = torch.zeros(
+                (args.batch, cfg.encoder_frames, cfg.d_model), device=dev)
         t0 = time.perf_counter()
         params, opt_state, metrics = step(params, opt_state, batch)
         losses.append(float(metrics["loss"]))

@@ -1,29 +1,36 @@
 """The LM model definition (port of ``repro/nn/transformer.py``).
 
-``ArchConfig`` is the reference's whole configuration record. The port runs
-three of its families: ``"dense"`` decoder LMs (glm4, qwen3, qwen2.5,
-gemma), ``"rwkv"`` (RWKV-6) and the ``"hybrid"`` RG-LRU + local attention
-(recurrentgemma); the others (``moe``, ``encdec``, ``vlm``) raise
-``NotImplementedError`` naming their ROADMAP item. Parameters are the
-reference's tree — ``{"embed", "final_norm", "lm_head", "groups":
-[group]}`` — as plain dicts of tensors. A scanned group's leaves are
-stacked ``(L, ...)`` and a layer is a view into the stacks; a hybrid's
-scanned group stacks its repeating pattern (``{"sub0", "sub1", ...}``, one
-block kind each), and an unscanned group is a list of layers. Entry points:
+``ArchConfig`` is the reference's whole configuration record, and the port
+runs all of its families: ``"dense"`` decoder LMs (glm4, qwen3, qwen2.5,
+gemma), ``"moe"`` (arctic; deepseek-v2-lite with MLA attention and a first
+dense layer), ``"rwkv"`` (RWKV-6), the ``"hybrid"`` RG-LRU + local
+attention (recurrentgemma), the ``"encdec"`` whisper backbone (an encoder
+over precomputed frame embeddings, decoder blocks with cross attention)
+and the ``"vlm"`` qwen2-vl backbone (M-RoPE, projected patch embeddings
+added to the token embeddings). Parameters are the reference's tree —
+``{"embed", "final_norm", "lm_head", "vision_proj", "groups": [group],
+"encoder": {"groups", "final_norm"}}`` — as plain dicts of tensors. A
+scanned group's leaves are stacked ``(L, ...)`` and a layer is a view into
+the stacks; a hybrid's scanned group stacks its repeating pattern
+(``{"sub0", "sub1", ...}``, one block kind each), and an unscanned group
+is a list of layers. Entry points:
 
 * ``forward`` — full-sequence logits (``train=True`` recomputes each
   scanned block, or pattern body, in the backward when ``cfg.remat``);
-* ``loss_fn`` — the next-token cross entropy of a training step;
+* ``loss_fn`` — the next-token cross entropy of a training step, plus the
+  MoE load-balance loss;
 * ``prefill`` — the last position's logits and their argmax (the cache is
   not written, as in the reference);
-* ``decode_step`` — one token at position ``pos`` against the KV cache and
-  the recurrent state.
+* ``decode_step`` — one token at position ``pos`` against the KV cache,
+  MLA's compressed cache and the recurrent state.
 
 ``rwkv_mode`` picks the time mix's WKV form: ``"sequential"`` (the
 default), ``"chunked"`` (plain PyTorch, only when S is a multiple of
 ``rwkv_chunk``, else sequential) or ``"chunked_kernel"`` (the CUDA kernel on
-the card, any S). Without a mesh the reference's activation and logits
-sharding pins are no-ops, so there are none here.
+the card, any S). ``moe_dispatch`` picks the MoE layer's dispatch,
+``"dense"`` or ``"capacity"`` (``nn/moe.py``). Without a mesh the
+reference's activation and logits sharding pins are no-ops, so there are
+none here.
 """
 from __future__ import annotations
 
@@ -36,17 +43,14 @@ import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.nn import attention as attn
+from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import recurrent as rec
 from repro_torch.nn.layers import (
     Shape, dense_init, embed_init, full, mlp_apply, mlp_params, rmsnorm,
     rmsnorm_params,
 )
-from repro_torch.roadmap import not_ported
 
 PyTree = Any
-
-# the ROADMAP item of each unported architecture family
-_FAMILY_ITEMS = {"moe": "moe", "encdec": "multimodal", "vlm": "multimodal"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,14 +153,6 @@ class ArchConfig:
         )
 
 
-
-def unported(cfg: ArchConfig) -> NotImplementedError:
-    """The error for an architecture family the port does not run yet
-    (MLA comes with the MoE item)."""
-    key = "moe" if cfg.use_mla else _FAMILY_ITEMS[cfg.arch_type]
-    return not_ported(f"arch_type={cfg.arch_type!r} ({cfg.name})", key)
-
-
 # ====================================================================== #
 # Layer-stack plan: (kind, count, scanned) groups
 # ====================================================================== #
@@ -166,16 +162,20 @@ def _pattern(cfg: ArchConfig) -> Tuple[str, ...]:
 
 
 def stack_plan(cfg: ArchConfig) -> List[Tuple[str, int, bool]]:
-    """``(kind, n_layers, scanned)`` groups covering the stack in order:
-    one scanned group of ``dense`` or RWKV ``rec`` blocks; for the hybrid,
-    a scanned group of whole patterns, then the remainder's kinds one
-    unscanned layer each. Every entry point goes through it, so it is
-    where another family raises."""
-    if cfg.arch_type in _FAMILY_ITEMS or cfg.use_mla:
-        raise unported(cfg)
+    """``(kind, n_layers, scanned)`` groups covering the decoder stack in
+    order: one scanned group of ``dense`` blocks (``vlm`` too), ``dec``
+    blocks (``encdec``; its encoder is ``params["encoder"]``) or RWKV
+    ``rec`` blocks; for ``moe``, ``first_k_dense`` unscanned ``dense``
+    layers, then a scanned group of ``moe`` blocks; for the hybrid, a
+    scanned group of whole patterns, then the remainder's kinds one
+    unscanned layer each."""
     n = cfg.num_layers
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "vlm"):
         return [("dense", n, True)]
+    if cfg.arch_type == "moe":
+        first = cfg.first_k_dense
+        plan = [("dense", first, False)] if first else []
+        return plan + [("moe", n - first, True)]
     if cfg.arch_type == "rwkv":
         return [("rec", n, True)]
     if cfg.arch_type == "hybrid":
@@ -183,6 +183,8 @@ def stack_plan(cfg: ArchConfig) -> List[Tuple[str, int, bool]]:
         reps, rem = divmod(n, len(pattern))
         plan = [("pattern", reps, True)] if reps else []
         return plan + [(kind, 1, False) for kind in pattern[:rem]]
+    if cfg.arch_type == "encdec":
+        return [("dec", n, True)]
     raise ValueError(cfg.arch_type)
 
 
@@ -198,18 +200,40 @@ def _window(cfg: ArchConfig, kind: str) -> Optional[int]:
 def _block_params(generator, cfg: ArchConfig, kind: str, *,
                   lead: Shape = (), device="cpu",
                   dtype=torch.float32) -> Dict:
-    """One pre-norm block of ``kind``, stacked ``lead`` deep: ``dense`` and
-    ``attn`` (attention + MLP), ``rec`` (RWKV time mix + channel mix, or
-    under ``arch_type="hybrid"`` the RG-LRU + MLP)."""
+    """One pre-norm block of ``kind``, stacked ``lead`` deep: ``dense``,
+    ``attn`` and ``enc`` (attention + MLP), ``moe`` (attention + the MoE
+    layer), ``dec`` (attention, cross attention with its norm, MLP) — the
+    attention is MLA under ``cfg.use_mla`` — and ``rec`` (RWKV time mix +
+    channel mix, or under ``arch_type="hybrid"`` the RG-LRU + MLP)."""
     d = cfg.d_model
     kw = dict(lead=lead, device=device, dtype=dtype)
     p: Dict = {"norm1": rmsnorm_params(d, **kw),
                "norm2": rmsnorm_params(d, **kw)}
-    if kind in ("dense", "attn"):
-        p["attn"] = attn.attn_params(
-            generator, d, cfg.num_heads, cfg.num_kv_heads,
-            cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
-            qk_norm=cfg.qk_norm, **kw)
+    if kind != "rec":
+        if cfg.use_mla:
+            p["attn"] = attn.mla_params(
+                generator, d, cfg.num_heads, kv_lora_rank=cfg.kv_lora_rank,
+                qk_nope_head_dim=cfg.qk_nope_head_dim,
+                qk_rope_head_dim=cfg.qk_rope_head_dim,
+                v_head_dim=cfg.v_head_dim, **kw)
+        else:
+            p["attn"] = attn.attn_params(
+                generator, d, cfg.num_heads, cfg.num_kv_heads,
+                cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
+                qk_norm=cfg.qk_norm, **kw)
+        if kind == "dec":
+            p["cross_attn"] = attn.attn_params(
+                generator, d, cfg.num_heads, cfg.num_heads,
+                cfg.resolved_head_dim, **kw)
+            p["norm_cross"] = rmsnorm_params(d, **kw)
+        if kind == "moe":
+            p["moe"] = moe_lib.moe_params(
+                generator, d, num_experts=cfg.num_experts,
+                d_ff_expert=cfg.d_ff_expert or cfg.d_ff,
+                num_shared=cfg.num_shared_experts,
+                dense_residual_ff=cfg.d_ff if cfg.moe_dense_residual else 0,
+                glu=cfg.mlp_glu, **kw)
+            return p
     elif cfg.arch_type == "rwkv":
         p["rec"] = rec.rwkv_params(generator, d, cfg.rwkv_head_dim, **kw)
         # token-shifted squared-ReLU FFN
@@ -238,10 +262,11 @@ def init_params(cfg: ArchConfig, *, generator: Optional[torch.Generator],
     ``cuda``), in ``dtype``: bfloat16 by default, the reference's default
     (``repro.nn.transformer.init_params``); the values are drawn in fp32
     and rounded, so a bf16 tree is the fp32 tree of the same generator
-    rounded to bf16. Pass ``dtype=torch.float32`` for fp32 weights. The
-    draws differ from JAX's; parity tests start both sides from the JAX
-    weights (``repro_torch.convert.lm_params_from_jax``). On
-    ``device="meta"`` only the shapes are made (``generator`` may be
+    rounded to bf16. Every MoE ``router`` is fp32 whatever ``dtype``, as in
+    the reference (its router logits are fp32). Pass ``dtype=torch.float32``
+    for fp32 weights. The draws differ from JAX's; parity tests start both
+    sides from the JAX weights (``repro_torch.convert.lm_params_from_jax``).
+    On ``device="meta"`` only the shapes are made (``generator`` may be
     None)."""
     dev = (torch.device("meta") if str(device) == "meta"
            else resolve_device(device))
@@ -253,6 +278,9 @@ def init_params(cfg: ArchConfig, *, generator: Optional[torch.Generator],
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, cfg.d_model,
                                        cfg.vocab_size, **kw)
+    if cfg.vision_dim:
+        params["vision_proj"] = dense_init(generator, cfg.vision_dim,
+                                           cfg.d_model, **kw)
     groups = []
     for kind, n, scanned in stack_plan(cfg):
         if kind == "pattern":
@@ -266,6 +294,12 @@ def init_params(cfg: ArchConfig, *, generator: Optional[torch.Generator],
             groups.append([_block_params(generator, cfg, kind, **kw)
                            for _ in range(n)])
     params["groups"] = groups
+    if cfg.arch_type == "encdec":
+        params["encoder"] = {
+            "groups": [_block_params(generator, cfg, "enc",
+                                     lead=(cfg.encoder_layers,), **kw)],
+            "final_norm": rmsnorm_params(cfg.d_model, **kw),
+        }
     return params
 
 
@@ -335,43 +369,122 @@ def _rwkv_mix(p: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return rec.rwkv_apply(p["rec"], x, cfg.rwkv_head_dim)
 
 
+def _moe(p: Dict, cfg: ArchConfig, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE layer under ``cfg.moe_dispatch``: ``(out, aux)``."""
+    if cfg.moe_dispatch == "capacity":
+        return moe_lib.moe_apply_capacity(
+            p["moe"], x, top_k=cfg.top_k, act=cfg.mlp_act,
+            capacity_factor=cfg.moe_capacity_factor)
+    return moe_lib.moe_apply(p["moe"], x, top_k=cfg.top_k, act=cfg.mlp_act)
+
+
+def _cross(p: Dict, cfg: ArchConfig, h: torch.Tensor,
+           encoder_out: Optional[torch.Tensor],
+           cached_kv: Optional[Dict] = None) -> torch.Tensor:
+    """A ``dec`` block's cross attention to the encoder's output."""
+    return attn.cross_attention(
+        p["cross_attn"], rmsnorm(p["norm_cross"], h), encoder_out,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_heads,
+        head_dim=cfg.resolved_head_dim, cached_kv=cached_kv)
+
+
 def block_apply(p: Dict, cfg: ArchConfig, h: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                kind: str = "rec") -> torch.Tensor:
+                kind: str = "rec",
+                encoder_out: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Pre-norm residual block of ``kind`` over the whole sequence: the
-    mixer (attention with the block's window, the RWKV time mix or the
-    RG-LRU), then the channel half (the RWKV channel mix or the MLP). (The
-    reference's MoE auxiliary loss is 0 for these blocks, so none is
-    returned.)"""
+    mixer (attention with the block's window, MLA, the RWKV time mix or the
+    RG-LRU; an ``enc`` block's attention is not causal), a ``dec`` block's
+    cross attention to ``encoder_out``, then the channel half (the RWKV
+    channel mix, the MLP or the MoE layer). Returns ``(h, aux)``: ``aux``
+    is a ``moe`` block's load-balance loss, None for the other kinds."""
     x = rmsnorm(p["norm1"], h)
     if kind != "rec":
-        mix = attn.attention(
-            p["attn"], x, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-            positions=positions, rope_base=cfg.rope_base, m_rope=cfg.m_rope,
-            window=_window(cfg, kind))
+        causal = kind != "enc"
+        if cfg.use_mla:
+            mix = attn.mla_attention(
+                p["attn"], x, num_heads=cfg.num_heads,
+                kv_lora_rank=cfg.kv_lora_rank,
+                qk_nope_head_dim=cfg.qk_nope_head_dim,
+                qk_rope_head_dim=cfg.qk_rope_head_dim,
+                v_head_dim=cfg.v_head_dim, positions=positions,
+                rope_base=cfg.rope_base, causal=causal)
+        else:
+            mix = attn.attention(
+                p["attn"], x, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.resolved_head_dim, positions=positions,
+                rope_base=cfg.rope_base, m_rope=cfg.m_rope, causal=causal,
+                window=_window(cfg, kind))
     elif cfg.arch_type == "rwkv":
         mix = _rwkv_mix(p, cfg, x)
     else:
         mix = rec.rglru_apply(p["rec"], x)
     h = h + mix
+    if kind == "dec":
+        h = h + _cross(p, cfg, h, encoder_out)
     x2 = rmsnorm(p["norm2"], h)
+    if "moe" in p:
+        out, aux = _moe(p, cfg, x2)
+        return h + out, aux
     if "cmix" in p:
-        return h + _channel_full(p, x2)
-    return h + mlp_apply(p["mlp"], x2, cfg.mlp_act)
+        return h + _channel_full(p, x2), None
+    return h + mlp_apply(p["mlp"], x2, cfg.mlp_act), None
 
 
 def _pattern_apply(p: Dict, cfg: ArchConfig, h: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
-    """One repetition of the hybrid's pattern: its blocks in order."""
+                   positions: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One repetition of the hybrid's pattern: its blocks in order (none
+    of them an MoE block)."""
     for i, kind in enumerate(_pattern(cfg)):
-        h = block_apply(p[f"sub{i}"], cfg, h, positions, kind)
+        h, _ = block_apply(p[f"sub{i}"], cfg, h, positions, kind)
+    return h, None
+
+
+def _run_stack(groups: List[PyTree], plan: List[Tuple[str, int, bool]],
+               cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor, *,
+               encoder_out: Optional[torch.Tensor] = None,
+               remat: bool = False
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``h`` through the stack's groups in order: ``(h, the blocks' aux
+    summed, None without an MoE block)``. With ``remat`` each block of a
+    scanned group (each pattern body of the hybrid's) runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward, the
+    reference's ``jax.checkpoint`` around its scan body (policy "nothing"):
+    only the bodies' inputs are kept for the backward. Unscanned layers are
+    not rematerialized, as in the reference."""
+    aux = None
+    for gparams, (kind, n, scanned) in zip(groups, plan):
+        layers = unbind_layers(gparams, n) if scanned else gparams
+        for lp in layers:
+            if kind == "pattern":
+                fn, args = _pattern_apply, (lp, cfg, h, positions)
+            else:
+                fn, args = block_apply, (lp, cfg, h, positions, kind,
+                                         encoder_out)
+            if remat and scanned:
+                # the blocks draw no random numbers: no RNG state to keep
+                h, a = torch.utils.checkpoint.checkpoint(
+                    fn, *args, use_reentrant=False, preserve_rng_state=False)
+            else:
+                h, a = fn(*args)
+            if a is not None:
+                aux = a if aux is None else aux + a
+    return h, aux
+
+
+def embed_tokens(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
+                 vision_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """``embed[tokens] · sqrt(d)``, plus ``vision_embeds @ vision_proj``
+    when the config has a vision projection and embeddings are given."""
+    h = params["embed"][tokens] * (cfg.d_model ** 0.5)
+    if cfg.vision_dim and vision_embeds is not None:
+        h = h + vision_embeds @ params["vision_proj"]
     return h
-
-
-def embed_tokens(params: PyTree, cfg: ArchConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens] * (cfg.d_model ** 0.5)
 
 
 def _head(params: PyTree, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -391,36 +504,58 @@ def default_positions(cfg: ArchConfig, tokens: torch.Tensor
     return positions
 
 
-def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
-            positions: Optional[torch.Tensor] = None,
-            train: bool = False) -> torch.Tensor:
-    """Full-sequence forward: ``(B, S)`` tokens → logits ``(B, S, V)``,
-    at ``positions`` (default :func:`default_positions`). With
-    ``cfg.remat and train`` each block of a scanned group (each pattern
-    body of the hybrid's) runs under ``torch.utils.checkpoint`` and is
-    recomputed in the backward, the reference's ``jax.checkpoint`` around
-    its scan body (policy "nothing"): only the bodies' inputs are kept for
-    the backward. Unscanned layers are not rematerialized, as in the
-    reference."""
+def encode(params: PyTree, cfg: ArchConfig, audio_frames: torch.Tensor, *,
+           train: bool = False) -> torch.Tensor:
+    """The encoder-decoder's encoder: the frame embeddings ``(B, F, d)``
+    through the ``enc`` blocks at positions ``0..F-1``, then its final
+    norm. ``forward`` runs it first; a decode cache takes its output as
+    ``encoder_out``."""
+    if audio_frames is None:
+        raise ValueError(f"{cfg.name} needs frame embeddings (audio_frames)")
+    b, f, _ = audio_frames.shape
+    positions = torch.arange(f, device=audio_frames.device)[None].expand(b, f)
+    enc = params["encoder"]
+    h, _ = _run_stack(enc["groups"], [("enc", cfg.encoder_layers, True)],
+                      cfg, audio_frames, positions,
+                      remat=cfg.remat and train)
+    return rmsnorm(enc["final_norm"], h)
+
+
+def _forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
+             positions: Optional[torch.Tensor] = None,
+             vision_embeds: Optional[torch.Tensor] = None,
+             audio_frames: Optional[torch.Tensor] = None,
+             train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`forward`'s logits and the MoE blocks' aux summed over the
+    layers (an fp32 zero without MoE blocks)."""
     if positions is None:
         positions = default_positions(cfg, tokens)
-    h = embed_tokens(params, cfg, tokens)
-    remat = cfg.remat and train
-    for gparams, (kind, n, scanned) in zip(params["groups"],
-                                           stack_plan(cfg)):
-        layers = unbind_layers(gparams, n) if scanned else gparams
-        for lp in layers:
-            if kind == "pattern":
-                fn, args = _pattern_apply, (lp, cfg, h, positions)
-            else:
-                fn, args = block_apply, (lp, cfg, h, positions, kind)
-            if remat and scanned:
-                # the blocks draw no random numbers: no RNG state to keep
-                h = torch.utils.checkpoint.checkpoint(
-                    fn, *args, use_reentrant=False, preserve_rng_state=False)
-            else:
-                h = fn(*args)
-    return _head(params, cfg, h)
+    encoder_out = None
+    if cfg.arch_type == "encdec":
+        encoder_out = encode(params, cfg, audio_frames, train=train)
+    h = embed_tokens(params, cfg, tokens, vision_embeds)
+    h, aux = _run_stack(params["groups"], stack_plan(cfg), cfg, h,
+                        positions, encoder_out=encoder_out,
+                        remat=cfg.remat and train)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _head(params, cfg, h), aux
+
+
+def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None,
+            vision_embeds: Optional[torch.Tensor] = None,
+            audio_frames: Optional[torch.Tensor] = None,
+            train: bool = False) -> torch.Tensor:
+    """Full-sequence forward: ``(B, S)`` tokens → logits ``(B, S, V)``,
+    at ``positions`` (default :func:`default_positions`), with qwen2-vl's
+    ``vision_embeds`` ``(B, S, vision_dim)`` added to the embeddings and,
+    for the encoder-decoder, the decoder attending to :func:`encode` of
+    ``audio_frames`` ``(B, F, d)``. With ``cfg.remat and train`` the
+    scanned blocks are recomputed in the backward (:func:`_run_stack`)."""
+    return _forward(params, cfg, tokens, positions=positions,
+                    vision_embeds=vision_embeds, audio_frames=audio_frames,
+                    train=train)[0]
 
 
 def loss_fn(params: PyTree, cfg: ArchConfig,
@@ -428,27 +563,35 @@ def loss_fn(params: PyTree, cfg: ArchConfig,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy, the body of a training step: ``(total,
     {"nll", "moe_aux"})`` with ``nll`` the mean of ``logsumexp(logits) -
-    logits[label]`` in fp32 and ``total = nll + router_aux_coef · aux /
-    num_layers``, as in the reference; the ported blocks have no auxiliary
-    loss, so ``aux`` is 0."""
-    logits = forward(params, cfg, batch["tokens"],
-                     positions=batch.get("positions"), train=True).float()
+    logits[label]`` in fp32, ``moe_aux`` the MoE blocks' load-balance loss
+    summed over the layers (0 without them) and ``total = nll +
+    router_aux_coef · moe_aux / num_layers``, as in the reference. The
+    batch may hold ``positions``, ``vision_embeds`` and ``audio_frames``."""
+    logits, aux = _forward(params, cfg, batch["tokens"],
+                           positions=batch.get("positions"),
+                           vision_embeds=batch.get("vision_embeds"),
+                           audio_frames=batch.get("audio_frames"),
+                           train=True)
+    logits = logits.float()
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = torch.mean(logz - gold)
-    aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+    aux = aux.float()
     total = nll + cfg.router_aux_coef * aux / max(cfg.num_layers, 1)
     return total, {"nll": nll, "moe_aux": aux}
 
 
 def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
-            positions: Optional[torch.Tensor] = None
+            positions: Optional[torch.Tensor] = None,
+            vision_embeds: Optional[torch.Tensor] = None,
+            audio_frames: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill forward: ``(last-position logits (B, V), their argmax
     (B,))``. Like the reference it writes no decode cache: serving
     (``ServeEngine``) feeds prompts through ``decode_step``."""
-    logits = forward(params, cfg, tokens, positions=positions)
+    logits = forward(params, cfg, tokens, positions=positions,
+                     vision_embeds=vision_embeds, audio_frames=audio_frames)
     last = logits[:, -1].clone()        # a copy: the full logits go free
     return last, last.argmax(-1)
 
@@ -457,25 +600,51 @@ def prefill(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
 # Decode
 # ====================================================================== #
 def block_decode(p: Dict, cfg: ArchConfig, h: torch.Tensor, cache: Dict,
-                 pos: torch.Tensor, kind: str = "rec"
+                 pos: torch.Tensor, kind: str = "rec",
+                 encoder_out: Optional[torch.Tensor] = None,
+                 positions_3d: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict]:
     """One token through one block of ``kind``: ``h`` ``(B, 1, d)`` at
-    positions ``pos`` ``(B,)`` and the block's cache → ``(h, new
-    cache)``. An attention block writes its KV cache in place."""
+    positions ``pos`` ``(B,)`` (``positions_3d`` ``(B, 1, 3)`` under
+    M-RoPE) and the block's cache → ``(h, new cache)``. An attention block
+    writes its KV cache (MLA: its compressed cache) in place; a ``dec``
+    block attends to ``encoder_out``, or to the cache's ``cross_kv`` when
+    it holds one. An MoE block dispatches as ``cfg.moe_dispatch`` says."""
     new_cache: Dict = {}
     x = rmsnorm(p["norm1"], h)
-    if kind != "rec":
+    if kind == "rec":
+        if cfg.arch_type == "rwkv":
+            mix, new_cache["rec"] = rec.rwkv_decode(
+                p["rec"], x, cache["rec"], cfg.rwkv_head_dim)
+        else:
+            mix, new_cache["rec"] = rec.rglru_decode(p["rec"], x,
+                                                     cache["rec"])
+    elif cfg.use_mla:
+        mix, new_cache["attn"] = attn.mla_decode(
+            p["attn"], x, cache["attn"], pos, num_heads=cfg.num_heads,
+            kv_lora_rank=cfg.kv_lora_rank,
+            qk_nope_head_dim=cfg.qk_nope_head_dim,
+            qk_rope_head_dim=cfg.qk_rope_head_dim,
+            v_head_dim=cfg.v_head_dim, rope_base=cfg.rope_base)
+    else:
         mix, new_cache["attn"] = attn.attention_decode(
             p["attn"], x, cache["attn"], pos, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-            rope_base=cfg.rope_base, window=_window(cfg, kind))
-    elif cfg.arch_type == "rwkv":
-        mix, new_cache["rec"] = rec.rwkv_decode(p["rec"], x, cache["rec"],
-                                                cfg.rwkv_head_dim)
-    else:
-        mix, new_cache["rec"] = rec.rglru_decode(p["rec"], x, cache["rec"])
+            rope_base=cfg.rope_base, m_rope=cfg.m_rope,
+            positions_3d=positions_3d, window=_window(cfg, kind))
     h = h + mix
+    if kind == "dec":
+        h = h + _cross(p, cfg, h, encoder_out, cache.get("cross_kv"))
+        if "cross_kv" in cache:
+            new_cache["cross_kv"] = cache["cross_kv"]
     x2 = rmsnorm(p["norm2"], h)
+    if "moe" in p:
+        if cfg.moe_dispatch == "capacity":
+            out, _ = _moe(p, cfg, x2)
+        else:
+            out = moe_lib.moe_apply_decode(p["moe"], x2, top_k=cfg.top_k,
+                                           act=cfg.mlp_act)
+        return h + out, new_cache
     if "mlp" in p:
         return h + mlp_apply(p["mlp"], x2, cfg.mlp_act), new_cache
     c = p["cmix"]
@@ -493,38 +662,57 @@ def _block_cache(cfg: ArchConfig, kind: str, batch: int, seq_len: int, *,
                  dtype=torch.float32) -> Dict:
     """Empty decode cache of one block of ``kind``, stacked ``lead`` deep.
     RWKV: the fp32 WKV state and the two token-shift rows in ``dtype``;
-    RG-LRU: its fp32 state and conv history; attention: k and v ``(batch,
+    RG-LRU: its fp32 state and conv history; MLA: the compressed latent
+    ``c_kv`` ``(batch, seq_len, rank)`` and the shared rotary key
+    ``k_rope`` ``(batch, seq_len, r)``; other attention: k and v ``(batch,
     rows, H_kv, hd)`` in ``dtype``, ``rows = min(seq_len, window)`` for a
-    windowed block (a ring buffer, ``attention.attention_decode``)."""
+    windowed block (a ring buffer, ``attention.attention_decode``); a
+    ``dec`` block under ``cfg.cache_cross_kv`` also the encoder's k and v
+    ``(batch, encoder_frames, H, hd)``, which the caller fills
+    (``attention.cross_kv_cache``)."""
     d = cfg.d_model
     kw = dict(lead=lead, device=device, dtype=dtype)
+
+    def zeros(*shape):
+        return torch.zeros(lead + shape, device=device, dtype=dtype)
     if kind == "rec" and cfg.arch_type == "rwkv":
         return {"rec": rec.rwkv_init_state(batch, d, cfg.rwkv_head_dim,
                                            **kw),
-                "cmix_x_prev": torch.zeros(lead + (batch, d), device=device,
-                                           dtype=dtype)}
+                "cmix_x_prev": zeros(batch, d)}
     if kind == "rec":
         return {"rec": rec.rglru_init_state(batch, cfg.lru_width or d,
                                             cfg.conv1d_width, **kw)}
+    hd = cfg.resolved_head_dim
+    c: Dict = {}
+    if kind == "dec" and cfg.cache_cross_kv:
+        shape = (batch, cfg.encoder_frames, cfg.num_heads, hd)
+        c["cross_kv"] = {"k": zeros(*shape), "v": zeros(*shape)}
+    if cfg.use_mla:
+        c["attn"] = {"c_kv": zeros(batch, seq_len, cfg.kv_lora_rank),
+                     "k_rope": zeros(batch, seq_len, cfg.qk_rope_head_dim)}
+        return c
     window = _window(cfg, kind)
     rows = seq_len if window is None else min(seq_len, window)
-    shape = lead + (batch, rows, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"attn": {"k": torch.zeros(shape, device=device, dtype=dtype),
-                     "v": torch.zeros(shape, device=device, dtype=dtype)}}
+    shape = (batch, rows, cfg.num_kv_heads, hd)
+    c["attn"] = {"k": zeros(*shape), "v": zeros(*shape)}
+    return c
 
 
 def init_decode_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                       device=None, dtype=torch.bfloat16) -> PyTree:
     """The cache tree matching the stack plan for ``batch`` rows of up to
     ``seq_len`` tokens, each scanned group's leaves stacked ``(L, ...)``
-    (RWKV's is O(1) in ``seq_len``). Runs on ``device`` (default ``cuda``).
-    ``dtype`` is the KV cache's, the conv history's and the token-shift
-    rows' type, which must be the weights' (a decode step multiplies them
-    by the weights; the recurrent states are fp32 whatever the weights, as
-    in the reference): bfloat16 by default, as :func:`init_params`'s
-    weights and the reference's cache; pass ``dtype=torch.float32`` for
-    fp32 weights."""
-    kw = dict(device=resolve_device(device), dtype=dtype)
+    (RWKV's is O(1) in ``seq_len``); the encoder-decoder's also holds
+    ``encoder_out`` ``(batch, encoder_frames, d)``, zeros until the caller
+    sets it. Runs on ``device`` (default ``cuda``). ``dtype`` is the KV
+    cache's, the conv history's, the token-shift rows' and
+    ``encoder_out``'s type, which must be the weights' (a decode step
+    multiplies them by the weights; the recurrent states are fp32 whatever
+    the weights, as in the reference): bfloat16 by default, as
+    :func:`init_params`'s weights and the reference's cache; pass
+    ``dtype=torch.float32`` for fp32 weights."""
+    dev = resolve_device(device)
+    kw = dict(device=dev, dtype=dtype)
     groups = []
     for kind, n, scanned in stack_plan(cfg):
         lead = (n,) if scanned else ()
@@ -536,7 +724,11 @@ def init_decode_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                         for i, kd in enumerate(_pattern(cfg))}
             return _block_cache(cfg, kind, batch, seq_len, lead=lead, **kw)
         groups.append(one() if scanned else [one() for _ in range(n)])
-    return {"groups": groups}
+    cache: Dict = {"groups": groups}
+    if cfg.arch_type == "encdec":
+        cache["encoder_out"] = torch.zeros(
+            (batch, cfg.encoder_frames, cfg.d_model), **kw)
+    return cache
 
 
 def _copy_into(dst: PyTree, src: PyTree) -> None:
@@ -548,13 +740,22 @@ def _copy_into(dst: PyTree, src: PyTree) -> None:
 
 
 def decode_step(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
-                cache: PyTree, pos: torch.Tensor
+                cache: PyTree, pos: torch.Tensor, *,
+                positions_3d: Optional[torch.Tensor] = None,
+                vision_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, PyTree]:
     """One-token decode: ``tokens (B, 1)`` at positions ``pos (B,)`` (the
-    KV cache's write index; the recurrent states need none) → ``(logits
-    (B, 1, V), cache)``. The cache is updated in place (the reference's
+    KV cache's write index; the recurrent states need none; M-RoPE's
+    rotation takes ``positions_3d`` ``(B, 1, 3)``), with ``vision_embeds``
+    ``(B, 1, vision_dim)`` added as in :func:`embed_tokens` → ``(logits
+    (B, 1, V), cache)``. The encoder-decoder attends to the cache's
+    ``encoder_out``. The cache is updated in place (the reference's
     serving step donates it) and returned."""
-    h = embed_tokens(params, cfg, tokens)
+    if cfg.m_rope and positions_3d is None:
+        raise ValueError(f"{cfg.name}: an M-RoPE decode step needs "
+                         f"positions_3d (B, 1, 3)")
+    encoder_out = cache.get("encoder_out")
+    h = embed_tokens(params, cfg, tokens, vision_embeds)
     for gparams, gcache, (kind, n, scanned) in zip(
             params["groups"], cache["groups"], stack_plan(cfg)):
         for i in range(n):
@@ -564,6 +765,7 @@ def decode_step(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
             for j, kd in enumerate(kinds):
                 sub = f"sub{j}" if kind == "pattern" else None
                 bp, bc = (lp[sub], lc[sub]) if sub else (lp, lc)
-                h, nc = block_decode(bp, cfg, h, bc, pos, kd)
+                h, nc = block_decode(bp, cfg, h, bc, pos, kd, encoder_out,
+                                     positions_3d)
                 _copy_into(bc, nc)
     return _head(params, cfg, h), cache

@@ -6,12 +6,9 @@ item, instead of silently doing something else.
 """
 from __future__ import annotations
 
-ITEMS = {
-    "moe": "ROADMAP Queue 1 item 7d: mixture-of-experts layers",
-    "multimodal": "ROADMAP Queue 1 item 7e: whisper and qwen2-vl",
-    "dryrun": "ROADMAP Queue 1 item 7f: launch/dryrun.py as a meta-device "
-              "dry run",
-}
+# every option the entry points reach is ported: what Queue 1 still lists
+# (the dry run, RGAT) comes as new modules, not as options that raise
+ITEMS: dict = {}
 
 
 def not_ported(feature: str, key: str) -> NotImplementedError:

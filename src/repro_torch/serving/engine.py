@@ -6,8 +6,10 @@ requests run together from position 0, with a fresh cache of ``max_seq``
 positions per batch —
 while a slot still has prompt tokens it consumes them (teacher forcing),
 afterwards it consumes its own greedy token (argmax, the first index on
-ties). One ``serve_step`` per position ``t`` (``pos = t`` for every slot),
-under ``torch.inference_mode()``.
+ties). One ``serve_step`` per position ``t`` (``pos = t`` for every slot,
+and M-RoPE's three positions ``t`` too), under ``torch.inference_mode()``.
+The encoder-decoder's ``encoder_out`` is zeros (``init_decode_cache``'s),
+as in the reference, whose serving runs no encoder.
 A request the ``max_seq`` horizon cuts off before it has produced
 ``max_new_tokens`` is ``truncated``, not ``done``.
 
@@ -71,6 +73,9 @@ class ServeEngine:
             tokens = torch.from_numpy(cur[:, None].copy())
             batch = {"tokens": tokens.to(self.device),
                      "pos": torch.full((n,), t, device=self.device)}
+            if self.cfg.m_rope:
+                batch["positions_3d"] = torch.full((n, 1, 3), t,
+                                                   device=self.device)
             nxt, cache = self._step(self.params, cache, batch)
             nxt = nxt.cpu().numpy()
             for i, r in enumerate(reqs):

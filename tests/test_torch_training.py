@@ -241,11 +241,16 @@ def test_cli_int8_runs_to_eval_line():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--arch", "deepseek-v2-lite-16b"], "item 7"),
+    (["--arch", "deepseek-v2-lite-16b", "--steps", "1", "--batch", "1",
+      "--seq", "8"], "item 7"),
 ])
 def test_cli_unported_options_raise(extra, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        train_cli.main(SMALL + extra)
+    """The KGE command line with an LM ``--arch`` last trains that LM
+    (deepseek-v2-lite-16b waited for ROADMAP Queue 1 ``item`` d and runs
+    now): one finite loss, no KGE evaluation."""
+    losses = train_cli.main(SMALL + extra)
+    assert isinstance(losses, list) and len(losses) == 1, item
+    assert np.isfinite(losses).all()
 
 
 @pytest.mark.parametrize("exchange", ["psum", "psum_scatter", "alltoall"])

@@ -888,7 +888,8 @@ def check_kge_score(dev, rng, widths):
     |err| over finite scores, per-width times)."""
     import torch
     from repro_torch.kernels.kge_score import (
-        kge_score, kge_score_plain, kge_score_v1,
+        kge_score, kge_score_bytes, kge_score_ops, kge_score_plain,
+        kge_score_v1,
     )
     torch.backends.cuda.matmul.allow_tf32 = False
     max_err, stats = 0.0, {}
@@ -921,13 +922,12 @@ def check_kge_score(dev, rng, widths):
                     f"{float(err[bad].max())} > tol {float(tol[bad].min())}")
             max_err = max(max_err, float(err[fin].max()))
         # times: the neg_l2 epilogue (TransE), these inputs
-        nbytes = 4 * (b * d + c * d + b + c + 2 * b * c)
         st = stats[label] = dict(B=b, C=c, d=d, **timings(
             lambda: kge_score(q, cand, bias, qb, cb, epilogue="neg_l2"),
             lambda: kge_score_plain(q, cand, bias, qb, cb,
                                     epilogue="neg_l2"),
             lambda: torch.matmul(q, cand.T),
-            *bound_ms(nbytes, 2 * b * c * d)))
+            *bound_ms(kge_score_bytes(b, c, d), kge_score_ops(b, c, d))))
         st["first_kernel_ms"], _ = timed(
             lambda: kge_score_v1(q, cand, bias, qb, cb, epilogue="neg_l2"))
         report("kge_score", f"{label} (B={b}, C={c}, d={d})", st, "matmul")
@@ -1042,7 +1042,8 @@ def check_topk(dev, rng, widths):
     cases)."""
     import torch
     from repro_torch.kernels.topk import (
-        stream_select, stream_splits, topk_plain, topk_scores, topk_scores_v1,
+        stream_select, stream_splits, topk_plain, topk_scores,
+        topk_scores_bytes, topk_scores_ops, topk_scores_v1,
     )
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     max_err, stats = 0.0, {}
@@ -1080,10 +1081,8 @@ def check_topk(dev, rng, widths):
             lambda: topk_scores(scores, K, call_ids),
             lambda: topk_plain(scores, K, call_ids),
             lambda: torch.topk(scores, K),
-            # the merge reads the ids of its k winners a row, no more
-            *bound_ms(4 * SLOTS * c + 12 * SLOTS * K
-                      + (8 * SLOTS * K if call_ids is not None else 0),
-                      SLOTS * c)))
+            *bound_ms(topk_scores_bytes(SLOTS, c, K, call_ids is not None),
+                      topk_scores_ops(SLOTS, c))))
         st["first_kernel_ms"], _ = timed(
             lambda: topk_scores_v1(scores, K, call_ids))
         report("topk", f"{label} (B={SLOTS}, C={c}, k={K})", st,
@@ -1178,7 +1177,7 @@ def check_fused_gather(dev, rng, widths, mbs):
     plain|, per-width times)."""
     import torch
     from repro_torch.kernels.sharded_gather import (
-        fused_gather, fused_gather_plain, fused_gather_v1,
+        fused_gather, fused_gather_bytes, fused_gather_plain, fused_gather_v1,
     )
 
     def same_all(label, table, flat_t, owned_t, check=True):
@@ -1229,7 +1228,7 @@ def check_fused_gather(dev, rng, widths, mbs):
             lambda: fused_gather(table, flat_t, owned_t),
             lambda: fused_gather_plain(table, flat_t, owned_t),
             lambda: torch.index_select(table, 0, flat_t),
-            *bound_ms(4 * n_own * d + 9 * SLOTS + 4 * SLOTS * d, 0)))
+            *bound_ms(fused_gather_bytes(SLOTS, d, n_own), 0)))
         report("fused_gather", f"{label} (V={SLOTS}, d={d})", st,
                "index_select")
         first_kernel_time(label, st,
@@ -1250,7 +1249,7 @@ def check_fused_gather(dev, rng, widths, mbs):
         lambda: fused_gather(table, flat_t, owned_t, check=False),
         lambda: fused_gather_plain(table, flat_t, owned_t),
         lambda: torch.index_select(table, 0, flat_t),
-        *bound_ms(4 * n_own * 75 + 9 * v + 4 * v * 75, 0)))
+        *bound_ms(fused_gather_bytes(v, 75, n_own), 0)))
     report("fused_gather", f"minibatch_S4 (V={v}, R={lay.padded_rows}, "
            f"d=75)", st, "index_select")
     first_kernel_time("minibatch_S4", st, lambda: fused_gather_v1(
@@ -1281,7 +1280,8 @@ def check_fused_dequant_gather(dev, rng, widths, mbs):
     import torch
     from repro_torch.kernels.ops import flat_gather_plan
     from repro_torch.kernels.sharded_gather import (
-        fused_dequant_gather, fused_dequant_gather_plain,
+        fused_dequant_gather, fused_dequant_gather_bytes,
+        fused_dequant_gather_ops, fused_dequant_gather_plain,
         fused_dequant_gather_v1,
     )
     from repro_torch.sharding import quantize_rows
@@ -1312,9 +1312,8 @@ def check_fused_dequant_gather(dev, rng, widths, mbs):
         return got, want
 
     def bound(v, n_own, d):
-        # owned slots' codes and scales, every slot's id and ownership,
-        # the output; one multiply per output element
-        return bound_ms(n_own * d + 4 * n_own + 9 * v + 4 * v * d, v * d)
+        return bound_ms(fused_dequant_gather_bytes(v, d, n_own),
+                        fused_dequant_gather_ops(v, d))
 
     def first_kernel_time(label, st, fn):
         st["first_kernel_ms"], _ = timed(fn)
@@ -1460,8 +1459,8 @@ def check_basis_message(dev, rng, part, mbs, c2=None):
     exactly 0 on both."""
     import torch
     from repro_torch.kernels.rgcn_message import (
-        basis_message, basis_message_config, basis_message_plain,
-        basis_message_v1,
+        basis_message, basis_message_bytes, basis_message_config,
+        basis_message_ops, basis_message_plain, basis_message_v1,
     )
     torch.backends.cuda.matmul.allow_tf32 = False
     v, e, r = part["V"], part["E"], part["R"]
@@ -1525,9 +1524,8 @@ def check_basis_message(dev, rng, part, mbs, c2=None):
             f"{float(err.max()):.3g}")
         if label in timed_labels:
             n_on = int(m.sum())
-            nbytes = 4 * (ne * d_in + ne * nb + nb * d_in * d_out
-                          + ne * d_out) + ne
-            ops = 2 * n_on * nb * d_out * (d_in + 1)
+            nbytes = basis_message_bytes(ne, nb, d_in, d_out)
+            ops = basis_message_ops(ne, nb, d_in, d_out, n_on)
             st = stats[label] = dict(E=ne, d=d_in, d_out=d_out, B=nb,
                                      **timings(
                 lambda: basis_message(h_t, coef, w, m),
@@ -1562,7 +1560,8 @@ def check_segment_sum(dev, rng, part, mbs, c2=None):
     import torch
     from repro_torch.kernels.rgcn_message import (
         CHUNK, SegmentPlan, segment_key, segment_plan, segment_plan_host,
-        segment_sum, segment_sum_plain, segment_sum_planned, segment_sum_v1,
+        segment_sum, segment_sum_bytes, segment_sum_ops, segment_sum_plain,
+        segment_sum_planned, segment_sum_v1,
     )
     v, e = part["V"], part["E"]
     cases = [("train", e, v, 75, part["src"], part["mask"]),
@@ -1638,14 +1637,14 @@ def check_segment_sum(dev, rng, part, mbs, c2=None):
                 raise AssertionError(f"segment_sum {label}: planned != "
                                      f"unplanned")
             n_on = int(m.sum())
-            nbytes = 4 * n_on * d + 5 * ne + 4 * nv * d + 4 * nv
             st = dict(E=ne, V=nv, d=d, longest_segment=int(deg.max()),
                       **timings(
                           lambda: segment_sum(msg, seg_t, m, nv, plan=plan),
                           lambda: segment_sum_plain(msg, seg_t, m, nv),
                           lambda: torch.zeros((nv + 1, d), device=dev)
                           .index_add_(0, key, msg),
-                          *bound_ms(nbytes, n_on * d)))
+                          *bound_ms(segment_sum_bytes(ne, nv, d, n_on),
+                                    segment_sum_ops(ne, d, n_on))))
             st["kernel_ms"], _ = timed(
                 lambda: segment_sum_planned(msg, *plan, nv))
             st["first_kernel_ms"], _ = timed(
@@ -1732,8 +1731,8 @@ def check_scatter_add(dev, rng, mbs, c2=None):
         SegmentPlan, segment_key, segment_plan, segment_plan_host,
     )
     from repro_torch.kernels.sharded_gather import (
-        scatter_add_onehot, scatter_add_onehot_plain, scatter_add_onehot_v1,
-        scatter_add_planned,
+        scatter_add_onehot, scatter_add_onehot_bytes, scatter_add_onehot_ops,
+        scatter_add_onehot_plain, scatter_add_onehot_v1, scatter_add_planned,
     )
     lay = mbs["layout"]
     flat_s, own_s = flat_gather_plan(torch.from_numpy(mbs["local"]),
@@ -1828,14 +1827,14 @@ def check_scatter_add(dev, rng, mbs, c2=None):
                 raise AssertionError(f"scatter_add_onehot {label}: planned "
                                      f"!= unplanned")
             n_own = int(hits.sum())
-            nbytes = 4 * n_own * d + 8 * v + (v if owned is not None else 0) \
-                + 4 * r * d
+            nbytes = scatter_add_onehot_bytes(v, r, d, n_own,
+                                              owned is not None)
             st = dict(V=v, R=r, d=d, longest_row=longest, **timings(
                 lambda: scatter_add_onehot(g, flat_t, own_t, r, plan=plan),
                 lambda: scatter_add_onehot_plain(g, flat_t, own_t, r),
                 lambda: torch.zeros((r + 1, d), device=dev)
                 .index_add_(0, key, g),
-                *bound_ms(nbytes, n_own * d)))
+                *bound_ms(nbytes, scatter_add_onehot_ops(v, d, n_own))))
             st["kernel_ms"], _ = timed(
                 lambda: scatter_add_planned(g, *plan, r))
             st["first_kernel_ms"], _ = timed(
@@ -1888,14 +1887,6 @@ def wkv_inputs(dev, rng, bh, s, hd):
     return r, k, v, lw, u
 
 
-def wkv_ops(bh, s, hd, chunk):
-    """FLOP the chunked WKV needs: per chunk of n steps the two products
-    over the strict lower triangle, r_t k_t^T and scores v, n (n - 1) hd
-    each, and the two with the state, r_t S and k_out^T v, 2 n hd^2 each."""
-    lengths = [min(chunk, s - lo) for lo in range(0, s, chunk)]
-    return bh * sum(2 * n * (n - 1) * hd + 4 * n * hd * hd for n in lengths)
-
-
 def check_wkv(dev, rng):
     """wkv_chunked at the rwkv6-3b prefill shape (BH = 4 batch rows x 40
     heads, S = 2,048, hd = chunk = 64) and at edge cases (S ragged, BH = 1,
@@ -1917,7 +1908,8 @@ def check_wkv(dev, rng):
     import torch
     from repro_torch.kernels.ref import wkv_chunk_ref
     from repro_torch.kernels.wkv_chunk import (
-        wkv_chunked, wkv_chunked_plain, wkv_chunked_states, wkv_chunked_v1,
+        wkv_chunked, wkv_chunked_bytes, wkv_chunked_ops, wkv_chunked_plain,
+        wkv_chunked_states, wkv_chunked_v1,
     )
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = [("prefill", LM_B * 40, LM_S, 64, 64),
@@ -1978,8 +1970,8 @@ def check_wkv(dev, rng):
             f"{seq_err:.3g}; finite, two runs bitwise equal, bitwise "
             f"whether or not the states are kept")
         if label == "prefill":
-            nbytes = 4 * (5 * bh * s * hd + bh * hd)
-            b_ms, b_by = bound_ms(nbytes, wkv_ops(bh, s, hd, chunk))
+            b_ms, b_by = bound_ms(wkv_chunked_bytes(bh, s, hd),
+                                  wkv_chunked_ops(bh, s, hd, chunk))
             ms, call_ms = timed(lambda: wkv_chunked(*x, chunk=chunk))
             v1_ms, _ = timed(lambda: wkv_chunked_v1(*x, chunk=chunk))
             plain_ms, plain_call_ms = timed(
@@ -2013,25 +2005,6 @@ def check_wkv(dev, rng):
         raise AssertionError("wkv_chunked: a block above the card's shared "
                              "memory did not raise")
     return max_err, stats
-
-
-def wkv_bwd_ops(bh, s, hd):
-    """FLOP the WKV gradient needs from its inputs alone, in the chunked
-    form at the chunk length K that needs the fewest. Per chunk of K steps
-    and row: the chunk's state k^T v, G's r~^T g, and the cross terms
-    g S_in^T (dr), v G'^T (dk) and k~ G' (dv), 2 K hd^2 each; the decay of
-    the state and of G once a chunk, hd^2 each; inside the chunk the five
-    strict-lower products A = r~ k~^T, A^T g, dA = g v^T, dA k~ and
-    dA^T r~, K (K - 1) hd each. A step so costs 10 hd^2 + 2 hd^2 / K +
-    5 (K - 1) hd, least near K = sqrt(2 hd / 5) (K = 1 is the sequential
-    recurrence's 12 hd^2). dlw needs no contraction of its own: with L_t
-    the cumulative log-decay, the loss sees L_t only through r_{t+1}
-    e^{L_t} and k_t e^{-L_t}, so dlw_m is the reverse cumulative sum over
-    t >= m of r_{t+1} dr'_{t+1} - k_t dk'_t (dr', dk' without their bonus
-    terms), O(hd) a step."""
-    per_step = min(10 * hd * hd + 2 * hd * hd / kk + 5 * (kk - 1) * hd
-                   for kk in range(1, max(hd, 1) + 1))
-    return bh * s * per_step
 
 
 def wkv_bwd_gamma(lw, chunk, hd):
@@ -2068,7 +2041,8 @@ def check_wkv_backward(dev, rng):
     training shape)."""
     import torch
     from repro_torch.kernels.wkv_chunk import (
-        wkv_chunked_backward, wkv_chunked_backward_chunked_plain,
+        wkv_chunked_backward, wkv_chunked_backward_bytes,
+        wkv_chunked_backward_chunked_plain, wkv_chunked_backward_ops,
         wkv_chunked_backward_plain, wkv_chunked_backward_v1,
         wkv_chunked_states,
     )
@@ -2174,8 +2148,8 @@ def check_wkv_backward(dev, rng):
                 f"{nm} {case[nm]['first_kernel_reference_gate_share']:.2e}"
                 for nm in names))
         if label == "train":
-            nbytes = 4 * (9 * bh * s * hd + 2 * bh * hd)
-            b_ms, b_by = bound_ms(nbytes, wkv_bwd_ops(bh, s, hd))
+            b_ms, b_by = bound_ms(wkv_chunked_backward_bytes(bh, s, hd),
+                                  wkv_chunked_backward_ops(bh, s, hd))
             ms, call_ms = timed(lambda: wkv_chunked_backward(
                 *x, g, chunk=chunk, states=states))
             v1_ms, v1_call_ms = timed(lambda: wkv_chunked_backward_v1(*x, g))
@@ -2554,6 +2528,31 @@ def first_update_check(optimizer, grads, start, params):
     return out
 
 
+def step_argument_bytes(params, opt_state, batch) -> int:
+    """Bytes of what a train step is given: the parameters, the optimizer's
+    step and moments, and the batch, as allocated on the card."""
+    import torch
+    from repro_torch.nn import transformer as T
+    tensors = [t for _, t in T.leaves(params)] + [opt_state.step]
+    for moments in (opt_state.mu, opt_state.nu):
+        tensors += list((moments or {}).values())
+    tensors += list(batch.values())
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def counted_flops(fn) -> int:
+    """The aten FLOPs ``FlopCounterMode`` counts around one more, untimed
+    call of ``fn`` (a train step; a hand-written kernel's ctypes launch is
+    no aten op and is not counted)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    torch.cuda.synchronize()
+    return int(fc.get_total_flops())
+
+
 def run_lm_train(dev, card):
     """Phase 8f: rwkv6-3b training at full width (32 layers, d 2,560,
     3,073,313,280 fp32 parameters drawn on the card from seed 0, remat on),
@@ -2638,6 +2637,8 @@ def run_lm_train(dev, card):
     optimizer = adam(LM_TRAIN_LR)
     opt_state = optimizer.init(dict(T.leaves(params)))
     step = make_train_step(kcfg, optimizer)
+    res["argument_bytes"] = step_argument_bytes(params, opt_state,
+                                                batches[0])
     start_of = {n: t.clone() for n, t in T.leaves(params) if n in held}
     flop = model_flops(cfg, InputShape("train", LM_TRAIN_S, LM_TRAIN_B,
                                        "train"))
@@ -2715,6 +2716,8 @@ def run_lm_train(dev, card):
         f"events; WKV kernels, ms: {res['profile']['wkv_ms']}, the "
         f"backward's {res['profile']['wkv_backward_ms']:.2f} ms a step; top "
         f"{res['profile']['top_device_ms_per_step']}")
+    res["flop_counter"] = counted_flops(lambda: step(params, opt_state,
+                                                     extra))
     del params, opt_state, step, batches, extra
     gc.collect()
     torch.cuda.empty_cache()
@@ -3309,6 +3312,9 @@ def run_gemma_train(dev, card):
     for i in range(GEMMA_TRAIN_STEPS):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in next(stream).items()}
+        if i == 0:
+            res["argument_bytes"] = step_argument_bytes(params, opt_state,
+                                                        batch)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3330,6 +3336,9 @@ def run_gemma_train(dev, card):
         raise AssertionError(f"phase 9f: optimizer step "
                              f"{int(opt_state.step)}, peak {peak} bytes")
     res.update(steps=steps, flop_per_step=flop, peak_bytes=peak)
+    extra = {k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+    res["flop_counter"] = counted_flops(lambda: step(params, opt_state,
+                                                     extra))
     log(f"[phase 9f] {GEMMA_TRAIN_STEPS} steps at B={GEMMA_TRAIN_B}, "
         f"S={GEMMA_TRAIN_S}: losses {[round(x['loss'], 6) for x in steps]}; "
         f"peak device memory {peak / 1e9:.2f} GB (parameters "
@@ -3916,7 +3925,8 @@ def router_topk(inputs, card):
             if not same_topk(K.topk_scores(probs, k), K.topk_plain(probs, k)):
                 raise AssertionError(f"topk_scores at the router's shape "
                                      f"{label} differs from topk_plain")
-            b_ms, b_by = bound_ms(t * e * 4 + t * k * (4 + 8), t * e)
+            b_ms, b_by = bound_ms(K.topk_scores_bytes(t, e, k),
+                                  K.topk_scores_ops(t, e))
             res = out[label] = dict(
                 bound_ms=b_ms, bound_by=b_by,
                 ms=time_ms(lambda: K.topk_scores(probs, k)),
@@ -4045,6 +4055,243 @@ def run_lm11(dev, rng, card):
     res.update(launches=counts, seconds=time.perf_counter() - t0)
     log(f"[phase 11c] no kernel launched in phase 11 ({res['seconds']:.1f} "
         f"s): {counts}")
+    return res
+
+
+# ---------------------------------------------------------------------- #
+# phase 12: the RGAT encoder; phase 13: the dry run against the card
+# ---------------------------------------------------------------------- #
+RGAT_REL_DIMS = 16
+RGAT_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_torch_rgat.py's
+# every gradient leaf in relative L2 norm, as phase 8f holds its leaves:
+# the weight gradients sum all 13,760 vertices' rows in other orders on
+# the card and the CPU (fp32 GEMMs), which RGAT_TOL, set at the tests' 150
+# vertices, does not cover elementwise; a wrong term moves a leaf by O(1)
+RGAT_GRAD_REL_L2 = 1e-4
+# launches of one encode + backward of a 2-layer RGAT (models/rgat.py): a
+# layer's two segment sums (the softmax's denominator, the aggregation)
+# run the segment_sum kernel, and its four gathers with a gradient (W h at
+# the heads and the tails, the relation features, the denominator at the
+# heads) each one scatter_add_onehot in the backward; the gathers' forward
+# is index_select and the segment sums' backward a gather, no kernel
+RGAT_LAUNCHES = {"segment_sum": 4, "scatter_add_onehot": 8}
+
+
+def rgat_run(params, cfg, x, edges, proj, plans):
+    """One encode and the gradient of ``sum(h * proj)``: ``[h, every layer
+    leaf's gradient (in tree order), x's gradient]``."""
+    import torch
+    from repro_torch.models import rgat_encode
+    live = {"layers": [{k: v.detach().clone().requires_grad_()
+                        for k, v in lp.items()} for lp in params["layers"]]}
+    xl = x.detach().clone().requires_grad_()
+    h = rgat_encode(live, cfg, xl, *edges, plans=plans)
+    (h * proj).sum().backward()
+    return [h.detach()] + [v.grad for lp in live["layers"]
+                           for v in lp.values()] + [xl.grad]
+
+
+def run_rgat(dev, part, card):
+    """Phase 12: the RGAT encoder (models/rgat.py) on the card at the
+    training phases' width: phase 2's partition 0 of the FB15k-237
+    stand-in (scale 1.0, 4 trainers, V 13,760, E 377,984), d 75, 16
+    relation dims, 2 layers, weights drawn on the host from seed 0 and
+    handed to both devices through the converter. The encode and the
+    gradient of a fixed random projection of its output: (a) the card
+    against the plain CPU run, the encode within the CPU parity test's
+    tolerance and every gradient leaf within RGAT_GRAD_REL_L2 in relative
+    L2 norm; (b) two card runs bitwise; (c) the launches
+    of one run == RGAT_LAUNCHES; then the device ms of the encode and of
+    encode + backward."""
+    import torch
+    from repro_torch.convert import rgat_params_from_jax, rgat_params_to_jax
+    from repro_torch.kernels.ops import EdgePlans
+    from repro_torch.models import RGATConfig, init_rgat_params, rgat_encode
+    from repro_torch.models.rgcn import RGCNConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    release()
+    t0 = time.perf_counter()
+    v, d = part["V"], FB15K["dim"]
+    cfg = RGATConfig(base=RGCNConfig(
+        num_entities=v, num_relations=part["R"], hidden_dim=d, num_layers=2,
+        feature_dim=d), num_rel_dims=RGAT_REL_DIMS)
+    tree = rgat_params_to_jax(init_rgat_params(np.random.default_rng(0),
+                                               cfg))
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(v, d)).astype(np.float32)
+    proj = rng.normal(size=(v, d)).astype(np.float32)
+    arrays = [part[k] for k in ("src", "rel", "dst")]
+
+    def on(device):
+        edges = [torch.from_numpy(np.asarray(a, np.int64)).to(device)
+                 for a in arrays] + [torch.from_numpy(
+                     np.asarray(part["mask"], bool)).to(device)]
+        return (rgat_params_from_jax(tree, cfg, device=device),
+                torch.from_numpy(x).to(device), edges,
+                torch.from_numpy(proj).to(device))
+    p_cpu, x_cpu, e_cpu, proj_cpu = on("cpu")
+    want = rgat_run(p_cpu, cfg, x_cpu, e_cpu, proj_cpu, None)
+    params, xd, edges, projd = on(dev)
+
+    def plans():
+        return EdgePlans(*edges, v, part["R"])
+    reset_counts()
+    got = rgat_run(params, cfg, xd, edges, projd, plans())
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    again = rgat_run(params, cfg, xd, edges, projd, plans())
+    names = ["h"] + [f"layers.{i}.{k}" for i, lp in
+                     enumerate(params["layers"]) for k in lp] + ["x"]
+    worst, share, rel = {}, {}, {}
+    for name, a, b, w in zip(names, got, again, want):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"phase 12: {name} not finite")
+        if not torch.equal(a, b):
+            raise AssertionError(f"phase 12: two runs differ at {name}")
+        a = a.cpu()
+        worst[name] = max_abs_diff(a, w)
+        share[name] = float(((a - w).abs() / (RGAT_TOL["atol"] + RGAT_TOL[
+            "rtol"] * w.abs())).max())
+        rel[name] = float((a - w).norm() / w.norm().clamp_min(1e-30))
+    grads = {k: v for k, v in rel.items() if k != "h"}
+    if share["h"] > 1 or max(grads.values()) > RGAT_GRAD_REL_L2:
+        raise AssertionError(f"phase 12: card against CPU: the encode's "
+                             f"share of {RGAT_TOL} {share['h']}, the "
+                             f"gradients' relative L2 {grads} (gate "
+                             f"{RGAT_GRAD_REL_L2})")
+    others = {k: n for k, n in counts.items()
+              if n != RGAT_LAUNCHES.get(k, 0)}
+    if others:
+        raise AssertionError(f"phase 12: launches {counts}, predicted "
+                             f"{RGAT_LAUNCHES}")
+    fwd_ms = device_ms(lambda: rgat_encode(params, cfg, xd, *edges,
+                                           plans=plans()))
+    both_ms = device_ms(lambda: rgat_run(params, cfg, xd, edges, projd,
+                                         plans()))
+    res = dict(V=v, E=part["E"], d=d, launches=counts,
+               max_abs_err=worst, tolerance_share=share, rel_l2=rel,
+               encode_ms=fwd_ms,
+               encode_backward_ms=both_ms, backward_ms=both_ms - fwd_ms,
+               seconds=time.perf_counter() - t0)
+    log(f"[phase 12] RGAT at V={v}, E={part['E']}, d={d}, 2 layers: the "
+        f"encode within {RGAT_TOL} of the plain CPU run (share "
+        f"{share['h']:.3g}), every gradient leaf within relative L2 "
+        f"{RGAT_GRAD_REL_L2} (largest {max(grads.values()):.3g}, "
+        f"{max(grads, key=grads.get)}; elementwise share of {RGAT_TOL} up "
+        f"to {max(share.values()):.3g}, largest |diff| "
+        f"{max(worst.values()):.3g}), "
+        f"two runs bitwise; launches {counts} == predicted "
+        f"{RGAT_LAUNCHES}; device ms: encode {fwd_ms:.3f}, encode + "
+        f"backward {both_ms:.3f} (backward {both_ms - fwd_ms:.3f}); "
+        f"{res['seconds']:.1f} s; {card}")
+    del params, xd, edges, projd, got, again
+    release()
+    return res
+
+
+def check_dry_record(label, rec, card_run, launches, kernel_ops):
+    """Phase 13's gates for one 1 x 1 record against its phase's card run:
+    argument bytes and aten FLOPs ``==``, and every kernel's calls ==
+    ``launches`` (a step's, counted on the card) and operations == its
+    formula times them (``kernel_ops``: name -> formula of one call)."""
+    if rec["memory"]["argument_bytes"] != card_run["argument_bytes"]:
+        raise AssertionError(f"phase 13 {label}: argument bytes "
+                             f"{rec['memory']['argument_bytes']} vs the "
+                             f"card's {card_run['argument_bytes']}")
+    if rec["aten_flops_per_device"] != card_run["flop_counter"]:
+        raise AssertionError(f"phase 13 {label}: aten FLOPs "
+                             f"{rec['aten_flops_per_device']} vs "
+                             f"FlopCounterMode's {card_run['flop_counter']}")
+    calls = {k: v["calls"] for k, v in rec["kernels"].items()}
+    want_calls = {k: n for k, n in launches.items() if n}
+    if calls != want_calls:
+        raise AssertionError(f"phase 13 {label}: kernel calls {calls} vs "
+                             f"the card's launches {want_calls}")
+    for name, k in rec["kernels"].items():
+        if k["ops"] != k["calls"] * kernel_ops[name]:
+            raise AssertionError(f"phase 13 {label}: {name} ops {k['ops']} "
+                                 f"vs {k['calls']} x {kernel_ops[name]}")
+
+
+def run_dryrun_check(lm_train, gemma_train, card):
+    """Phase 13: the 1 x 1 dry-run record (launch/dryrun.py, a fake process
+    group of one rank, nothing on the card) of phase 8f's step (rwkv6-3b,
+    B 2, S 2,048, fp32, remat, chunked_kernel) and of phase 9f's (gemma-2b,
+    B 1, S 2,048, fp32), held against what those phases measured: (a) the
+    record's argument bytes == the bytes of the parameters, Adam state and
+    batch on the card before the first step; (b) its aten FLOPs ==
+    FlopCounterMode around one more step on the card; (c) its kernel
+    calls == the launches of a counted step and its kernel operations ==
+    the formula times them. Printed as findings: the traced peak beside
+    max_memory_allocated, the roofline's time (an analysis under H100
+    figures) beside the measured step. Then the CLI's combination of
+    tests/test_dryrun_cli.py at full size (rwkv6-3b, decode_32k, the
+    16 x 16 mesh) and its record's time."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.wkv_chunk import (
+        wkv_chunked_backward_ops, wkv_chunked_ops,
+    )
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import fake_process_group, make_fake_mesh
+    from repro_torch.launch.specs import InputShape
+    from repro_torch.training.optimizer import adam
+    t0 = time.perf_counter()
+    rwkv = dataclasses.replace(get_arch(LM_ARCH), rwkv_mode="chunked_kernel")
+    hd = rwkv.rwkv_head_dim
+    bh = LM_TRAIN_B * rwkv.d_model // hd
+    cases = {
+        "8f": (rwkv, InputShape("train", LM_TRAIN_S, LM_TRAIN_B, "train"),
+               lm_train, lm_train["steps"][0]["launches"],
+               {"wkv_chunked": wkv_chunked_ops(bh, LM_TRAIN_S, hd,
+                                               rwkv.rwkv_chunk),
+                "wkv_chunked_backward": wkv_chunked_backward_ops(
+                    bh, LM_TRAIN_S, hd)}),
+        "9f": (get_arch("gemma-2b"),
+               InputShape("train", GEMMA_TRAIN_S, GEMMA_TRAIN_B, "train"),
+               gemma_train, {}, {}),
+    }
+    res = {}
+    with fake_process_group(1):
+        mesh = make_fake_mesh((1, 1), ("data", "model"))
+        for label, (cfg, shape, run, launches, ops) in cases.items():
+            t1 = time.perf_counter()
+            rec = D.dry_run(cfg, shape, mesh, dtype=torch.float32,
+                            optimizer=adam(LM_TRAIN_LR))
+            check_dry_record(label, rec, run, launches, ops)
+            step_ms = min(st["ms"] for st in run["steps"])
+            roof_ms = 1e3 * max(v for k, v in rec["roofline"].items()
+                                if k.endswith("_s"))
+            res[label] = dict(record=rec, trace_s=time.perf_counter() - t1,
+                              step_ms=step_ms, roofline_ms=roof_ms,
+                              peak_bytes=run["peak_bytes"])
+            log(f"[phase 13] {label} ({cfg.name}, B={shape.global_batch}, "
+                f"S={shape.seq_len}, fp32): the 1 x 1 record's argument "
+                f"bytes {rec['memory']['argument_bytes']} == the card's, "
+                f"aten FLOPs {rec['aten_flops_per_device']:.6g} == "
+                f"FlopCounterMode's, kernel calls {rec['kernels'] and {k: v['calls'] for k, v in rec['kernels'].items()}} "
+                f"== a step's launches and their operations == the "
+                f"formula times them; traced in "
+                f"{res[label]['trace_s']:.1f} s ({rec['traces']}). "
+                f"Findings: traced peak "
+                f"{rec['memory']['traced_peak_bytes'] / 1e9:.2f} GB beside "
+                f"max_memory_allocated {run['peak_bytes'] / 1e9:.2f} GB; the "
+                f"roofline's {roof_ms:.1f} ms (an analysis under H100 bf16 "
+                f"figures, {rec['roofline']['dominant']}-bound) beside the "
+                f"measured step's {step_ms:.1f} ms; {card}")
+    t1 = time.perf_counter()
+    cli = D.lower_one("rwkv6-3b", "decode_32k", "single")
+    if cli["status"] != "ok" or cli["chips"] != 256:
+        raise AssertionError(f"phase 13: the CLI's combination gave {cli}")
+    res["cli"] = dict(record=cli, seconds=time.perf_counter() - t1)
+    log(f"[phase 13] rwkv6-3b decode_32k on the 16 x 16 fake mesh: "
+        f"{cli['t_trace_s']:.1f} s traced ({res['cli']['seconds']:.1f} s in "
+        f"all), dominant {cli['roofline']['dominant']}, "
+        f"{cli['flops_per_device']:.4g} FLOPs and "
+        f"{cli['collective_bytes_per_device']:.4g} collective bytes per "
+        f"device (an analysis); phase 13 took "
+        f"{time.perf_counter() - t0:.1f} s")
     return res
 
 
@@ -5530,6 +5777,11 @@ def main() -> int:
     # phase 11: the multimodal backbones; counts reset before and read
     # after the whole phase, which launches none
     lm11 = run_lm11(dev, rng, card)
+    # phase 12: the RGAT encoder; counts reset before and read after its
+    # one main run
+    rgat = run_rgat(dev, part, card)
+    # phase 13: the dry run against phases 8f and 9f; it launches nothing
+    dry = run_dryrun_check(lm_train, lm9["gemma_train"], card)
 
     kernels = []
     # each kernel's head shape: the mini-batch path's where it runs there
@@ -5561,7 +5813,8 @@ def main() -> int:
                    "lm_train": lm_train_launches[name],
                    "lm_dense_hybrid": lm9["launches"][name],
                    "lm_moe": lm10["launches"][name],
-                   "lm_multimodal": lm11["launches"][name]}
+                   "lm_multimodal": lm11["launches"][name],
+                   "rgat": rgat["launches"][name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),
@@ -5614,7 +5867,8 @@ def main() -> int:
                        "citation2": c2, "spmd": spmd,
                        "embedding_max_abs_diff": emb_err,
                        "lm": lm, "lm_train": lm_train, "lm9": lm9,
-                       "lm10": lm10, "lm11": lm11,
+                       "lm10": lm10, "lm11": lm11, "rgat": rgat,
+                       "dryrun": dry,
                        "profile": profiles,
                        "total_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"[profiler] {WINDOWS['taken']} windows, {WINDOWS['incomplete']} "

@@ -7,8 +7,9 @@ port's ``KGEModel`` and back (:func:`kge_model_from_jax`,
 :func:`kge_model_to_jax`), so both packages can start from the same
 weights. An int8 table in the reference's ``{"codes", "scales"}`` form
 crosses both ways bit for bit (:func:`quantized_table_from_jax`,
-:func:`quantized_table_to_jax`), and so does an LM parameter tree
-(:func:`lm_params_from_jax`, :func:`lm_params_to_jax`).
+:func:`quantized_table_to_jax`), and so do an LM parameter tree
+(:func:`lm_params_from_jax`, :func:`lm_params_to_jax`) and an RGAT one
+(:func:`rgat_params_from_jax`, :func:`rgat_params_to_jax`).
 """
 from __future__ import annotations
 
@@ -191,6 +192,32 @@ def lm_params_from_jax(tree: Mapping, cfg, *, device=None) -> Dict:
 
 def lm_params_to_jax(params: Mapping) -> Dict:
     """Inverse of :func:`lm_params_from_jax`: the same nesting with numpy
+    leaves, bit for bit."""
+    return _map_leaves(params,
+                       lambda _, t: t.detach().cpu().numpy().copy())
+
+
+def rgat_params_from_jax(tree: Mapping, cfg, *, device=None) -> Dict:
+    """The reference's ``init_rgat_params`` tree (float32 leaves, numpy or
+    ``np.asarray``-able) → the port's tree for ``cfg`` (a port
+    ``RGATConfig``) on ``device`` (default ``cuda``): the same nesting,
+    every name and shape checked against ``init_rgat_params``', values
+    copied bit for bit."""
+    from repro_torch.models.rgat import init_rgat_params
+    dev = resolve_device(device)
+    flat = flatten_tree(tree)
+    want = {n: tuple(a.shape) for n, a in flatten_tree(
+        init_rgat_params(np.random.default_rng(0), cfg)).items()}
+    got = {n: tuple(a.shape) for n, a in flat.items()}
+    if got != want:
+        raise ValueError(f"parameter tree does not match the RGAT config: "
+                         f"expected {want}, got {got}")
+    return _map_leaves(tree, lambda name, _: torch.tensor(
+        _f32_array(name, flat[name]), device=dev))
+
+
+def rgat_params_to_jax(params: Mapping) -> Dict:
+    """Inverse of :func:`rgat_params_from_jax`: the same nesting with numpy
     leaves, bit for bit."""
     return _map_leaves(params,
                        lambda _, t: t.detach().cpu().numpy().copy())

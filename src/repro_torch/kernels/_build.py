@@ -20,6 +20,9 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
+import torch
+from torch._subclasses.fake_tensor import is_fake
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("kge_score", "topk", "sharded_gather", "rgcn_message",
@@ -139,3 +142,18 @@ def require(kernel: str, name: str, t, dtype, shape) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+# ---------------------------------------------------------------------- #
+# Abstract tensors (the dry run)
+# ---------------------------------------------------------------------- #
+def is_abstract(*tensors) -> bool:
+    """``True`` when a tensor is a ``FakeTensor`` or a ``DTensor`` whose
+    local shard is one: the dry run's traced step. A wrapper then takes its
+    abstract branch (``sharding/step_analysis.local_kernel_call``), which
+    neither launches the kernel nor runs the plain version. A plain tensor
+    is let through on its type alone, so a real call pays one comparison a
+    tensor. A ``meta`` tensor is not abstract here: it lies on neither
+    device, and the wrappers refuse it."""
+    return any(type(t) is not torch.Tensor and t is not None and is_fake(t)
+               for t in tensors)

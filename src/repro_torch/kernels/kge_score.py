@@ -97,14 +97,36 @@ def _launch(entry: str, q, candidates, bias, q_bias, c_bias,
     return out
 
 
+def kge_score_ops(b: int, c: int, d: int) -> int:
+    """Operations of the scores: the ``(B, d) x (d, C)`` product."""
+    return 2 * b * c * d
+
+
+def kge_score_bytes(b: int, c: int, d: int) -> int:
+    """Bytes the scores must move, fp32: q, the candidates, both bias
+    vectors and the ``(B, C)`` bias read, the ``(B, C)`` scores
+    written."""
+    return 4 * (b * d + c * d + b + c + 2 * b * c)
+
+
 def kge_score(q: torch.Tensor, candidates: torch.Tensor, bias: torch.Tensor,
               q_bias: torch.Tensor, c_bias: torch.Tensor, *,
               epilogue: str = "bilinear") -> torch.Tensor:
     """``epilogue(q @ candidates.T + q_bias[:, None] + c_bias) + bias`` —
     the register-tiled CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Ragged ``B`` and ``C`` are taken as they are."""
+    CPU tensors. Ragged ``B`` and ``C`` are taken as they are. Fake
+    tensors take the abstract branch (the dry run)."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; known: {EPILOGUES}")
+    if _build.is_abstract(q, candidates, bias, q_bias, c_bias):
+        from repro_torch.sharding.step_analysis import local_kernel_call
+        (b, d), c = q.shape, candidates.shape[0]
+        return local_kernel_call(
+            "kge_score", lambda q, *_: torch.empty(
+                (b, c), dtype=torch.float32, device=q.device),
+            (q, candidates, bias, q_bias, c_bias),
+            lambda *_: kge_score_ops(b, c, d),
+            lambda *_: kge_score_bytes(b, c, d))
     if _build.on_cpu("kge_score", q, candidates, bias, q_bias, c_bias):
         return kge_score_plain(q, candidates, bias, q_bias, c_bias,
                                epilogue=epilogue)

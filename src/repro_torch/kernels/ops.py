@@ -95,7 +95,8 @@ class EdgePlans:
     """The segment plans of one graph's edge arrays, shared by every layer
     of an encode and by forward and backward: ``src`` (the heads, masked
     edges left out: the segment sum), ``dst`` and ``rel`` (every edge: the
-    scatter-adds of the tail-state and relation-row cotangents). Each is
+    scatter-adds of the tail-state and relation-row cotangents) and
+    ``src_all`` (the heads, every edge: RGAT's head-state gathers). Each is
     taken from ``given`` (the resident full-graph batch's, built once on
     the host) or built on the card at first use and kept (a mini-batch
     step's). On the CPU, whose plain versions take no plan, a plan not
@@ -106,6 +107,7 @@ class EdgePlans:
                  num_vertices: int, num_relations: int,
                  given: Optional[Dict[str, SegmentPlan]] = None):
         self.ids = {"src": (src, edge_mask, num_vertices),
+                    "src_all": (src, None, num_vertices),
                     "dst": (dst, None, num_vertices),
                     "rel": (rel, None, num_relations)}
         self._plans = {k: v for k, v in (given or {}).items()

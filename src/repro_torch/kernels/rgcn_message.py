@@ -123,11 +123,35 @@ def _launch_basis(entry: str, h_t, coef, bases, edge_mask):
     return out, True
 
 
+def basis_message_ops(e: int, nb: int, d_in: int, d_out: int,
+                      n_on: Optional[int] = None) -> int:
+    """Operations of the basis message: a ``d_in -> d_out`` product and
+    its coefficient for each of ``B`` bases, on the ``n_on`` edges that
+    are on (every edge when not given)."""
+    return 2 * (e if n_on is None else n_on) * nb * d_out * (d_in + 1)
+
+
+def basis_message_bytes(e: int, nb: int, d_in: int, d_out: int) -> int:
+    """Bytes the basis message must move, fp32: the edges' inputs and
+    coefficients, the bases and the mask read, the messages written."""
+    return 4 * (e * d_in + e * nb + nb * d_in * d_out + e * d_out) + e
+
+
 def basis_message(h_t: torch.Tensor, coef: torch.Tensor, bases: torch.Tensor,
                   edge_mask: torch.Tensor) -> torch.Tensor:
     """``mask[e] · Σ_b coef[e, b] · (h_t[e] @ bases[b])`` — the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors. Forward only: the
-    RGCN layer's backward is written out in ``ops.rgcn_message_basis``."""
+    RGCN layer's backward is written out in ``ops.rgcn_message_basis``.
+    Fake tensors take the abstract branch (the dry run), every edge on."""
+    if _build.is_abstract(h_t, coef, bases, edge_mask):
+        from repro_torch.sharding.step_analysis import local_kernel_call
+        (e, d_in), (nb, _, d_out) = h_t.shape, bases.shape
+        return local_kernel_call(
+            "basis_message", lambda h, *_: torch.empty(
+                (e, d_out), dtype=torch.float32, device=h.device),
+            (h_t, coef, bases, edge_mask),
+            lambda *_: basis_message_ops(e, nb, d_in, d_out),
+            lambda *_: basis_message_bytes(e, nb, d_in, d_out))
     if _build.on_cpu("basis_message", h_t, coef, bases, edge_mask):
         return basis_message_plain(h_t, coef, bases, edge_mask)
     out, launched = _launch_basis("basis_message_f32", h_t, coef, bases,
@@ -346,6 +370,21 @@ def _segment_operands(msg: torch.Tensor, seg: torch.Tensor,
                          "edge_mask (E,) bool")
 
 
+def segment_sum_ops(e: int, d: int, n_on: Optional[int] = None) -> int:
+    """Operations of the segment sum: one add an element of the ``n_on``
+    edges that are on (every edge when not given)."""
+    return (e if n_on is None else n_on) * d
+
+
+def segment_sum_bytes(e: int, v: int, d: int,
+                      n_on: Optional[int] = None) -> int:
+    """Bytes the segment sum must move, fp32: the ``n_on`` edges'
+    messages read (every edge when not given), 5 bytes an edge of its
+    segment and mask, the ``(V, d)`` sums and ``(V,)`` degrees written."""
+    n_on = e if n_on is None else n_on
+    return 4 * n_on * d + 5 * e + 4 * v * d + 4 * v
+
+
 def segment_sum(msg: torch.Tensor, seg: torch.Tensor,
                 edge_mask: torch.Tensor, num_segments: int,
                 plan: Optional[SegmentPlan] = None
@@ -354,7 +393,19 @@ def segment_sum(msg: torch.Tensor, seg: torch.Tensor,
     kernel for CUDA tensors (over ``plan``, the :func:`segment_plan` of
     ``seg`` and ``edge_mask``, built here when not given), the plain
     version for CPU tensors. ``seg`` must lie in ``[0, V)`` on unmasked
-    edges."""
+    edges. Fake tensors take the abstract branch (the dry run), every edge
+    on."""
+    if _build.is_abstract(msg, seg, edge_mask):
+        from repro_torch.sharding.step_analysis import local_kernel_call
+        e, d = msg.shape
+        return local_kernel_call(
+            "segment_sum", lambda m, *_: (
+                torch.empty((num_segments, d), dtype=torch.float32,
+                            device=m.device),
+                torch.empty((num_segments,), dtype=torch.float32,
+                            device=m.device)),
+            (msg, seg, edge_mask), lambda *_: segment_sum_ops(e, d),
+            lambda *_: segment_sum_bytes(e, num_segments, d))
     if plan is not None:
         check_plan("segment_sum", plan, seg, edge_mask, num_segments)
     if _build.on_cpu("segment_sum", msg, seg, edge_mask):

@@ -184,6 +184,15 @@ def _gather(entry: str, counter, table_flat: torch.Tensor,
     return out
 
 
+def fused_gather_bytes(v: int, d: int, n_own: Optional[int] = None) -> int:
+    """Bytes a gather of ``V`` slots of ``d`` fp32 columns must move: the
+    ``n_own`` owned rows read (every slot when not given), each slot's
+    int64 id and bool ownership read, the ``(V, d)`` output written. It
+    does no arithmetic."""
+    n_own = v if n_own is None else n_own
+    return 4 * n_own * d + 9 * v + 4 * v * d
+
+
 def fused_gather(table_flat: torch.Tensor, flat_ids: torch.Tensor,
                  any_owned: torch.Tensor, *, check: bool = True
                  ) -> torch.Tensor:
@@ -192,7 +201,15 @@ def fused_gather(table_flat: torch.Tensor, flat_ids: torch.Tensor,
     ``table_flat`` is ``(R, d)``, or an ``(S, rows, d)`` stack taken as its
     ``S·rows`` flat rows (the kernel reads the same memory). ``check``:
     wait for the gather and raise on a flat id outside the table (else
-    see :func:`raise_if_flagged`)."""
+    see :func:`raise_if_flagged`). Fake tensors take the abstract branch
+    (the dry run), which counts every slot as owned."""
+    if _build.is_abstract(table_flat, flat_ids, any_owned):
+        from repro_torch.sharding.step_analysis import local_kernel_call
+        return local_kernel_call(
+            "fused_gather", lambda t, ids, _: torch.empty(
+                (ids.shape[0], t.shape[-1]), dtype=t.dtype, device=t.device),
+            (table_flat, flat_ids, any_owned), lambda *_: 0,
+            lambda t, ids, _: fused_gather_bytes(ids.shape[0], t.shape[-1]))
     if _build.on_cpu("fused_gather", table_flat, flat_ids, any_owned):
         return fused_gather_plain(table_flat, flat_ids, any_owned)
     return _gather("fused_gather_f32", fused_gather, table_flat, flat_ids,
@@ -268,6 +285,21 @@ def _dequant_gather(entry: str, counter, codes_flat: torch.Tensor,
     return out
 
 
+def fused_dequant_gather_ops(v: int, d: int) -> int:
+    """Operations of a dequantizing gather: one multiply an output
+    element."""
+    return v * d
+
+
+def fused_dequant_gather_bytes(v: int, d: int,
+                               n_own: Optional[int] = None) -> int:
+    """Bytes a dequantizing gather must move: the ``n_own`` owned rows'
+    int8 codes and fp32 scales read (every slot when not given), each
+    slot's id and ownership read, the fp32 ``(V, d)`` output written."""
+    n_own = v if n_own is None else n_own
+    return n_own * d + 4 * n_own + 9 * v + 4 * v * d
+
+
 def fused_dequant_gather(codes_flat: torch.Tensor, scales_flat: torch.Tensor,
                          flat_ids: torch.Tensor, any_owned: torch.Tensor, *,
                          check: bool = True) -> torch.Tensor:
@@ -275,7 +307,19 @@ def fused_dequant_gather(codes_flat: torch.Tensor, scales_flat: torch.Tensor,
     scales_flat[flat_ids[v]] : 0`` in fp32 — the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors. ``codes_flat`` and
     ``scales_flat`` may be an ``(S, rows, d)`` / ``(S, rows)`` stack, as
-    in :func:`fused_gather`. ``check`` as in :func:`fused_gather`."""
+    in :func:`fused_gather`. ``check`` as in :func:`fused_gather`. Fake
+    tensors take the abstract branch, every slot owned."""
+    if _build.is_abstract(codes_flat, scales_flat, flat_ids, any_owned):
+        from repro_torch.sharding.step_analysis import local_kernel_call
+        return local_kernel_call(
+            "fused_dequant_gather", lambda c, _, ids, __: torch.empty(
+                (ids.shape[0], c.shape[-1]), dtype=torch.float32,
+                device=c.device),
+            (codes_flat, scales_flat, flat_ids, any_owned),
+            lambda c, _, ids, __: fused_dequant_gather_ops(ids.shape[0],
+                                                           c.shape[-1]),
+            lambda c, _, ids, __: fused_dequant_gather_bytes(ids.shape[0],
+                                                             c.shape[-1]))
     if _build.on_cpu("fused_dequant_gather", codes_flat, scales_flat,
                      flat_ids, any_owned):
         return fused_dequant_gather_plain(codes_flat, scales_flat, flat_ids,
@@ -336,6 +380,24 @@ def _scatter_operands(g: torch.Tensor, flat_ids: torch.Tensor,
     return r
 
 
+def scatter_add_onehot_ops(v: int, d: int,
+                           n_own: Optional[int] = None) -> int:
+    """Operations of the scatter-add: one add an element of the ``n_own``
+    owned slots' cotangents (every slot when not given)."""
+    return (v if n_own is None else n_own) * d
+
+
+def scatter_add_onehot_bytes(v: int, r: int, d: int,
+                             n_own: Optional[int] = None,
+                             owned: bool = True) -> int:
+    """Bytes the scatter-add must move, fp32: the ``n_own`` owned slots'
+    cotangents read (every slot when not given), each slot's int64 id and,
+    with ``owned``, its bool ownership read, the ``(R, d)`` rows
+    written."""
+    n_own = v if n_own is None else n_own
+    return 4 * n_own * d + 8 * v + (v if owned else 0) + 4 * r * d
+
+
 def scatter_add_onehot(g: torch.Tensor, flat_ids: torch.Tensor,
                        owned: Optional[torch.Tensor], num_rows: int,
                        plan: Optional[SegmentPlan] = None) -> torch.Tensor:
@@ -344,8 +406,18 @@ def scatter_add_onehot(g: torch.Tensor, flat_ids: torch.Tensor,
     (over ``plan``, the ``segment_plan`` of ``flat_ids`` and ``owned``,
     built here when not given), the plain version for CPU tensors.
     ``owned=None`` owns every slot; owned slots' ``flat_ids`` must lie in
-    ``[0, R)``."""
+    ``[0, R)``. Fake tensors take the abstract branch (the dry run), every
+    slot owned."""
     tensors = (g, flat_ids) + (() if owned is None else (owned,))
+    if _build.is_abstract(*tensors):
+        from repro_torch.sharding.step_analysis import local_kernel_call
+        v, d = g.shape
+        return local_kernel_call(
+            "scatter_add_onehot", lambda g, *_: torch.empty(
+                (num_rows, d), dtype=torch.float32, device=g.device),
+            tensors, lambda *_: scatter_add_onehot_ops(v, d),
+            lambda *_: scatter_add_onehot_bytes(
+                v, num_rows, d, owned=owned is not None))
     if plan is not None:
         check_plan("scatter_add_onehot", plan, flat_ids, owned, num_rows)
     if _build.on_cpu("scatter_add_onehot", *tensors):

@@ -200,6 +200,19 @@ def stream_select(scores: torch.Tensor, k: int,
     return out_v, out_i
 
 
+def topk_scores_ops(b: int, c: int) -> int:
+    """Operations of a top-k over ``(B, C)`` scores: one comparison a
+    score."""
+    return b * c
+
+
+def topk_scores_bytes(b: int, c: int, k: int, with_ids: bool = False) -> int:
+    """Bytes a top-k must move: the fp32 scores read, k fp32 values and
+    int64 indices a row written; with ``ids`` (the merge) the k winners'
+    int64 ids a row read, no more."""
+    return 4 * b * c + 12 * b * k + (8 * b * k if with_ids else 0)
+
+
 def topk_scores(scores: torch.Tensor, k: int,
                 ids: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -210,7 +223,19 @@ def topk_scores(scores: torch.Tensor, k: int,
 
     On the card, ``k <= STREAM_MAX_K`` takes the streaming kernel, one
     launch of :func:`stream_splits` blocks a row; a larger ``k`` the first
-    kernel's passes, one launch each."""
+    kernel's passes, one launch each. Fake tensors take the abstract
+    branch (the dry run)."""
+    if _build.is_abstract(scores, ids):
+        from repro_torch.sharding.step_analysis import local_kernel_call
+        return local_kernel_call(
+            "topk", lambda x, *_: (
+                torch.empty((x.shape[0], k), dtype=torch.float32,
+                            device=x.device),
+                torch.empty((x.shape[0], k), dtype=torch.int64,
+                            device=x.device)),
+            (scores,) if ids is None else (scores, ids),
+            lambda x, *_: topk_scores_ops(*x.shape),
+            lambda x, *_: topk_scores_bytes(*x.shape, k, ids is not None))
     if _build.on_cpu("topk", scores, *(() if ids is None else (ids,))):
         return topk_plain(scores, k, ids)
     b, c = _operands(scores, k, ids)

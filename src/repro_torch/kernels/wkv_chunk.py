@@ -66,6 +66,61 @@ def _library():
     return _build.load("wkv_chunk", _SIGNATURES)
 
 
+def wkv_chunked_ops(bh: int, s: int, hd: int, chunk: int) -> int:
+    """Operations the chunked WKV needs: per chunk of n steps the two
+    products over the strict lower triangle, r_t k_t^T and scores v,
+    n (n - 1) hd each, and the two with the state, r_t S and k_out^T v,
+    2 n hd^2 each."""
+    lengths = [min(chunk, s - lo) for lo in range(0, s, chunk)]
+    return bh * sum(2 * n * (n - 1) * hd + 4 * n * hd * hd for n in lengths)
+
+
+def wkv_chunked_bytes(bh: int, s: int, hd: int) -> int:
+    """Bytes the forward must move: r, k, v, log_decay and u read, the
+    output written, fp32."""
+    return 4 * (5 * bh * s * hd + bh * hd)
+
+
+def wkv_chunked_backward_ops(bh: int, s: int, hd: int) -> float:
+    """Operations the WKV gradient needs from its inputs alone, in the
+    chunked form at the chunk length K that needs the fewest. Per chunk of
+    K steps and row: the chunk's state k^T v, G's r~^T g, and the cross
+    terms g S_in^T (dr), v G'^T (dk) and k~ G' (dv), 2 K hd^2 each; the
+    decay of the state and of G once a chunk, hd^2 each; inside the chunk
+    the five strict-lower products A = r~ k~^T, A^T g, dA = g v^T, dA k~
+    and dA^T r~, K (K - 1) hd each. A step so costs 10 hd^2 + 2 hd^2 / K +
+    5 (K - 1) hd, least near K = sqrt(2 hd / 5) (K = 1 is the sequential
+    recurrence's 12 hd^2). dlw needs no contraction of its own: with L_t
+    the cumulative log-decay, the loss sees L_t only through r_{t+1}
+    e^{L_t} and k_t e^{-L_t}, so dlw_m is the reverse cumulative sum over
+    t >= m of r_{t+1} dr'_{t+1} - k_t dk'_t (dr', dk' without their bonus
+    terms), O(hd) a step."""
+    per_step = min(10 * hd * hd + 2 * hd * hd / kk + 5 * (kk - 1) * hd
+                   for kk in range(1, max(hd, 1) + 1))
+    return bh * s * per_step
+
+
+def wkv_chunked_backward_bytes(bh: int, s: int, hd: int) -> int:
+    """Bytes the gradient must move: r, k, v, log_decay, g and u read,
+    the five gradients written, fp32."""
+    return 4 * (9 * bh * s * hd + 2 * bh * hd)
+
+
+def _abstract_forward(r, k, v, log_decay, u, chunk: int, keep: bool):
+    """The abstract branch of the forward (the dry run): the output and,
+    with ``keep``, the scratch, as empty tensors."""
+    def make(r, k, v, log_decay, u):
+        bh, s, hd = r.shape
+        out = torch.empty((bh, s, hd), dtype=torch.float32, device=r.device)
+        return (out, *_scratch(bh, s, hd, chunk, r.device)) if keep else out
+    from repro_torch.sharding.step_analysis import local_kernel_call
+    out = local_kernel_call(
+        "wkv_chunked", make, (r, k, v, log_decay, u),
+        lambda r, *_: wkv_chunked_ops(*r.shape, chunk),
+        lambda r, *_: wkv_chunked_bytes(*r.shape))
+    return (out[0], tuple(out[1:])) if keep else out
+
+
 def wkv_chunked_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       log_decay: torch.Tensor, u: torch.Tensor, *,
                       chunk: int = 64) -> torch.Tensor:
@@ -152,7 +207,10 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 chunk: int = 64) -> torch.Tensor:
     """Chunked WKV over ``(BH, S, hd)`` fp32 inputs and ``(BH, hd)`` bonus
     ``u`` → ``(BH, S, hd)`` fp32 — the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Forward only."""
+    plain version for CPU tensors, the abstract branch for fake ones.
+    Forward only."""
+    if _build.is_abstract(r, k, v, log_decay, u):
+        return _abstract_forward(r, k, v, log_decay, u, chunk, keep=False)
     if _build.on_cpu("wkv_chunked", r, k, v, log_decay, u):
         return wkv_chunked_plain(r, k, v, log_decay, u, chunk=chunk)
     return _launch("wkv_chunked_f32", wkv_chunked, r, k, v, log_decay, u,
@@ -170,8 +228,11 @@ def wkv_chunked_states(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     P), the chunks' entering states (BH, nch, P, P), l_tot (BH, nch, P))``
     on CUDA tensors (one ``wkv_chunked`` launch; ``out`` bitwise
     :func:`wkv_chunked`'s), ``None`` with the plain output on CPU
-    tensors. :func:`wkv_chunked_backward` takes ``states`` in place of
-    forming them again."""
+    tensors, the abstract branch's empty ones for fake tensors.
+    :func:`wkv_chunked_backward` takes ``states`` in place of forming them
+    again."""
+    if _build.is_abstract(r, k, v, log_decay, u):
+        return _abstract_forward(r, k, v, log_decay, u, chunk, keep=True)
     if _build.on_cpu("wkv_chunked", r, k, v, log_decay, u):
         return wkv_chunked_plain(r, k, v, log_decay, u, chunk=chunk), None
     return _launch("wkv_chunked_f32", wkv_chunked, r, k, v, log_decay, u,
@@ -338,7 +399,17 @@ def wkv_chunked_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     form). ``states``: the forward's scratch from
     :func:`wkv_chunked_states` of the same inputs and ``chunk``; without
     it the call runs the forward's kernel first for them, a launch it does
-    not count. CPU tensors ignore ``chunk`` and ``states``."""
+    not count. CPU tensors ignore ``chunk`` and ``states``; fake ones
+    take the abstract branch, which counts the gradient's own operations
+    (as the launch count, it leaves out a forward run for the states)."""
+    if _build.is_abstract(r, k, v, log_decay, u, g):
+        from repro_torch.sharding.step_analysis import local_kernel_call
+        return local_kernel_call(
+            "wkv_chunked_backward",
+            lambda *xs: tuple(torch.empty_like(t) for t in xs[:5]),
+            (r, k, v, log_decay, u, g),
+            lambda r, *_: wkv_chunked_backward_ops(*r.shape),
+            lambda r, *_: wkv_chunked_backward_bytes(*r.shape))
     if _build.on_cpu("wkv_chunked_backward", r, k, v, log_decay, u, g):
         return wkv_chunked_backward_plain(r, k, v, log_decay, u, g)
     bh, s, hd = _backward_operands(r, k, v, log_decay, u, g)

@@ -14,11 +14,20 @@ Importing this module starts no process group: the entry point
 initialises the default group (``torch.distributed.init_process_group``)
 and :func:`make_process_mesh` builds the subgroups on it, NCCL for
 ``cuda`` and gloo for ``cpu``.
+
+The dry run (``launch/dryrun.py``) lays the reference's production meshes
+(:data:`PRODUCTION_MESHES`) over a fake process group
+(:func:`fake_process_group`, :func:`make_fake_mesh`) and divides its
+counts by the H100's figures (:data:`PEAK_FLOPS_BF16`, :data:`HBM_BW`,
+:data:`NET_BW`). The LM half of the reference's sharding rules is
+``sharding/rules.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+import math
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -178,3 +187,68 @@ def place_row_blocks(model: torch.nn.Module, specs: Mapping[str, str],
         if spec == ROW_BLOCK:
             block = row_block(getattr(model, name).detach(), mesh).clone()
             setattr(model, name, torch.nn.Parameter(block))
+
+
+# ---------------------------------------------------------------------- #
+# Production meshes on a fake process group (the dry run)
+# ---------------------------------------------------------------------- #
+# the reference's production meshes (repro/launch/mesh.py): one pod of
+# 16 x 16 chips, and two pods with a leading "pod" axis
+PRODUCTION_MESHES: Dict[str, Tuple[Tuple[int, ...], Tuple[str, ...]]] = {
+    "single": ((16, 16), ("data", "model")),
+    "multi": ((2, 16, 16), ("pod", "data", "model")),
+}
+
+# NVIDIA H100 80GB HBM3 (SXM) figures the dry run's roofline divides by;
+# an analysis, not a measurement. Peak dense bf16 tensor-core rate and
+# HBM3 rate from NVIDIA's H100 datasheet (the figures PERF.md's bounds
+# use).
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s per GPU, NVIDIA H100 80GB HBM3
+HBM_BW = 3.35e12                # bytes/s per GPU, NVIDIA H100 80GB HBM3
+# The link a collective over a mesh axis is held to: a 16-wide axis
+# leaves the 8-GPU NVLink domain of an HGX H100 node, so its slowest hop
+# is the network, not NVLink 4's 450 GB/s a direction. The DGX H100
+# datasheet gives each GPU one 400 Gb/s NDR InfiniBand port (ConnectX-7):
+# 50e9 bytes/s a direction per NVIDIA H100 80GB HBM3.
+NET_BW = 50e9                   # bytes/s per GPU, one direction
+
+
+def production_mesh_shape(kind: str) -> Tuple[Tuple[int, ...],
+                                               Tuple[str, ...]]:
+    """``(shape, axis names)`` of the ``"single"`` or ``"multi"`` mesh."""
+    if kind not in PRODUCTION_MESHES:
+        raise ValueError(f"unknown mesh {kind!r}; known: "
+                         f"{sorted(PRODUCTION_MESHES)}")
+    return PRODUCTION_MESHES[kind]
+
+
+@contextlib.contextmanager
+def fake_process_group(world: int):
+    """The default process group as ``world`` ranks of the fake backend
+    (``torch.testing._internal.distributed.fake_pg``), this process rank
+    0: its collectives return without sending anything, so a mesh of any
+    size can be traced on one host with no card. Destroyed on exit; an
+    initialised group already in place is refused."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_fake_mesh(shape: Sequence[int], names: Sequence[str]):
+    """A ``DeviceMesh`` of ``shape`` with named dimensions over the ranks
+    of the fake default group (:func:`fake_process_group` of
+    ``prod(shape)`` ranks), laid out row-major as the reference's
+    ``jax.make_mesh``. Its device type is ``cpu``: the dry run's shards
+    are fake CPU tensors, whatever card the step would run on."""
+    from torch.distributed.device_mesh import DeviceMesh
+    n = math.prod(shape)
+    if world_size() != n:
+        raise ValueError(f"a {tuple(shape)} mesh on {world_size()} ranks")
+    return DeviceMesh("cpu", torch.arange(n).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(names))

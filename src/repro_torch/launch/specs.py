@@ -1,18 +1,27 @@
-"""Analytic model FLOPs of the LM substrate (port of
-``repro/launch/specs.py:27-158``: ``InputShape``, ``model_flops`` and
-``_attention_layer_count``).
+"""Abstract inputs and analytic model FLOPs of the LM substrate (port of
+``repro/launch/specs.py``): the input shapes of the dry run, the
+long-context rule, abstract parameters, Adam state, batches and caches,
+``model_flops`` and the scan trip count.
 
-Parameter counts come from the port's own parameter shapes, made on the
-``meta`` device (nothing is allocated).
+"Abstract" means ``meta`` tensors: the reference's shapes and dtypes
+(bf16 by default, as there), nothing allocated. Modality frontends are
+stubs, as in the reference: whisper gets frame embeddings ``(B, 1500,
+d)``, qwen2-vl patch embeddings ``(B, S, vision_dim)`` and 3-D M-RoPE
+positions.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.nn.transformer import (
-    ArchConfig, init_params, leaves, stack_plan,
+    ArchConfig, init_decode_cache, init_params, leaves, stack_plan,
 )
+from repro_torch.training.optimizer import OptState, adam
+
+PyTree = Any
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,6 +30,80 @@ class InputShape:
     seq_len: int
     global_batch: int
     mode: str        # train | prefill | decode
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+# long_500k needs sub-quadratic attention: it runs for the SSM, the hybrid
+# and the sliding-window dense variant; pure full-attention archs skip it
+LONG_CONTEXT_OK = {"rwkv6-3b", "recurrentgemma-9b", "gemma-2b-sw"}
+
+
+def resolve_arch_for_shape(arch_name: str, shape_name: str
+                           ) -> Tuple[Optional[ArchConfig], str]:
+    """``(config or None, note)``: gemma-2b substitutes its sliding-window
+    variant for long_500k; other full-attention archs skip it."""
+    from repro_torch.configs import get_arch
+    if shape_name == "long_500k":
+        if arch_name == "gemma-2b":
+            return get_arch("gemma-2b-sw"), \
+                "substituted sliding-window variant (sub-quadratic)"
+        if arch_name not in LONG_CONTEXT_OK:
+            return None, "skipped: full-attention arch at 500k decode"
+    return get_arch(arch_name), ""
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16) -> PyTree:
+    """The parameter tree of ``cfg`` as ``meta`` tensors (every MoE router
+    fp32, as ``init_params`` makes it)."""
+    return init_params(cfg, generator=None, device="meta", dtype=dtype)
+
+
+def abstract_opt_state(params: PyTree, optimizer=None) -> OptState:
+    """The optimizer's state for ``params`` (default Adam: the step and
+    two moments of every leaf, by dotted name), on ``meta``."""
+    opt = optimizer or adam(1e-4)
+    return opt.init(dict(leaves(params)))
+
+
+def abstract_batch(cfg: ArchConfig, shape: InputShape
+                   ) -> Dict[str, torch.Tensor]:
+    """The batch of one step of ``shape.mode`` on ``meta``: int32 tokens
+    (and labels for training; decode: one token and its position ``pos``
+    a row), bf16 patch embeddings and int32 3-D positions for the VLM,
+    bf16 frame embeddings for the encoder-decoder."""
+    b, s = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+
+    def meta(*dims, dtype=i32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+    if shape.mode in ("train", "prefill"):
+        batch: Dict[str, torch.Tensor] = {"tokens": meta(b, s)}
+        if shape.mode == "train":
+            batch["labels"] = meta(b, s)
+        if cfg.arch_type == "vlm":
+            batch["vision_embeds"] = meta(b, s, cfg.vision_dim, dtype=bf16)
+            batch["positions"] = meta(b, s, 3)
+        if cfg.arch_type == "encdec":
+            batch["audio_frames"] = meta(b, cfg.encoder_frames, cfg.d_model,
+                                         dtype=bf16)
+        return batch
+    batch = {"tokens": meta(b, 1), "pos": meta(b)}
+    if cfg.m_rope:
+        batch["positions_3d"] = meta(b, 1, 3)
+    return batch
+
+
+def abstract_cache(cfg: ArchConfig, shape: InputShape,
+                   dtype=torch.bfloat16) -> PyTree:
+    """The decode cache for ``shape`` on ``meta``."""
+    return init_decode_cache(cfg, shape.global_batch, shape.seq_len,
+                             device="meta", dtype=dtype)
 
 
 
@@ -86,3 +169,9 @@ def _attention_layer_count(cfg: ArchConfig) -> int:
     if cfg.arch_type == "encdec":
         n += cfg.encoder_layers
     return n
+
+
+def scan_trip_count(cfg: ArchConfig) -> int:
+    """Largest scanned group's length: the reference's loop multiplier."""
+    return max((n for _, n, scanned in stack_plan(cfg) if scanned),
+               default=1)

@@ -133,9 +133,8 @@ def apply_m_rope(x: torch.Tensor, positions_3d: torch.Tensor,
     if sum(sections) != half:
         raise ValueError(f"sections {sections} do not sum to {half}")
     inv = rope_frequencies(x.shape[-1], base, device=x.device)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))           # (half,)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)  # (half,)
     # per frequency index, the position stream of its section
     pos = positions_3d.float()[..., sec_id]                # (B, S, half)
     return _rotate(x, pos * inv)

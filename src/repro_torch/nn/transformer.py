@@ -28,9 +28,10 @@ is a list of layers. Entry points:
 default), ``"chunked"`` (plain PyTorch, only when S is a multiple of
 ``rwkv_chunk``, else sequential) or ``"chunked_kernel"`` (the CUDA kernel on
 the card, any S). ``moe_dispatch`` picks the MoE layer's dispatch,
-``"dense"`` or ``"capacity"`` (``nn/moe.py``). Without a mesh the
-reference's activation and logits sharding pins are no-ops, so there are
-none here.
+``"dense"`` or ``"capacity"`` (``nn/moe.py``). The reference's
+activation and logits pins (``sharding/context.py``: the embeddings, each
+group's output, the encoder's output and the logits) redistribute the
+dry run's ``DTensor``s; without an installed mesh they return their input.
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ from repro_torch.nn.layers import (
     Shape, dense_init, embed_init, full, mlp_apply, mlp_params, rmsnorm,
     rmsnorm_params,
 )
+from repro_torch.sharding.context import shard_activation, shard_logits
 
 PyTree = Any
 
@@ -447,10 +449,11 @@ def _pattern_apply(p: Dict, cfg: ArchConfig, h: torch.Tensor,
 def _run_stack(groups: List[PyTree], plan: List[Tuple[str, int, bool]],
                cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor, *,
                encoder_out: Optional[torch.Tensor] = None,
-               remat: bool = False
+               remat: bool = False, pin=None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``h`` through the stack's groups in order: ``(h, the blocks' aux
-    summed, None without an MoE block)``. With ``remat`` each block of a
+    summed, None without an MoE block)``, ``pin(h)`` after each group when
+    given. With ``remat`` each block of a
     scanned group (each pattern body of the hybrid's) runs under
     ``torch.utils.checkpoint`` and is recomputed in the backward, the
     reference's ``jax.checkpoint`` around its scan body (policy "nothing"):
@@ -473,6 +476,8 @@ def _run_stack(groups: List[PyTree], plan: List[Tuple[str, int, bool]],
                 h, a = fn(*args)
             if a is not None:
                 aux = a if aux is None else aux + a
+        if pin is not None:
+            h = pin(h)
     return h, aux
 
 
@@ -518,7 +523,7 @@ def encode(params: PyTree, cfg: ArchConfig, audio_frames: torch.Tensor, *,
     h, _ = _run_stack(enc["groups"], [("enc", cfg.encoder_layers, True)],
                       cfg, audio_frames, positions,
                       remat=cfg.remat and train)
-    return rmsnorm(enc["final_norm"], h)
+    return shard_activation(rmsnorm(enc["final_norm"], h))
 
 
 def _forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -533,13 +538,15 @@ def _forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
     encoder_out = None
     if cfg.arch_type == "encdec":
         encoder_out = encode(params, cfg, audio_frames, train=train)
-    h = embed_tokens(params, cfg, tokens, vision_embeds)
+    def pin(x):
+        return shard_activation(x, seq_over_model=cfg.act_seq_shard)
+    h = pin(embed_tokens(params, cfg, tokens, vision_embeds))
     h, aux = _run_stack(params["groups"], stack_plan(cfg), cfg, h,
                         positions, encoder_out=encoder_out,
-                        remat=cfg.remat and train)
+                        remat=cfg.remat and train, pin=pin)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return _head(params, cfg, h), aux
+    return shard_logits(_head(params, cfg, h)), aux
 
 
 def forward(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -704,14 +711,16 @@ def init_decode_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
     ``seq_len`` tokens, each scanned group's leaves stacked ``(L, ...)``
     (RWKV's is O(1) in ``seq_len``); the encoder-decoder's also holds
     ``encoder_out`` ``(batch, encoder_frames, d)``, zeros until the caller
-    sets it. Runs on ``device`` (default ``cuda``). ``dtype`` is the KV
+    sets it. Runs on ``device`` (default ``cuda``; ``"meta"`` makes only
+    the shapes). ``dtype`` is the KV
     cache's, the conv history's, the token-shift rows' and
     ``encoder_out``'s type, which must be the weights' (a decode step
     multiplies them by the weights; the recurrent states are fp32 whatever
     the weights, as in the reference): bfloat16 by default, as
     :func:`init_params`'s weights and the reference's cache; pass
     ``dtype=torch.float32`` for fp32 weights."""
-    dev = resolve_device(device)
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
     kw = dict(device=dev, dtype=dtype)
     groups = []
     for kind, n, scanned in stack_plan(cfg):
@@ -755,7 +764,7 @@ def decode_step(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
         raise ValueError(f"{cfg.name}: an M-RoPE decode step needs "
                          f"positions_3d (B, 1, 3)")
     encoder_out = cache.get("encoder_out")
-    h = embed_tokens(params, cfg, tokens, vision_embeds)
+    h = shard_activation(embed_tokens(params, cfg, tokens, vision_embeds))
     for gparams, gcache, (kind, n, scanned) in zip(
             params["groups"], cache["groups"], stack_plan(cfg)):
         for i in range(n):
@@ -768,4 +777,4 @@ def decode_step(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
                 h, nc = block_decode(bp, cfg, h, bc, pos, kd, encoder_out,
                                      positions_3d)
                 _copy_into(bc, nc)
-    return _head(params, cfg, h), cache
+    return shard_logits(_head(params, cfg, h)), cache

@@ -2195,7 +2195,66 @@ def check_wkv_backward(dev, rng):
         log(f"[phase 2] wkv_chunked_backward hd=128 refused: {e}")
     else:
         raise AssertionError("wkv_chunked_backward: hd=128 did not raise")
+    stats["margin"] = check_wkv_backward_margin(dev, rng)
     return max_err, stats
+
+
+WKV_BWD_MARGIN_SHAPE = (16 * 40, 4096, 64)   # BH (B 16 x 40 heads), S, hd
+WKV_BWD_MARGIN_ROWS = 64      # rows of the fp64 sequential gradient at once
+WKV_BWD_MARGIN_FAULT = 0.5    # a larger share of the gate is a fault
+
+
+def check_wkv_backward_margin(dev, rng):
+    """dlog_decay's margin at the reference's training length: the
+    kernel's gradient (chunk 64) at BH = 640 (16 batch rows of rwkv6-3b's
+    40 heads; the train_4k batch is 256 rows), S = 4,096, against the
+    fp64 sequential gradient (autograd through the oracle), which is
+    computed WKV_BWD_MARGIN_ROWS rows at a time so that its saved states
+    stay bounded. Every output within the reference's gradient gate (rtol
+    5e-3, atol 1e-4); each output's largest share of the gate printed. A
+    dlog_decay share above WKV_BWD_MARGIN_FAULT is a fault (ROADMAP,
+    Queue 3): it is logged as one, and the phase fails only past the
+    gate itself."""
+    import torch
+    from repro_torch.kernels.wkv_chunk import (
+        wkv_chunked_backward, wkv_chunked_backward_plain,
+    )
+    bh, s, hd = WKV_BWD_MARGIN_SHAPE
+    t0 = time.perf_counter()
+    x = wkv_inputs(dev, rng, bh, s, hd)
+    g = torch.from_numpy(rng.normal(size=(bh, s, hd)).astype(
+        np.float32)).to(dev)
+    got = wkv_chunked_backward(*x, g, chunk=64)
+    names = ("dr", "dk", "dv", "dlog_decay", "du")
+    share = dict.fromkeys(names, 0.0)
+    for lo in range(0, bh, WKV_BWD_MARGIN_ROWS):
+        rows = slice(lo, lo + WKV_BWD_MARGIN_ROWS)
+        want = wkv_chunked_backward_plain(
+            *(t[rows].double() for t in x), g[rows].double())
+        for name, a, w in zip(names, got, want):
+            if not bool(torch.isfinite(a[rows]).all()):
+                raise AssertionError(f"wkv_chunked_backward margin: {name} "
+                                     f"not finite")
+            gate = 1e-4 + 5e-3 * w.abs()
+            share[name] = max(share[name], float(
+                ((a[rows].double() - w).abs() / gate).max()))
+        del want
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    fault = share["dlog_decay"] > WKV_BWD_MARGIN_FAULT
+    log(f"[phase 2] wkv_chunked_backward margin (BH={bh}, S={s}, hd={hd}, "
+        f"chunk=64; the fp64 sequential gradient {WKV_BWD_MARGIN_ROWS} rows "
+        f"at a time): largest share of the reference's gate "
+        + ", ".join(f"{n} {share[n]:.3f}" for n in names)
+        + f"; dlog_decay {share['dlog_decay']:.3f} of the gate "
+        + ("ABOVE" if fault else "within")
+        + f" the fault line {WKV_BWD_MARGIN_FAULT}; {seconds:.1f} s")
+    worst = max(share, key=share.get)
+    if share[worst] > 1.0:
+        raise AssertionError(f"wkv_chunked_backward margin: {worst} outside "
+                             f"the reference's gate, share {share[worst]}")
+    return dict(BH=bh, S=s, hd=hd, reference_gate_share=share,
+                fault=fault, seconds=seconds)
 
 
 # ---------------------------------------------------------------------- #
@@ -4213,6 +4272,13 @@ def check_dry_record(label, rec, card_run, launches, kernel_ops):
                                  f"vs {k['calls']} x {kernel_ops[name]}")
 
 
+# rwkv6-3b decode_32k on the 16 x 16 fake mesh: the record's collective
+# bytes a device, the same under every torch release the port runs on
+# (tests/test_torch_dryrun.py::test_cli_full_size_record holds it on the
+# CPU)
+DRYRUN_DECODE_32K_COLLECTIVE_BYTES = 426853632
+
+
 def run_dryrun_check(lm_train, gemma_train, card):
     """Phase 13: the 1 x 1 dry-run record (launch/dryrun.py, a fake process
     group of one rank, nothing on the card) of phase 8f's step (rwkv6-3b,
@@ -4225,8 +4291,9 @@ def run_dryrun_check(lm_train, gemma_train, card):
     the formula times them. Printed as findings: the traced peak beside
     max_memory_allocated, the roofline's time (an analysis under H100
     figures) beside the measured step. Then the CLI's combination of
-    tests/test_dryrun_cli.py at full size (rwkv6-3b, decode_32k, the
-    16 x 16 mesh) and its record's time."""
+    tests/test_torch_dryrun.py at full size (rwkv6-3b, decode_32k, the
+    16 x 16 mesh), its record's time, and its collective bytes ==
+    DRYRUN_DECODE_32K_COLLECTIVE_BYTES."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -4284,6 +4351,15 @@ def run_dryrun_check(lm_train, gemma_train, card):
     cli = D.lower_one("rwkv6-3b", "decode_32k", "single")
     if cli["status"] != "ok" or cli["chips"] != 256:
         raise AssertionError(f"phase 13: the CLI's combination gave {cli}")
+    if cli["collective_bytes_per_device"] != \
+            DRYRUN_DECODE_32K_COLLECTIVE_BYTES:
+        raise AssertionError(
+            f"phase 13: rwkv6-3b decode_32k on 16 x 16 counts "
+            f"{cli['collective_bytes_per_device']} collective bytes a device "
+            f"under torch {torch.__version__}, not "
+            f"{DRYRUN_DECODE_32K_COLLECTIVE_BYTES} "
+            f"(tests/test_torch_dryrun.py holds the same on the CPU): "
+            f"{cli['collective_detail']}")
     res["cli"] = dict(record=cli, seconds=time.perf_counter() - t1)
     log(f"[phase 13] rwkv6-3b decode_32k on the 16 x 16 fake mesh: "
         f"{cli['t_trace_s']:.1f} s traced ({res['cli']['seconds']:.1f} s in "

@@ -25,6 +25,7 @@ reference's clamped write overwrites its last row.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -32,6 +33,9 @@ import torch
 from repro_torch.nn.layers import (
     Shape, apply_m_rope, apply_rope, dense_init, full, rmsnorm,
     rmsnorm_params, softcap,
+)
+from repro_torch.sharding.context import (
+    head_parallel, key_parallel, keys_split, shard_activation,
 )
 
 Cache = Dict[str, torch.Tensor]
@@ -94,7 +98,22 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``q (B, Sq, H, hd)``; ``k``, ``v`` ``(B, Sk, H_kv, ·)``; GQA by
     head-group broadcast. ``mask`` broadcastable to ``(B, H, Sq, Sk)``,
     True = attend. Scores are divided by ``hd ** 0.5``, masked to -1e30 and
-    softmaxed in fp32. Returns ``(B, Sq, H · vd)`` in ``q``'s dtype."""
+    softmaxed in fp32. Returns ``(B, Sq, H · vd)`` in ``q``'s dtype. On a
+    mesh each device attends its own rows and heads
+    (``sharding.context.head_parallel``)."""
+    return head_parallel(
+        functools.partial(_sdpa_local, logit_cap=logit_cap),
+        (q, k, v, mask), ("b.h.", "b.k.", "b.k.", MASK_LAYOUT), "b.h",
+        heads=q.shape[2], kv_heads=k.shape[2])
+
+
+MASK_LAYOUT = "bh.."     # a mask broadcastable to (B, H, Sq, Sk)
+
+
+def _sdpa_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: Optional[torch.Tensor], *,
+                logit_cap: Optional[float] = None) -> torch.Tensor:
+    """:func:`_sdpa` on one device's rows and heads."""
     b, sq, h, hd = q.shape
     hkv = k.shape[2]
     group = h // hkv
@@ -125,7 +144,20 @@ def _mea(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Temporary memory is O(q_chunk · k_chunk) instead of O(S²). Scores are
     multiplied by ``hd ** -0.5`` and masked to -1e30; masked ``p`` are
     zeroed, and the sum ``l`` is floored at 1e-30. Every block pair is
-    visited, masked or not, as in the reference's scan."""
+    visited, masked or not, as in the reference's scan. On a mesh each
+    device attends its own rows and heads."""
+    body = functools.partial(_mea_local, causal=causal, window=window,
+                             logit_cap=logit_cap, q_chunk=q_chunk,
+                             k_chunk=k_chunk)
+    return head_parallel(body, (q, k, v), ("b.h.", "b.k.", "b.k."), "b.h",
+                         heads=q.shape[2], kv_heads=k.shape[2])
+
+
+def _mea_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool, window: Optional[int],
+               logit_cap: Optional[float], q_chunk: int,
+               k_chunk: int) -> torch.Tensor:
+    """:func:`_mea` on one device's rows and heads."""
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     vd = v.shape[-1]          # may differ from hd (MLA)
@@ -254,10 +286,38 @@ def attention_decode(p: Dict, x: torch.Tensor, cache: Cache,
                    rope_base, m_rope)
     k_cache = _ring_write(cache["k"], k, pos)
     v_cache = _ring_write(cache["v"], v, pos)
-    valid = ring_valid(k_cache.shape[1], pos, window)
-    out = _sdpa(q, k_cache, v_cache, valid[:, None, None, :],
-                logit_cap=logit_cap)
+    valid = ring_valid(k_cache.shape[1], pos, window)[:, None, None, :]
+    if keys_split(k_cache, 1):
+        out = key_parallel(
+            functools.partial(_attend_keys, logit_cap=logit_cap),
+            (q, k_cache, v_cache, valid), ("b...", "bs..", "bs..", "b..s"),
+            "b..")
+    else:
+        out = _sdpa(q, k_cache, v_cache, valid, logit_cap=logit_cap)
     return out @ p["w_o"], {"k": k_cache, "v": v_cache}
+
+
+def _attend_keys(q, k, v, mask, *, logit_cap, reduce):
+    """:func:`_sdpa` on one device's share of the cache rows
+    (``sharding.context.key_parallel``): the masked scores' max, the sum
+    of their exponentials and the value product are all-reduced over the
+    devices that hold the other rows."""
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    qg = q.reshape(b, sq, hkv, group, hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k.float()) / (hd ** 0.5)
+    scores = softcap(scores, logit_cap)
+    m = torch.broadcast_to(mask, (b, h, sq, scores.shape[-1])) \
+        .reshape(b, hkv, group, sq, -1)
+    scores = torch.where(m, scores, NEG)
+    top = reduce(torch.amax(scores, dim=-1), "max")
+    w = torch.exp(scores - top[..., None])
+    total = reduce(torch.sum(w, dim=-1), "sum")
+    out = reduce(torch.einsum("bhgqk,bkhd->bqhgd", w, v.float()), "sum")
+    out = out / total.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, sq, h * v.shape[-1]).to(q.dtype)
 
 
 def cross_attention(p: Dict, x: torch.Tensor,
@@ -272,8 +332,10 @@ def cross_attention(p: Dict, x: torch.Tensor,
     if cached_kv is not None:
         k, v = cached_kv["k"], cached_kv["v"]
     else:
-        kv = cross_kv_cache(p, kv_source, num_kv_heads=num_kv_heads,
-                            head_dim=head_dim)
+        # the encoder's output as the activations are laid out (a decode
+        # cache may hold it otherwise)
+        kv = cross_kv_cache(p, shard_activation(kv_source),
+                            num_kv_heads=num_kv_heads, head_dim=head_dim)
         k, v = kv["k"], kv["v"]
     return _sdpa(q, k, v, None) @ p["w_o"]
 
@@ -348,19 +410,46 @@ def mla_attention(p: Dict, x: torch.Tensor, *, num_heads: int,
                         rope_base)                         # (B, S, 1, r)
     k_nope, v = _mla_expand(p, c_kv, num_heads, qk_nope_head_dim,
                             v_head_dim)
+    mea = s >= MEA_MIN_SEQ and s % MEA_Q_CHUNK == 0
+    mask = causal_mask(s, s, device=x.device) if causal and not mea \
+        else None
+    out = _mla_core(q_nope, q_rope, k_nope, k_rope[:, :, 0], v, mask,
+                    causal=causal)
+    return out.to(x.dtype) @ p["w_o"]
+
+
+def _mla_core(q_nope, q_rope, k_nope, k_rope, v, mask, *, causal=True):
+    """MLA's attention core, ``(B, Sq, H · vd)``: ``k_rope`` ``(B, Sk, r)``
+    is shared by the heads, ``mask`` broadcastable to ``(B, H, Sq, Sk)``.
+    On a mesh each device attends its own rows and heads."""
+    return head_parallel(
+        functools.partial(_mla_core_local, causal=causal),
+        (q_nope, q_rope, k_nope, k_rope, v, mask),
+        ("b.h.", "b.h.", "b.h.", "b..", "b.h.", MASK_LAYOUT), "b.h",
+        heads=q_nope.shape[2])
+
+
+def _mla_core_local(q_nope, q_rope, k_nope, k_rope, v, mask, *, causal):
+    """:func:`_mla_core` on one device's rows and heads: from
+    ``MEA_MIN_SEQ`` on, the concatenated form ``[q_nope, q_rope] ·
+    [k_nope, k_rope]`` through :func:`_mea` (the scale is ``qd ** -0.5``
+    in both forms), else the scores, the masked softmax and the value
+    product; fp32 (the caller casts)."""
+    b, s, h, dn = q_nope.shape
+    qd = dn + q_rope.shape[-1]
     if s >= MEA_MIN_SEQ and s % MEA_Q_CHUNK == 0:
         q_cat = torch.cat([q_nope, q_rope], dim=-1)        # (B, S, H, qd)
-        k_cat = torch.cat([k_nope, k_rope.expand(
-            b, s, num_heads, qk_rope_head_dim)], dim=-1)
-        return _mea(q_cat, k_cat, v, causal=causal, window=None) @ p["w_o"]
-    scores = _mla_scores(q_nope, q_rope, k_nope, k_rope[:, :, 0], qd)
-    if causal:
-        scores = torch.where(causal_mask(s, s, device=x.device)[0], scores,
-                             NEG)
+        k_cat = torch.cat([k_nope, k_rope[:, :, None].expand(
+            b, s, h, k_rope.shape[-1])], dim=-1)
+        return _mea_local(q_cat, k_cat, v, causal=causal, window=None,
+                          logit_cap=None, q_chunk=MEA_Q_CHUNK,
+                          k_chunk=MEA_K_CHUNK)
+    scores = _mla_scores(q_nope, q_rope, k_nope, k_rope, qd)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
-    out = out.reshape(b, s, num_heads * v_head_dim).to(x.dtype)
-    return out @ p["w_o"]
+    return out.reshape(b, s, h * v.shape[-1])
 
 
 def mla_decode(p: Dict, x: torch.Tensor, cache: Cache, pos: torch.Tensor,
@@ -382,9 +471,6 @@ def mla_decode(p: Dict, x: torch.Tensor, cache: Cache, pos: torch.Tensor,
     kr_cache = _ring_write(cache["k_rope"], kr_new, pos)
     k_nope, v = _mla_expand(p, c_cache, num_heads, qk_nope_head_dim,
                             v_head_dim)
-    scores = _mla_scores(q_nope, q_rope, k_nope, kr_cache, qd)
     valid = ring_valid(c_cache.shape[1], pos)[:, None, None, :]
-    w = torch.softmax(torch.where(valid, scores, NEG), dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
-    out = out.reshape(b, 1, num_heads * v_head_dim).to(x.dtype)
-    return out @ p["w_o"], {"c_kv": c_cache, "k_rope": kr_cache}
+    out = _mla_core(q_nope, q_rope, k_nope, kr_cache, v, valid)
+    return out.to(x.dtype) @ p["w_o"], {"c_kv": c_cache, "k_rope": kr_cache}

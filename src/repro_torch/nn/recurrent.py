@@ -34,6 +34,7 @@ from repro_torch.kernels.wkv_chunk import wkv_chunked_plain
 from repro_torch.nn.layers import (
     Shape, dense_init, full, gelu_tanh, normal, rmsnorm, rmsnorm_params,
 )
+from repro_torch.sharding.context import head_parallel, shard_activation
 
 State = Dict[str, torch.Tensor]
 
@@ -66,7 +67,15 @@ def rwkv_params(generator, d: int, head_dim: int, *, lora_rank: int = 64,
 
 def token_shift(x: torch.Tensor) -> torch.Tensor:
     """``(B, S, d)`` → the previous position's row, zeros at position 0."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return _pad_front(x, 1)[:, :-1]
+
+
+def _pad_front(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``(B, S, w)`` → ``(B, n + S, w)``, ``n`` rows of zeros first: a
+    concatenation, not ``F.pad``, whose sharding rule in torch 2.11 drops
+    a ``DTensor``'s placements on a 3-D mesh (the dry run's two pods)."""
+    return torch.cat([x.new_zeros((x.shape[0], n) + tuple(x.shape[2:])),
+                      x], dim=1)
 
 
 def _rwkv_mix_logw(p: Dict, x: torch.Tensor, x_prev: torch.Tensor
@@ -79,9 +88,11 @@ def _rwkv_mix_logw(p: Dict, x: torch.Tensor, x_prev: torch.Tensor
     v = mix(p["mu_v"]) @ p["w_v"]
     g = mix(p["mu_g"]) @ p["w_g"]
     wx = mix(p["mu_w"])
+    # the LoRA's hidden pinned as the activations are (on a mesh: its
+    # partial sums reduced there, not where DTensor's search puts them)
     log_decay = -torch.exp(
         p["decay_w0"].float()
-        + torch.tanh(wx.float() @ p["decay_A"].float())
+        + torch.tanh(shard_activation(wx.float() @ p["decay_A"].float()))
         @ p["decay_B"].float())
     return r, k, v, g, log_decay
 
@@ -101,21 +112,31 @@ def _time_mix(p: Dict, x: torch.Tensor, head_dim: int,
     """The full-sequence time mix ``(B, S, d)`` → ``(B, S, d)`` with the
     WKV core ``wkv(r, k, v, log_decay, u)`` over ``(B·H, S, hd)`` heads
     (``u`` broadcast over the batch)."""
-    b, s, d = x.shape
-    h = d // head_dim
     r, k, v, g, logw = _rwkv_mix_logw(p, x, token_shift(x))
+    out = head_parallel(functools.partial(_wkv_heads, wkv=wkv),
+                        (r, k, v, logw, p["bonus_u"]),
+                        ("b.h", "b.h", "b.h", "b.h", "h."), "b.h",
+                        heads=x.shape[-1] // head_dim)
+    out = rmsnorm(p["ln_x"], out.to(x.dtype))
+    out = out * F.silu(g)
+    return out @ p["w_o"]
+
+
+def _wkv_heads(r, k, v, logw, u, *, wkv: WKV) -> torch.Tensor:
+    """The WKV core over the ``(B·H, S, hd)`` heads of ``(B, S, H·hd)``
+    inputs (``u`` ``(H, hd)``), back to ``(B, S, H·hd)`` fp32: the time
+    mix's region per (batch row, head), run by ``head_parallel`` on each
+    device's own rows and heads."""
+    b, s, d = r.shape
+    h, head_dim = u.shape
 
     def flat(t):
         return t.reshape(b, s, h, head_dim).transpose(1, 2) \
             .reshape(b * h, s, head_dim).float()
 
-    u = p["bonus_u"].float()[None].expand(b, h, head_dim) \
-        .reshape(b * h, head_dim)
+    u = u.float()[None].expand(b, h, head_dim).reshape(b * h, head_dim)
     out = wkv(flat(r), flat(k), flat(v), flat(logw), u)
-    out = out.reshape(b, h, s, head_dim).transpose(1, 2).reshape(b, s, d)
-    out = rmsnorm(p["ln_x"], out.to(x.dtype))
-    out = out * F.silu(g)
-    return out @ p["w_o"]
+    return out.reshape(b, h, s, head_dim).transpose(1, 2).reshape(b, s, d)
 
 
 def rwkv_apply(p: Dict, x: torch.Tensor, head_dim: int) -> torch.Tensor:
@@ -152,23 +173,30 @@ def rwkv_decode(p: Dict, x: torch.Tensor, state: State, head_dim: int
     """Single-token step. ``state = {"wkv": (B, H, hd, hd), "x_prev":
     (B, d)}``; ``x`` is ``(B, 1, d)``. Returns ``(out (B, 1, d), new
     state)``."""
-    b, _, d = x.shape
-    h = d // head_dim
     x_t = x[:, 0]
     r, k, v, g, decay = _rwkv_mix(p, x_t, state["x_prev"])
+    out, new_wkv = head_parallel(
+        _wkv_step, (r, k, v, decay, p["bonus_u"], state["wkv"]),
+        ("bh", "bh", "bh", "bh", "h.", "bh.."), ("bh", "bh.."),
+        heads=x.shape[-1] // head_dim)
+    out = rmsnorm(p["ln_x"], out.to(x.dtype))
+    out = out * F.silu(g)
+    return (out @ p["w_o"])[:, None, :], {"wkv": new_wkv, "x_prev": x_t}
+
+
+def _wkv_step(r, k, v, decay, u, wkv):
+    """One WKV step of ``(B, H·hd)`` inputs and the ``(B, H, hd, hd)``
+    state: ``(out (B, H·hd) fp32, new state)``, per (batch row, head)."""
+    b, h, head_dim = wkv.shape[0], u.shape[0], u.shape[1]
 
     def heads(t):
         return t.reshape(b, h, head_dim).float()
     r_, k_, v_, w_ = heads(r), heads(k), heads(v), heads(decay)
-    u = p["bonus_u"].float()
+    u = u.float()
     kv = k_[..., :, None] * v_[..., None, :]
-    out = torch.einsum("bhk,bhkv->bhv", r_,
-                       state["wkv"] + u[None, :, :, None] * kv)
-    new_wkv = w_[..., :, None] * state["wkv"] + kv
-    out = out.reshape(b, d).to(x.dtype)
-    out = rmsnorm(p["ln_x"], out)
-    out = out * F.silu(g)
-    return (out @ p["w_o"])[:, None, :], {"wkv": new_wkv, "x_prev": x_t}
+    out = torch.einsum("bhk,bhkv->bhv", r_, wkv + u[None, :, :, None] * kv)
+    new_wkv = w_[..., :, None] * wkv + kv
+    return out.reshape(b, h * head_dim), new_wkv
 
 
 def rwkv_init_state(b: int, d: int, head_dim: int, *, lead: Shape = (),
@@ -249,7 +277,7 @@ def rglru_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
     xw = x @ p["w_x"]                                     # (B, S, w)
     gate = gelu_tanh(x @ p["w_y"])
     cw = p["conv_w"].shape[0]
-    pad = F.pad(xw, (0, 0, cw - 1, 0))
+    pad = _pad_front(xw, cw - 1)
     conv = sum(pad[:, i:i + s] * p["conv_w"][i] for i in range(cw))
     a, scale = _rglru_gates(p, conv)                      # (B, S, w) each
     h = lru_scan(a, scale * conv.float()).to(x.dtype)

@@ -30,12 +30,16 @@ default), ``"chunked"`` (plain PyTorch, only when S is a multiple of
 the card, any S). ``moe_dispatch`` picks the MoE layer's dispatch,
 ``"dense"`` or ``"capacity"`` (``nn/moe.py``). The reference's
 activation and logits pins (``sharding/context.py``: the embeddings, each
-group's output, the encoder's output and the logits) redistribute the
-dry run's ``DTensor``s; without an installed mesh they return their input.
+group's output, the encoder's output and the logits), with a scanned
+layer's input and each branch before its residual add, redistribute the
+dry run's ``DTensor``s, and each layer's weights are gathered over the
+data axes before it runs; without an installed mesh they return their
+input.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -50,7 +54,9 @@ from repro_torch.nn.layers import (
     Shape, dense_init, embed_init, full, mlp_apply, mlp_params, rmsnorm,
     rmsnorm_params,
 )
-from repro_torch.sharding.context import shard_activation, shard_logits
+from repro_torch.sharding.context import (
+    embed_lookup, gather_weights, shard_activation, shard_logits,
+)
 
 PyTree = Any
 
@@ -424,16 +430,19 @@ def block_apply(p: Dict, cfg: ArchConfig, h: torch.Tensor,
         mix = _rwkv_mix(p, cfg, x)
     else:
         mix = rec.rglru_apply(p["rec"], x)
-    h = h + mix
+    # each branch pinned before the residual add: a row-parallel
+    # product's partial sums are reduced here (on a mesh; else the branch)
+    h = h + shard_activation(mix)
     if kind == "dec":
-        h = h + _cross(p, cfg, h, encoder_out)
+        h = h + shard_activation(_cross(p, cfg, h, encoder_out))
     x2 = rmsnorm(p["norm2"], h)
     if "moe" in p:
         out, aux = _moe(p, cfg, x2)
-        return h + out, aux
+        return h + shard_activation(out), aux
     if "cmix" in p:
-        return h + _channel_full(p, x2), None
-    return h + mlp_apply(p["mlp"], x2, cfg.mlp_act), None
+        return h + shard_activation(_channel_full(p, x2)), None
+    out = mlp_apply(p["mlp"], x2, cfg.mlp_act)
+    return h + shard_activation(out), None
 
 
 def _pattern_apply(p: Dict, cfg: ArchConfig, h: torch.Tensor,
@@ -458,16 +467,21 @@ def _run_stack(groups: List[PyTree], plan: List[Tuple[str, int, bool]],
     ``torch.utils.checkpoint`` and is recomputed in the backward, the
     reference's ``jax.checkpoint`` around its scan body (policy "nothing"):
     only the bodies' inputs are kept for the backward. Unscanned layers are
-    not rematerialized, as in the reference."""
+    not rematerialized, as in the reference. ``pin`` also holds each
+    scanned layer's input, as a scan's carry keeps one layout from step
+    to step."""
     aux = None
     for gparams, (kind, n, scanned) in zip(groups, plan):
         layers = unbind_layers(gparams, n) if scanned else gparams
         for lp in layers:
+            if pin is not None and scanned:
+                h = pin(h)      # a scan's carry: one layout every step
             if kind == "pattern":
                 fn, args = _pattern_apply, (lp, cfg, h, positions)
             else:
                 fn, args = block_apply, (lp, cfg, h, positions, kind,
                                          encoder_out)
+            fn = functools.partial(_gathered, fn)
             if remat and scanned:
                 # the blocks draw no random numbers: no RNG state to keep
                 h, a = torch.utils.checkpoint.checkpoint(
@@ -481,22 +495,29 @@ def _run_stack(groups: List[PyTree], plan: List[Tuple[str, int, bool]],
     return h, aux
 
 
+def _gathered(fn, lp, *args):
+    """``fn`` on the layer parameters ``lp`` gathered over the data axes
+    (``sharding.context.gather_weights``; under remat the gather is
+    recomputed with the layer, as XLA rematerializes it)."""
+    return fn(gather_weights(lp), *args)
+
+
 def embed_tokens(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
                  vision_embeds: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """``embed[tokens] · sqrt(d)``, plus ``vision_embeds @ vision_proj``
     when the config has a vision projection and embeddings are given."""
-    h = params["embed"][tokens] * (cfg.d_model ** 0.5)
+    h = embed_lookup(params["embed"], tokens) * (cfg.d_model ** 0.5)
     if cfg.vision_dim and vision_embeds is not None:
-        h = h + vision_embeds @ params["vision_proj"]
+        h = h + vision_embeds @ gather_weights(params["vision_proj"])
     return h
 
 
 def _head(params: PyTree, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     h = rmsnorm(params["final_norm"], h)
     if cfg.tie_embeddings:
-        return h @ params["embed"].T
-    return h @ params["lm_head"]
+        return h @ gather_weights(params["embed"]).T
+    return h @ gather_weights(params["lm_head"])
 
 
 def default_positions(cfg: ArchConfig, tokens: torch.Tensor
@@ -639,9 +660,10 @@ def block_decode(p: Dict, cfg: ArchConfig, h: torch.Tensor, cache: Dict,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
             rope_base=cfg.rope_base, m_rope=cfg.m_rope,
             positions_3d=positions_3d, window=_window(cfg, kind))
-    h = h + mix
+    h = h + shard_activation(mix)
     if kind == "dec":
-        h = h + _cross(p, cfg, h, encoder_out, cache.get("cross_kv"))
+        h = h + shard_activation(_cross(p, cfg, h, encoder_out,
+                                        cache.get("cross_kv")))
         if "cross_kv" in cache:
             new_cache["cross_kv"] = cache["cross_kv"]
     x2 = rmsnorm(p["norm2"], h)
@@ -651,9 +673,10 @@ def block_decode(p: Dict, cfg: ArchConfig, h: torch.Tensor, cache: Dict,
         else:
             out = moe_lib.moe_apply_decode(p["moe"], x2, top_k=cfg.top_k,
                                            act=cfg.mlp_act)
-        return h + out, new_cache
+        return h + shard_activation(out), new_cache
     if "mlp" in p:
-        return h + mlp_apply(p["mlp"], x2, cfg.mlp_act), new_cache
+        return h + shard_activation(mlp_apply(p["mlp"], x2,
+                                                  cfg.mlp_act)), new_cache
     c = p["cmix"]
     x_prev = cache["cmix_x_prev"]
     x2_t = x2[:, 0]
@@ -661,7 +684,7 @@ def block_decode(p: Dict, cfg: ArchConfig, h: torch.Tensor, cache: Dict,
     r = torch.sigmoid((x2_t + (x_prev - x2_t) * c["mu_r"]) @ c["w_r"])
     out = (r * (torch.square(F.relu(k)) @ c["w_v"]))[:, None]
     new_cache["cmix_x_prev"] = x2_t
-    return h + out, new_cache
+    return h + shard_activation(out), new_cache
 
 
 def _block_cache(cfg: ArchConfig, kind: str, batch: int, seq_len: int, *,
@@ -771,6 +794,9 @@ def decode_step(params: PyTree, cfg: ArchConfig, tokens: torch.Tensor,
             lp = layer_params(gparams, i) if scanned else gparams[i]
             lc = layer_params(gcache, i) if scanned else gcache[i]
             kinds = _pattern(cfg) if kind == "pattern" else (kind,)
+            if scanned:
+                h = shard_activation(h)     # a scan's carry: one layout
+            lp = gather_weights(lp)
             for j, kd in enumerate(kinds):
                 sub = f"sub{j}" if kind == "pattern" else None
                 bp, bc = (lp[sub], lc[sub]) if sub else (lp, lc)

@@ -19,11 +19,15 @@ through it, and it keeps, per device:
 * ``bytes``: operand + result bytes of every op that is not a view, the
   reference's convention for top-level instructions;
 * ``collectives``: the functional collectives ``DTensor`` issues to
-  redistribute and ``torch.distributed``'s own (a multi-process step's,
+  redistribute (a ``Shard(i) -> Shard(j)`` move as the one
+  ``_dtensor.shard_dim_alltoall`` a card's mesh issues, not the ``cpu``
+  mesh's all-gather and chunk: :func:`card_alltoall`), those a region of
+  ``sharding/context.py`` issues itself (a decode step's softmax
+  all-reduces), and ``torch.distributed``'s own (a multi-process step's,
   counted as ``analysis/trace.py`` counts them), ``{kind: {count,
-  bytes}}`` over the reference's
-  ``COLLECTIVE_KINDS`` at result size, twice for an all-reduce
-  (``COLLECTIVE_WIRE_FACTOR``); a group of one rank moves nothing;
+  bytes}}`` over the reference's ``COLLECTIVE_KINDS`` at result size,
+  twice for an all-reduce (``COLLECTIVE_WIRE_FACTOR``), the reference's
+  rule; a group of one rank moves nothing;
 * ``kernels``: each hand-written kernel's calls, operations and bytes
   from its module's own formulas (the ``*_ops`` and ``*_bytes`` that
   ``chip_smoke.py``'s bounds use), apart from the aten counts: a kernel
@@ -32,11 +36,16 @@ through it, and it keeps, per device:
 * ``peak_bytes``: the largest sum of live shard storages while the step
   runs, arguments included — a trace's peak, not the card's allocator.
 
-Where ``DTensor`` has no sharding rule for an op (a reshape merging two
-sharded dims, ``unbind`` of a sharded dim), :class:`ReshardMode` gathers
-the op's inputs, first dropping strided and partial placements, then
-every split but the batch split of dim 0, then all of them, as XLA's
-partitioner inserts a reshard, and counts it in ``reshards``.
+The regions whose work is independent per (batch row, head) — the
+attention core, the WKV — run on each device's local shards
+(``sharding.context.head_parallel``), so the reshapes that merge the
+batch with the heads never meet a ``DTensor``. Where ``DTensor`` still
+has no sharding rule for an op (``argmax`` over vocabulary-split logits,
+``unbind`` of a split dim, a view of a product whose merged rows it split
+over two axes), :class:`ReshardMode` gathers the op's inputs, first
+dropping strided and partial placements, then every split but the batch
+split of dim 0, then all of them, as XLA's partitioner inserts a reshard,
+and counts it in ``reshards``.
 
 "Loop-aware": the port's layer stacks are Python loops, so a deep model
 is traced with each scanned group cut to 2 and 3 layers (the first
@@ -75,8 +84,9 @@ FUNCTIONAL_KINDS: Dict[str, str] = {
     "all_reduce": "all-reduce",
     "all_reduce_coalesced": "all-reduce",
     "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",     # _dtensor: Shard(i) -> Shard(j)
 }
-_FUNCTIONAL_NS = ("_c10d_functional", "c10d_functional")
+_FUNCTIONAL_NS = ("_c10d_functional", "c10d_functional", "_dtensor")
 
 
 def tensor_leaves(tree) -> List[torch.Tensor]:
@@ -225,13 +235,41 @@ class StepCounter(FakeTensorMode):
 
     @contextlib.contextmanager
     def step(self):
-        """Count what runs inside (kernel calls too)."""
+        """Count what runs inside (kernel calls too), ``DTensor``'s
+        shard-to-shard moves as all-to-alls (:func:`card_alltoall`)."""
         self.reset()
         self.counting = True
         try:
-            yield self.counts
+            with card_alltoall():
+                yield self.counts
         finally:
             self.counting = False
+
+
+def _shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """``DTensor``'s ``Shard(gather_dim) -> Shard(shard_dim)`` move over
+    ``mesh_dim`` as a card's mesh issues it: one
+    ``_dtensor.shard_dim_alltoall`` on the axis's group."""
+    group = mesh.get_group(mesh_dim)
+    return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim,
+                                                 shard_dim, group.group_name)
+
+
+@contextlib.contextmanager
+def card_alltoall():
+    """Inside, a shard-to-shard redistribution on the fake mesh issues the
+    all-to-all a card's mesh issues. The fake mesh is a ``cpu`` mesh
+    (``launch/mesh.py``), and on one ``DTensor`` falls back to an
+    all-gather and a chunk (gloo has no all-to-all): counted so, the move
+    would read as an all-gather of ``n`` times its result, where the
+    reference counts one all-to-all at its result size."""
+    from torch.distributed.tensor import placement_types
+    own = placement_types.shard_dim_alltoall
+    placement_types.shard_dim_alltoall = _shard_dim_alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = own
 
 
 # what DTensor raises for an op it cannot shard: no strategy, a

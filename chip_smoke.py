@@ -103,7 +103,7 @@ Phases, each of which fails the run on error:
    plain encoders the same embeddings of the trained model. Two runs of
    one full-graph step from the same state give bitwise-equal losses and
    parameters, on the kernel path and on the default path (no
-   --use-kernel); the kernel path's steady t_device_step (epochs 2-3) is
+   --use-kernel); the kernel path's steady t_step (epochs 2-3) is
    no larger than the plain path's.
 6b. Training, edge mini-batches at full width: --batch-size 4096
    --table-shards 4 --pipeline async --use-kernel, one epoch (24 steps of
@@ -114,7 +114,7 @@ Phases, each of which fails the run on error:
    --gather-dedup must give bitwise-equal per-step losses and final
    parameters, and one without --use-kernel per-step losses within
    rtol=1e-3, atol=1e-4; on the serial pipeline the kernel path's epoch
-   t_device_step no larger than the plain path's; the default path at
+   t_step no larger than the plain path's; the default path at
    --table-shards 1 and on the serial pipeline bitwise the default path
    at 4 shards, async; the 4-shard
    ranking metrics == the dense ranking from the same embeddings; two runs
@@ -4517,7 +4517,7 @@ def plan_placements(trainer, rounds=4):
     (``segment_plan_host``) in the collator, copied with the batch.
     ``rounds`` epochs each of the first two, two of the third. First the
     host plans of one batch are held bitwise against the card's. Returns
-    each placement's epochs: t_epoch, t_device_step, host build and wall
+    each placement's epochs: t_epoch, t_step, host build and wall
     s."""
     import types
     import torch
@@ -4588,7 +4588,7 @@ def plan_placements(trainer, rounds=4):
             t0 = time.perf_counter()
             rec = trainer.train_epoch()
             out[name].append(dict(t_epoch=rec["t_epoch"],
-                                  t_device_step=rec["t_device_step"],
+                                  t_step=rec["t_step"],
                                   t_host_build=rec["t_host_build"],
                                   wall_s=time.perf_counter() - t0))
     finally:
@@ -4758,8 +4758,8 @@ def run_citation2(dev, part, mbs, phase2):
     for label, r in runs.items():
         h = r["history"][0]
         log(f"[phase 6e] {label} run: {h['num_batches']} steps, losses "
-            f"{h['losses']}, t_epoch {h['t_epoch']:.3f} s, device step "
-            f"{h['t_device_step']:.3f} s, host exposed "
+            f"{h['losses']}, t_epoch {h['t_epoch']:.3f} s, step "
+            f"{h['t_step']:.3f} s, host exposed "
             f"{h['t_get_compute_graph']:.3f} s of {h['t_host_build']:.3f} s "
             f"(overlap {h['overlap_fraction']:.3f}), {r['wall_s']:.1f} s in "
             f"all; {r['metrics']}")
@@ -5534,10 +5534,10 @@ def main() -> int:
         f"--use-kernel): loss {fg_plain_loss!r} and every parameter bitwise "
         f"equal")
     # the kernel path's steady step is no slower than the plain path's
-    fg_step = {k: float(np.mean([h["t_device_step"]
+    fg_step = {k: float(np.mean([h["t_step"]
                                  for h in r["history"][1:]]))
                for k, r in train.items()}
-    log(f"[phase 6] steady full-graph t_device_step (epochs 2-{epochs}): "
+    log(f"[phase 6] steady full-graph t_step (epochs 2-{epochs}): "
         f"kernel {1e3 * fg_step['kernel']:.2f} ms, plain "
         f"{1e3 * fg_step['plain']:.2f} ms")
     if fg_step["kernel"] > fg_step["plain"]:
@@ -5553,7 +5553,7 @@ def main() -> int:
     for label, r in mb.items():
         h = r["history"][0]
         log(f"[phase 6b] {label} run: {h['num_batches']} steps, mean loss "
-            f"{h['loss']!r}, device step {h['t_device_step']:.3f} s, host "
+            f"{h['loss']!r}, step {h['t_step']:.3f} s, host "
             f"exposed {h['t_get_compute_graph']:.3f} s of "
             f"{h['t_host_build']:.3f} s built (overlap "
             f"{h['overlap_fraction']:.3f}), {r['wall_s']:.1f} s in all; "
@@ -5591,12 +5591,12 @@ def main() -> int:
     log("[phase 6b] default path (no --use-kernel): per-step losses and "
         "final parameters bitwise equal for --table-shards 1 and 4, "
         "--pipeline serial and async")
-    # the kernel path's epoch device step against the plain path's, both
+    # the kernel path's epoch step time against the plain path's, both
     # on the serial pipeline (on the async one both steps wait on the
     # host, whose threads build the next batches: its pair is printed)
-    mb_step = {k: mb[k]["history"][0]["t_device_step"]
+    mb_step = {k: mb[k]["history"][0]["t_step"]
                for k in ("serial", "plain_serial", "main", "plain")}
-    log(f"[phase 6b] mini-batch epoch t_device_step, serial pipeline: "
+    log(f"[phase 6b] mini-batch epoch t_step, serial pipeline: "
         f"kernel {mb_step['serial']:.3f} s, plain "
         f"{mb_step['plain_serial']:.3f} s; async pipeline: kernel "
         f"{mb_step['main']:.3f} s, plain {mb_step['plain']:.3f} s")
@@ -5644,8 +5644,8 @@ def main() -> int:
         for name, runs in placements[label].items():
             log(f"[phase 6b] {label} path, async epoch with the plans built "
                 f"{PLACEMENT[name]}: t_epoch "
-                f"{[round(x['t_epoch'], 3) for x in runs]} s, device step "
-                f"{[round(x['t_device_step'], 3) for x in runs]} s, host "
+                f"{[round(x['t_epoch'], 3) for x in runs]} s, step "
+                f"{[round(x['t_step'], 3) for x in runs]} s, host "
                 f"build {[round(x['t_host_build'], 3) for x in runs]} s, "
                 f"wall {[round(x['wall_s'], 3) for x in runs]} s")
     log("[phase 6b] host-built plans == card-built plans, bitwise, on one "
@@ -5660,7 +5660,7 @@ def main() -> int:
     for label, r in mb8.items():
         h = r["history"][0]
         log(f"[phase 6c] int8 {label} run: {h['num_batches']} steps, mean "
-            f"loss {h['loss']!r}, device step {h['t_device_step']:.3f} s, "
+            f"loss {h['loss']!r}, step {h['t_step']:.3f} s, "
             f"host exposed {h['t_get_compute_graph']:.3f} s of "
             f"{h['t_host_build']:.3f} s built (overlap "
             f"{h['overlap_fraction']:.3f}), {r['wall_s']:.1f} s in all; "
@@ -5830,12 +5830,12 @@ def main() -> int:
     profiles["minibatch_pipeline"] = {
         k: h[k] for k in ("num_batches", "t_get_compute_graph",
                           "t_host_build", "t_warmup", "overlap_fraction",
-                          "t_device_step", "t_epoch")}
+                          "t_step", "t_epoch")}
     log(f"[phase 7] async pipeline over the main epoch: exposed wait "
         f"{h['t_get_compute_graph']:.4f} s of {h['t_host_build']:.4f} s "
         f"built, overlap {h['overlap_fraction']:.4f}, warm-up "
         f"{h['t_warmup']:.4f} s; {h['num_batches']} steps, "
-        f"{1e3 * h['t_device_step'] / h['num_batches']:.2f} ms per step")
+        f"{1e3 * h['t_step'] / h['num_batches']:.2f} ms per step")
 
     # phase 8f: LM training at full width, once phase 7 has released the
     # phase-8 weights; counts reset and read inside run_lm_train around

@@ -5,7 +5,9 @@ Stands up a :class:`repro_torch.serving.ShardedKGEServer` over a synthetic
 entity table and decoder parameters (both drawn from numpy generators
 seeded by ``--seed``), wraps it in the dynamic-batching
 :class:`repro_torch.serving.KGEServeEngine`, and drives a Zipf-skewed query
-stream through it — printing p50/p99 request latency and QPS, and the
+stream through it — printing p50/p99 request latency and QPS, the
+engine's phases and counts (the spans and counters of
+:mod:`repro_torch.tracing`, recorded over the stream), and the
 sharded == dense top-k equality check (over the dequantized table with
 ``--table-dtype int8``). The process exits non-zero when the check fails.
 Runs on the GPU unless ``--device cpu`` is given.
@@ -130,6 +132,7 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
     """Serve the request stream and check sharded == dense. Returns the
     latency numbers, the stored table's device bytes and
     ``equal_dense``."""
+    from repro_torch import tracing
     from repro_torch.device import resolve_device
     from repro_torch.serving import KGEServeEngine
 
@@ -157,14 +160,16 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
     engine.run()
 
     lat = []
+    tracing.reset()
     t_start = time.perf_counter()
-    for lo in range(0, args.requests, args.slots):
-        for i in range(lo, min(lo + args.slots, args.requests)):
-            engine.submit(int(heads[i]), int(rels[i]), k=engine.max_k)
-        t0 = time.perf_counter()
-        done = engine.run()     # results come back to the host: synchronous
-        dt = time.perf_counter() - t0
-        lat.extend([dt] * len(done))     # batch-synchronous latency
+    with tracing.recording():
+        for lo in range(0, args.requests, args.slots):
+            for i in range(lo, min(lo + args.slots, args.requests)):
+                engine.submit(int(heads[i]), int(rels[i]), k=engine.max_k)
+            t0 = time.perf_counter()
+            done = engine.run()     # answers on the host: synchronous
+            dt = time.perf_counter() - t0
+            lat.extend([dt] * len(done))     # batch-synchronous latency
     wall = time.perf_counter() - t_start
     lat_ms = np.sort(np.array(lat) * 1e3)
     out = {"requests": args.requests, "wall_s": wall,
@@ -177,6 +182,8 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
     print(f"[serve] {args.requests} requests in {wall:.2f}s — "
           f"{out['qps']:.1f} QPS, "
           f"p50={out['p50_ms']:.2f}ms p99={out['p99_ms']:.2f}ms")
+    print("[serve] the engine's phases and counts (repro_torch.tracing):\n"
+          + tracing.table(tracing.snapshot()))
     if args.cache_size:
         tot = server.cache_hits + server.cache_misses
         print(f"[serve] head cache: {server.cache_hits}/{tot} hits "

@@ -4,7 +4,9 @@
 (partition → expand → full edge batch, or edge mini-batches with
 ``--batch-size``, per trainer → gradient mean → Adam) at a ``--scale`` of
 the synthetic FB15k-237 stand-in (or real files under ``--data-root``),
-then the filtered test evaluation. ``--table-shards`` row-shards the
+prints a table of the epochs' spans and counters (:mod:`repro_torch.
+tracing`: each phase's count and median host ms), then runs the
+filtered test evaluation. ``--table-shards`` row-shards the
 entity table (the simulated exchange, ``--gather-exchange fused`` or
 ``masked_sum``; ``--gather-dedup`` dedupes mini-batch gather plans), and
 the ranking is then sharded over its row blocks. ``--table-dtype int8``
@@ -193,6 +195,8 @@ def run(args: argparse.Namespace, verbose: bool = True) -> Dict:
     """Train, then evaluate on the test split; prints the reference's
     per-epoch and ``[eval]`` lines (``verbose``: on rank 0 only). Returns
     the trainer, the per-epoch history and the test metrics."""
+    from repro_torch import tracing
+
     say = print if verbose else (lambda *a, **k: None)
     trainer = make_trainer(args)
     cfg, splits = trainer.cfg, trainer.splits
@@ -220,12 +224,16 @@ def run(args: argparse.Namespace, verbose: bool = True) -> Dict:
             f"spmd step on a {trainer.mesh.shape} process mesh")
     say(f"[train] {step}; RF={trainer.replication_factor:.2f}; {shape}",
         flush=True)
-    history = trainer.fit(log_fn=lambda r: say(
-        f"  epoch {r['epoch']:3d} loss={r['loss']:.4f} "
-        f"t={r['t_epoch']:.2f}s (host exposed "
-        f"{r['t_get_compute_graph']:.2f}s of {r['t_host_build']:.2f}s, "
-        f"overlap {r['overlap_fraction']:.0%})", flush=True))
+    tracing.reset()
+    with tracing.recording():
+        history = trainer.fit(log_fn=lambda r: say(
+            f"  epoch {r['epoch']:3d} loss={r['loss']:.4f} "
+            f"t={r['t_epoch']:.2f}s (host exposed "
+            f"{r['t_get_compute_graph']:.2f}s of {r['t_host_build']:.2f}s, "
+            f"overlap {r['overlap_fraction']:.0%})", flush=True))
     trainer.close()
+    say("[train] the step's phases and counts (repro_torch.tracing):\n"
+        + tracing.table(tracing.snapshot()), flush=True)
     t0 = time.perf_counter()
     metrics = trainer.evaluate("test")
     shards = (cfg.num_table_shards if trainer.mesh is None

@@ -45,6 +45,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.eval.ranking import CSRFilterIndex
 from repro_torch.eval.sharded import shard_filter_bias_block, shard_scores
@@ -173,6 +174,7 @@ class ShardedKGEServer:
                     self.layout.num_shards, b,
                     self.layout.rows_per_shard).contiguous()
                 self._unfiltered_bias[b] = stack
+                tracing.count("serve.server.bias_built")
             return stack
         if self.filter_index is None:
             raise ValueError(
@@ -187,6 +189,7 @@ class ShardedKGEServer:
             shard_filter_bias_block(
                 self.filter_index, batch, self.layout, s, resolved)
             for s in range(self.layout.num_shards)])
+        tracing.count("serve.server.bias_built")
         return torch.from_numpy(bias).to(self.device)
 
     def topk_tails(self, heads: np.ndarray, rels: np.ndarray, k: int = 10,
@@ -204,26 +207,32 @@ class ShardedKGEServer:
         k = min(int(k), self.num_entities)
         heads = np.asarray(heads)
         rels = np.asarray(rels)
-        bias = self._bias_stack(heads, rels, filtered)
-        h = self.head_embeddings(heads)
-        rel = torch.from_numpy(rels.astype(np.int64)).to(self.device)
-        q, q_bias = self.decoder.prepare_query(self.params, h, rel)
+        with tracing.span("serve.server.bias"):
+            bias = self._bias_stack(heads, rels, filtered)
+        with tracing.span("serve.server.heads"):
+            h = self.head_embeddings(heads)
+        with tracing.span("serve.server.query"):
+            rel = torch.from_numpy(rels.astype(np.int64)).to(self.device)
+            q, q_bias = self.decoder.prepare_query(self.params, h, rel)
 
         rows = self.layout.rows_per_shard
         kp = min(k, rows)    # per-shard k': enough for any global winner
         vals_parts, ids_parts = [], []
         for s in range(self.layout.num_shards):
-            scores = shard_scores(self.decoder, self.params,
-                                  table_block(self.table, s), q, q_bias,
-                                  bias[s],
-                                  prepared=None if self._prepared is None
-                                  else self._prepared[s])
-            v, i = topk_padded(scores, kp)
-            vals_parts.append(v)
-            ids_parts.append(i + s * rows)   # local → global id
-        mv, mi = merge_topk(torch.cat(vals_parts, dim=1),
-                            torch.cat(ids_parts, dim=1), k)
-        return mv.cpu().numpy(), mi.cpu().numpy()
+            with tracing.span("serve.server.score"):
+                scores = shard_scores(self.decoder, self.params,
+                                      table_block(self.table, s), q, q_bias,
+                                      bias[s],
+                                      prepared=None if self._prepared is None
+                                      else self._prepared[s])
+                v, i = topk_padded(scores, kp)
+                vals_parts.append(v)
+                ids_parts.append(i + s * rows)   # local → global id
+        with tracing.span("serve.server.merge"):
+            mv, mi = merge_topk(torch.cat(vals_parts, dim=1),
+                                torch.cat(ids_parts, dim=1), k)
+        with tracing.span("serve.server.fetch"):   # waits for the card
+            return mv.cpu().numpy(), mi.cpu().numpy()
 
 
 # ---------------------------------------------------------------------- #
@@ -293,29 +302,36 @@ class KGEServeEngine:
         it, and return the completed requests."""
         if not self._queue:
             return []
-        if self.policy == "smallest-k-first":
-            reqs = sorted(self._queue,
-                          key=lambda r: (r.k, r.request_id))[:self.slots]
-            for r in reqs:
-                self._queue.remove(r)
-        else:
-            reqs = [self._queue.popleft()
-                    for _ in range(min(self.slots, len(self._queue)))]
-        # fixed-width batch: pad slots repeat a dummy query (entity and
-        # relation 0 always exist) and are dropped below
-        heads = np.zeros(self.slots, np.int64)
-        rels = np.zeros(self.slots, np.int64)
-        for i, r in enumerate(reqs):
-            heads[i] = r.head
-            rels[i] = r.relation
-        scores, tails = self.server.topk_tails(
-            heads, rels, self.max_k, filtered=self.filtered)
-        for i, r in enumerate(reqs):
-            kk = min(r.k, self.server.num_entities)
-            r.scores = scores[i, :kk]
-            r.tails = tails[i, :kk]
-            r.done = True
-        return reqs
+        with tracing.span("serve.engine.step"):
+            with tracing.span("serve.engine.admit"):
+                tracing.count("serve.engine.queue_depth", len(self._queue))
+                if self.policy == "smallest-k-first":
+                    reqs = sorted(self._queue, key=lambda r: (
+                        r.k, r.request_id))[:self.slots]
+                    for r in reqs:
+                        self._queue.remove(r)
+                else:
+                    reqs = [self._queue.popleft()
+                            for _ in range(min(self.slots, len(self._queue)))]
+                # fixed-width batch: pad slots repeat a dummy query (entity
+                # and relation 0 always exist) and are dropped below
+                heads = np.zeros(self.slots, np.int64)
+                rels = np.zeros(self.slots, np.int64)
+                for i, r in enumerate(reqs):
+                    heads[i] = r.head
+                    rels[i] = r.relation
+                tracing.count("serve.engine.admitted", len(reqs))
+                tracing.count("serve.engine.pad_slots",
+                              self.slots - len(reqs))
+            scores, tails = self.server.topk_tails(
+                heads, rels, self.max_k, filtered=self.filtered)
+            with tracing.span("serve.engine.answer"):
+                for i, r in enumerate(reqs):
+                    kk = min(r.k, self.server.num_entities)
+                    r.scores = scores[i, :kk]
+                    r.tails = tails[i, :kk]
+                    r.done = True
+            return reqs
 
     def run(self) -> List[KGEQuery]:
         """Drain the queue; returns every completed request in completion

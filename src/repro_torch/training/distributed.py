@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from repro_torch import tracing
 from repro_torch.training.optimizer import OptState, Optimizer
 
 # loss_fn(params, batch_slice, generator) -> (loss, aux)
@@ -76,10 +77,12 @@ def trainer_grads(loss_fn: LossFn, model: nn.Module,
     does not reach."""
     params = [p for _, p in model.named_parameters()]
     for i, gen in enumerate(generators):
-        loss, aux = loss_fn(model, trainer_slice(batch, i), gen)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, torch.autograd.grad(
-                     loss, params, allow_unused=True))]
+        with tracing.span("train.forward"):
+            loss, aux = loss_fn(model, trainer_slice(batch, i), gen)
+        with tracing.span("train.backward"):
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, torch.autograd.grad(
+                         loss, params, allow_unused=True))]
         yield (loss.detach(), {k: v.detach() for k, v in aux.items()},
                grads)
 
@@ -95,18 +98,22 @@ def mean_step(model: nn.Module, optimizer: Optimizer, opt_state: OptState,
     means."""
     names, params = zip(*model.named_parameters())
     total, losses, aux_sums, num = None, [], {}, 0
+    # each pull of ``per_trainer`` runs a trainer's forward and backward,
+    # so the update's span brackets each addition, never the loop
     for loss, aux, grads in per_trainer:
-        total = list(grads) if total is None else [
-            a + g for a, g in zip(total, grads)]
-        losses.append(loss)
-        for k, v in aux.items():
-            aux_sums[k] = aux_sums.get(k, 0) + v
-        num += 1
-    grads = {n: g / num for n, g in zip(names, total)}
-    current = {n: p.detach() for n, p in zip(names, params)}
-    opt_state = optimizer.update_in_place(grads, opt_state, current)
-    metrics = {"loss": torch.stack(losses).mean(),
-               **{k: v / num for k, v in aux_sums.items()}}
+        with tracing.span("train.update"):
+            total = list(grads) if total is None else [
+                a + g for a, g in zip(total, grads)]
+            losses.append(loss)
+            for k, v in aux.items():
+                aux_sums[k] = aux_sums.get(k, 0) + v
+            num += 1
+    with tracing.span("train.update"):
+        grads = {n: g / num for n, g in zip(names, total)}
+        current = {n: p.detach() for n, p in zip(names, params)}
+        opt_state = optimizer.update_in_place(grads, opt_state, current)
+        metrics = {"loss": torch.stack(losses).mean(),
+                   **{k: v / num for k, v in aux_sums.items()}}
     return opt_state, metrics
 
 
@@ -157,7 +164,8 @@ def make_spmd_train_step(loss_fn: LossFn, optimizer: Optimizer,
         world = dist.get_world_size(data_group)
         gathered = local.new_empty((world * local.shape[0],
                                     local.shape[1]))
-        dist.all_gather_into_tensor(gathered, local, group=data_group)
+        with tracing.span("train.exchange"):
+            dist.all_gather_into_tensor(gathered, local, group=data_group)
         n = sum(sizes)
 
         def unpack(row):

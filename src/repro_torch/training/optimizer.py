@@ -23,6 +23,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import tracing
+
 Params = Dict[str, torch.Tensor]
 LearningRate = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
@@ -109,11 +111,14 @@ def adam(learning_rate: LearningRate, b1: float = 0.9, b2: float = 0.999,
                         nu={k: torch.zeros_like(v) for k, v in params.items()})
 
     def scalars(state: OptState):
-        step = state.step + 1
-        t = step.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(b1, device=t.device), t)
-        bc2 = 1 - torch.pow(torch.tensor(b2, device=t.device), t)
-        return step, bc1, bc2, _lr_at(learning_rate, step)
+        # each tensor made from a host number is a copy from pageable
+        # memory, which waits for the card's stream to drain
+        with tracing.span("train.scalars_wait"):
+            step = state.step + 1
+            t = step.to(torch.float32)
+            bc1 = 1 - torch.pow(torch.tensor(b1, device=t.device), t)
+            bc2 = 1 - torch.pow(torch.tensor(b2, device=t.device), t)
+            return step, bc1, bc2, _lr_at(learning_rate, step)
 
     def leaf(g, m, v, p, bc1, bc2, lr):
         gf = g.float()

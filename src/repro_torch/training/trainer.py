@@ -34,6 +34,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.convert import kge_tree
 from repro_torch.core import KnowledgeGraph
 from repro_torch.data.pipeline import (
@@ -292,9 +293,10 @@ class KGETrainer:
         full-graph path (one step per epoch), per (epoch, step) on the
         mini-batch path; under spmd this rank's trainers' only (the same
         streams the simulated step gives them)."""
-        gens = trainer_generators(self._seed, self.cfg.num_trainers, epoch,
-                                  self.device,
-                                  None if self._fullgraph else step)
+        with tracing.span("train.generators"):
+            gens = trainer_generators(self._seed, self.cfg.num_trainers,
+                                      epoch, self.device,
+                                      None if self._fullgraph else step)
         if self.mesh is None:
             return gens
         return gens[self.mesh.trainers(self.cfg.num_trainers)]
@@ -303,10 +305,13 @@ class KGETrainer:
         """One update on a trainer-stacked device batch; returns the loss
         on the host. Reading the loss waits for the step, and then the
         sharded gathers' bad-slot flag is read, without another wait."""
-        self.opt_state, m = self._step(self.params, self.opt_state, batch,
-                                       generators)
-        loss = float(m["loss"])
-        raise_if_flagged(self.device)
+        with tracing.span("train.step"):
+            self.opt_state, m = self._step(self.params, self.opt_state,
+                                           batch, generators)
+            with tracing.span("train.loss_wait"):   # waits for the card
+                loss = float(m["loss"])
+            with tracing.span("train.flag_check"):
+                raise_if_flagged(self.device)
         return loss
 
     def train_epoch(self) -> Dict[str, float]:
@@ -314,12 +319,12 @@ class KGETrainer:
         partition), or one update per stacked mini-batch; each step's time
         ends with its loss on the host."""
         self._epoch += 1
-        t_device, losses, nbatches = 0.0, [], 0
+        t_step, losses, nbatches = 0.0, [], 0
         for batch in self.pipeline.device_batches(self._epoch):
             gens = self.step_generators(self._epoch, nbatches)
             t0 = time.perf_counter()
             losses.append(self.step(batch, gens))
-            t_device += time.perf_counter() - t0
+            t_step += time.perf_counter() - t0
             nbatches += 1
         stats = self.pipeline.last_stats
         rec = {
@@ -330,8 +335,8 @@ class KGETrainer:
             "t_host_build": stats.host_build_s,
             "t_warmup": stats.warmup_s,
             "overlap_fraction": stats.overlap_fraction(),
-            "t_device_step": t_device,
-            "t_epoch": stats.warmup_s + stats.exposed_wait_s + t_device,
+            "t_step": t_step,       # host wall time of the step calls
+            "t_epoch": stats.warmup_s + stats.exposed_wait_s + t_step,
             "num_batches": nbatches,
         }
         self.timings.append(rec)

@@ -127,8 +127,7 @@ def test_trainer_losses_and_params_match_reference(trained):
                                    err_msg=name, **LOSS_TOL)
     rec = hist[0]
     assert rec["num_batches"] == 1 and rec["epoch"] == 1
-    assert rec["t_device_step"] > 0 and rec["t_epoch"] >= \
-        rec["t_device_step"]
+    assert rec["t_step"] > 0 and rec["t_epoch"] >= rec["t_step"]
     assert int(tr.opt_state.step) == 3
 
 
